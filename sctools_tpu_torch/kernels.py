@@ -6,7 +6,10 @@ file (a directory git ignores), under a name that carries the hash of the
 source, so an edited source is rebuilt and never shadowed by a stale
 library. The library is bound with ``ctypes``: pointers and the stream go
 over as ``c_void_p``, and the entry point returns ``cudaGetLastError()``,
-which the caller turns into an exception with ``check``.
+which the caller turns into an exception with ``check``. A source may include
+the toolkit's ``cuda.h`` for driver types such as ``CUtensorMap``; it then
+fetches driver functions through ``cudaGetDriverEntryPoint``, so no library
+links ``-lcuda`` and the flags below are all a build needs.
 
 The build runs inside ``library``, never at import: the CPU tests import
 every module, and the CPU machine has no nvcc.

@@ -24,6 +24,11 @@ Two versions of the one function, on the same inputs (a uint8 code block
   (the port of the Pallas kernel ``_pallas_kernel``, :125-145) or the call
   raises. There is no fallback from the kernel to the plain version.
 
+The kernel computes the same one-hot product on the tensor cores, in int8:
+it reads ``[rows, Kpad]`` int8 one-hot tables (``onehot_int8``), the
+whitelist's built once by ``make_table`` and the queries' expanded per batch
+by the wrapper.
+
 The whitelist's device table is cached by content hash (:200-238), so
 correctors rebuilt over the same whitelist reuse one upload.
 """
@@ -55,13 +60,13 @@ del _col, _base
 # scores at a time (4 GiB at n_q = 65,536) instead of [n_q, n_w]
 PLAIN_CHUNK = 16384
 
-# the kernel packs 16 bases per 32-bit word and is built for up to 4 words
+# the kernel is built for one-hot rows of up to 8 k-steps of 32 bytes (wgmma
+# k32 in int8): barcodes of up to 64 bases
 KERNEL_MAX_LENGTH = 64
+_K_STEP = 32
 
-_BASES_PER_WORD = 16
-
-# the C entry point whitelist_correct(queries, n_q, length, table, n_w, out,
-# stream), which returns cudaGetLastError()
+# the C entry point whitelist_correct(q_onehot, n_q, length, w_onehot, n_w,
+# out, stream), which returns cudaGetLastError()
 _KERNEL_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -91,46 +96,39 @@ def barcode_codes(barcodes: Barcodes, length: int) -> np.ndarray:
     return _codes_and_lengths(barcodes, length)[0]
 
 
-def onehot_codes(codes: torch.Tensor) -> torch.Tensor:
-    """[n, L] codes -> [n, 4L] float32 one-hot; code 4 gives a zero row."""
+def onehot_codes(codes: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[n, L] codes -> [n, 4L] one-hot of ``dtype``; code 4 gives a zero group."""
     eq = codes[:, :, None] == torch.arange(4, dtype=codes.dtype, device=codes.device)
-    return eq.reshape(codes.shape[0], -1).to(torch.float32)
+    return eq.reshape(codes.shape[0], -1).to(dtype)
 
 
-def pack_codes(codes: torch.Tensor) -> torch.Tensor:
-    """[n, L] codes -> [n, 2W] int32 words, W = ceil(L / 16): the kernel's layout.
+def onehot_width(length: int) -> int:
+    """Kpad: the kernel's row width in bytes, 4L rounded up to a 32-byte k-step."""
+    return _K_STEP * -(-4 * length // _K_STEP)
 
-    Per row, W words of bases (2 bits each, base p of a word at bits
-    2p..2p+1) and then W words of N masks (bit 2p set when base p is not
-    ACGT). Positions past L are 0 in both, so they never count as a
-    mismatch. The words are uint32 bit patterns stored as int32.
+
+def onehot_int8(codes: torch.Tensor) -> torch.Tensor:
+    """[n, L] codes -> [n, Kpad] int8 one-hot, the kernel's layout.
+
+    The columns of ``onehot_codes`` as 0/1 bytes, then zero columns up to
+    ``onehot_width(L)``; code 4 gives a zero group, as in the JAX package's
+    ``onehot_barcodes`` (:60-76).
     """
-    n, length = codes.shape
-    words = -(-length // _BASES_PER_WORD)
-    wide = torch.zeros((n, words * _BASES_PER_WORD), dtype=torch.int64, device=codes.device)
-    wide[:, :length] = codes.to(torch.int64)
-    is_n = wide >= 4
-    is_n[:, length:] = False
-    base = torch.where(is_n, 0, wide).reshape(n, words, _BASES_PER_WORD)
-    shifts = 2 * torch.arange(_BASES_PER_WORD, dtype=torch.int64, device=codes.device)
-    bits = (base << shifts).sum(dim=2)
-    nmask = (is_n.reshape(n, words, _BASES_PER_WORD).to(torch.int64) << shifts).sum(dim=2)
-    packed = torch.cat([bits, nmask], dim=1)
-    # uint32 patterns into int32 storage: the top bit becomes the sign
-    packed = torch.where(packed >= 2**31, packed - 2**32, packed)
-    return packed.to(torch.int32).contiguous()
+    length = codes.shape[1]
+    onehot = onehot_codes(codes, torch.int8)
+    return torch.nn.functional.pad(onehot, (0, onehot_width(length) - 4 * length))
 
 
 class WhitelistTable(NamedTuple):
     """The whitelist as it lives on the device.
 
     ``codes``: uint8 ``[n_w, L]`` base codes, which the plain version
-    expands to one-hot chunk by chunk; ``packed``: int32 ``[n_w, 2W]`` words
-    (``pack_codes``), which the kernel reads.
+    expands to one-hot chunk by chunk; ``onehot``: int8 ``[n_w, Kpad]``
+    (``onehot_int8``), which the kernel reads.
     """
 
     codes: torch.Tensor
-    packed: torch.Tensor
+    onehot: torch.Tensor
     length: int
 
 
@@ -139,7 +137,7 @@ def make_table(codes: torch.Tensor) -> WhitelistTable:
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise ValueError("whitelist codes must be a uint8 [n_w, L] tensor")
     codes = codes.contiguous()
-    return WhitelistTable(codes, pack_codes(codes), int(codes.shape[1]))
+    return WhitelistTable(codes, onehot_int8(codes), int(codes.shape[1]))
 
 
 def correct_plain(
@@ -189,7 +187,7 @@ def correct_codes(queries: torch.Tensor, table: WhitelistTable) -> torch.Tensor:
         return correct_plain(queries, table)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
-    if not (queries.is_contiguous() and table.packed.is_contiguous()):
+    if not (queries.is_contiguous() and table.onehot.is_contiguous()):
         raise ValueError("the kernel takes contiguous queries and table")
     if table.length > KERNEL_MAX_LENGTH:
         raise ValueError(
@@ -204,10 +202,14 @@ def correct_codes(queries: torch.Tensor, table: WhitelistTable) -> torch.Tensor:
     entry.argtypes = _KERNEL_ARGTYPES
     entry.restype = ctypes.c_int
     with torch.cuda.device(queries.device):
+        # the query side of the product, expanded on the device as the JAX
+        # package does outside its Pallas call (:166); torch ops, no kernel
+        # of the port
+        q_onehot = onehot_int8(queries)
         stream = torch.cuda.current_stream().cuda_stream
         status = entry(
-            queries.data_ptr(), n_q, table.length, table.packed.data_ptr(),
-            table.packed.shape[0], out.data_ptr(), stream,
+            q_onehot.data_ptr(), n_q, table.length, table.onehot.data_ptr(),
+            table.onehot.shape[0], out.data_ptr(), stream,
         )
     kernels.check("whitelist_correct", status)
     kernels.launches["whitelist_correct"] += 1

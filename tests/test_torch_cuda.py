@@ -58,7 +58,7 @@ def _queries(rng, whitelist, n):
     return out
 
 
-@pytest.mark.parametrize("length", [1, 14, 16, 17, 33, 49, 64])
+@pytest.mark.parametrize("length", [1, 14, 16, 17, 24, 32, 33, 49, 64])
 def test_kernel_matches_plain(cuda_device, length):
     rng = np.random.default_rng(length)
     whitelist = _barcodes(rng, 5000 + 13, length)  # off any tile multiple
@@ -76,6 +76,47 @@ def test_kernel_matches_plain(cuda_device, length):
     expected = port_whitelist.correct_plain(q, table)
     np.testing.assert_array_equal(got.cpu().numpy(), expected.cpu().numpy())
     assert got[-1].item() == len(whitelist) - 1
+
+
+def _table(codes, device):
+    return port_whitelist.make_table(torch.from_numpy(codes).to(device))
+
+
+@pytest.mark.parametrize("length", [1, 16, 64])
+def test_only_hit_in_the_last_partial_slice(cuda_device, length):
+    # 2 * 512 + 77 entries: the kernel's last 512-row slice is ragged, and
+    # the one entry every query can reach lies in it
+    rng = np.random.default_rng(40 + length)
+    n_w = 2 * 512 + 77
+    whitelist = port_whitelist.barcode_codes(_barcodes(rng, n_w, length), length)
+    whitelist[: n_w - 1] = 4  # all N: no hit at L >= 2
+    target = whitelist[-1].copy()
+    queries = np.repeat(target[None, :], 300, axis=0)
+    rows = np.arange(1, 300, 2)
+    cols = rng.integers(length, size=rows.size)
+    queries[rows, cols] = (queries[rows, cols] + 1) % 4  # one substitution
+    got = port_whitelist.correct_codes(
+        torch.from_numpy(queries).to(cuda_device), _table(whitelist, cuda_device)
+    )
+    torch.cuda.synchronize()
+    expected = port_whitelist.correct_plain(torch.from_numpy(queries), _table(whitelist, "cpu"))
+    np.testing.assert_array_equal(got.cpu().numpy(), expected.numpy())
+    assert (got.cpu().numpy() == n_w - 1).all()
+
+
+@pytest.mark.parametrize("n_q", [1, 129])
+@pytest.mark.parametrize("length", [1, 16])
+def test_ragged_query_counts(cuda_device, n_q, length):
+    rng = np.random.default_rng(n_q + length)
+    whitelist = _barcodes(rng, 3000, length)
+    queries = _queries(rng, whitelist, n_q)
+    table = _table(port_whitelist.barcode_codes(whitelist, length), cuda_device)
+    q = torch.from_numpy(port_whitelist.barcode_codes(queries, length)).to(cuda_device)
+    got = port_whitelist.correct_codes(q, table)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), port_whitelist.correct_plain(q, table).cpu().numpy()
+    )
 
 
 def test_corrector_matches_on_cpu_and_card(cuda_device):

@@ -209,20 +209,60 @@ def test_table_from_jax_rejects_a_non_onehot_table():
         state.table_from_jax(np.zeros((3, 7), dtype=np.float32), 2, device="cpu")
 
 
-def _kernel_emulation(queries, table):
-    """The kernel's arithmetic on the packed words, in numpy: popc of
-    ((x | x >> 1) & 0x5555...) | qN | wN summed over words, a hit at <= 1."""
-    q = port_whitelist.pack_codes(queries).numpy().view(np.uint32).astype(np.uint64)
-    w = table.packed.numpy().view(np.uint32).astype(np.uint64)
-    words = q.shape[1] // 2
-    mismatches = np.zeros((q.shape[0], w.shape[0]), dtype=np.int64)
-    for k in range(words):
-        x = q[:, None, k] ^ w[None, :, k]
-        d = ((x | (x >> 1)) & 0x55555555) | q[:, None, words + k] | w[None, :, words + k]
-        mismatches += np.vectorize(lambda v: bin(int(v)).count("1"))(d)
-    hit = mismatches <= 1
-    index = np.where(hit, np.arange(w.shape[0])[None, :], -1)
-    return index.max(axis=1).astype(np.int32)
+# the kernel's tiling (csrc/whitelist_correct.cu): kCols whitelist rows per
+# consumer warpgroup (the wgmma N), kConsumers of them per CTA, jobs of 64
+# query rows (the wgmma M), and pipeline stages of 512, 256 or 128 query
+# rows, the most of which two fit in shared memory beside the whitelist slice
+KERNEL_COLS, KERNEL_CONSUMERS, WGMMA_M = 128, 4, 64
+SMEM_ROOM = 232448 - 1024 - 256
+
+
+def _stage_rows(kpad):
+    room = SMEM_ROOM - KERNEL_COLS * KERNEL_CONSUMERS * kpad
+    return next(rows for rows in (512, 256, 128) if room // (rows * kpad) >= 2 or rows == 128)
+
+
+def _fragment_index(cols):
+    """wgmma's accumulator layout for a 64 x cols tile: (row, col) of register
+    i of thread t, as two [128, cols / 2] arrays."""
+    t = np.arange(128)[:, None]
+    i = np.arange(cols // 2)[None, :]
+    warp, lane = t // 32, t % 32
+    row = 16 * warp + lane // 4 + 8 * ((i // 2) % 2)
+    col = 8 * (i // 4) + 2 * (lane % 4) + i % 2
+    return row, col
+
+
+def _kernel_emulation(q_onehot, w_onehot, length, cols=KERNEL_COLS,
+                      consumers=KERNEL_CONSUMERS, stage_rows=None):
+    """The kernel's arithmetic, in numpy, on its int8 [rows, Kpad] tables.
+
+    TMA zero-fills the rows past each table's end up to whole stages and
+    whole CTA slices; each consumer's 64 x cols job is an int32 product; a
+    thread takes the max of its fragment and, only when that reaches L - 1,
+    atomicMaxes each in-bounds hit into the output, which starts at -1.
+    """
+    q_onehot, w_onehot = np.asarray(q_onehot), np.asarray(w_onehot)
+    assert q_onehot.dtype == w_onehot.dtype == np.int8
+    n_q, n_w = len(q_onehot), len(w_onehot)
+    if stage_rows is None:
+        stage_rows = _stage_rows(q_onehot.shape[1])
+    slice_rows = cols * consumers
+    q = np.zeros((-(-n_q // stage_rows) * stage_rows, q_onehot.shape[1]), dtype=np.int32)
+    q[:n_q] = q_onehot
+    w = np.zeros((-(-n_w // slice_rows) * slice_rows, w_onehot.shape[1]), dtype=np.int32)
+    w[:n_w] = w_onehot
+    row_of, col_of = _fragment_index(cols)
+    out = np.full(n_q, -1, dtype=np.int32)
+    for c0 in range(0, len(w), cols):  # every consumer of every CTA
+        for r0 in range(0, len(q), WGMMA_M):  # its jobs, over every stage
+            scores = q[r0 : r0 + WGMMA_M] @ w[c0 : c0 + cols].T
+            fragments = scores[row_of, col_of]
+            for t in np.flatnonzero(fragments.max(axis=1) >= length - 1):
+                rows, hit_cols = r0 + row_of[t], c0 + col_of[t]
+                hit = (fragments[t] >= length - 1) & (rows < n_q) & (hit_cols < n_w)
+                np.maximum.at(out, rows[hit], hit_cols[hit].astype(np.int32))
+    return out
 
 
 @pytest.mark.parametrize("length", [1, 14, 16, 17, 33, 49, 64])
@@ -235,11 +275,63 @@ def test_packed_layout_and_kernel_arithmetic_match_plain(length):
         torch.from_numpy(port_whitelist.barcode_codes(whitelist, length))
     )
     codes = torch.from_numpy(port_whitelist.barcode_codes(queries, length))
+    q_onehot = port_whitelist.onehot_int8(codes)
     np.testing.assert_array_equal(
-        _kernel_emulation(codes, table),
+        _kernel_emulation(q_onehot, table.onehot, length),
         port_whitelist.correct_plain(codes, table).numpy(),
     )
-    assert table.packed.shape == (40, 2 * (-(-length // 16)))
+    kpad = 32 * -(-4 * length // 32)
+    assert port_whitelist.onehot_width(length) == kpad
+    assert table.onehot.dtype == q_onehot.dtype == torch.int8
+    assert table.onehot.shape == (40, kpad) and q_onehot.shape == (len(queries), kpad)
+    assert not table.onehot[:, 4 * length :].any()  # zero pad columns
+    assert _stage_rows(kpad) == {32: 512, 64: 512, 96: 512, 128: 512, 160: 256, 192: 256,
+                                 224: 256, 256: 128}[kpad]
+
+
+@pytest.mark.parametrize("tiles", [(8, 2, 64), (24, 3, 128)])
+@pytest.mark.parametrize("length", [1, 16, 64])
+def test_kernel_emulation_with_small_tiles_matches_jax(length, tiles):
+    # n_w and n_q are off every multiple of the tiles: ragged last slices
+    # and stages on both sides
+    cols, consumers, stage_rows = tiles
+    rng = np.random.default_rng(length * 100 + cols)
+    whitelist = _barcodes(rng, 5 * cols * consumers + 7, length)
+    queries = [q.ljust(length, "A")[:length] for q in _mixed_queries(rng, whitelist, per_kind=30)]
+    whitelist[1] = "N" * length
+    whitelist[-1] = whitelist[2]  # a duplicate: the last copy wins
+    queries = queries[: 2 * stage_rows + 37] + [whitelist[2]]
+    table = port_whitelist.make_table(
+        torch.from_numpy(port_whitelist.barcode_codes(whitelist, length))
+    )
+    codes = torch.from_numpy(port_whitelist.barcode_codes(queries, length))
+    got = _kernel_emulation(port_whitelist.onehot_int8(codes), table.onehot, length, *tiles)
+    assert got.dtype == np.int32
+    assert np.array_equal(got, port_whitelist.correct_plain(codes, table).numpy())
+    for route in ("jnp", "pallas"):
+        assert np.array_equal(got, _jax_indices(whitelist, queries, route).astype(np.int32))
+    assert got[-1] == len(whitelist) - 1
+    assert (got >= 0).sum() > len(queries) // 4
+
+
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("length", [14, LENGTH])
+def test_onehot_table_matches_jax_onehot(pad, length):
+    rng = np.random.default_rng(length)
+    whitelist = _barcodes(rng, 50, length)
+    whitelist[4] = whitelist[4][:3] + "N" + whitelist[4][4:]
+    w_onehot = jax_whitelist.onehot_barcodes(whitelist, length)
+    if pad:  # the Pallas route's table: zero rows up to a multiple of 2048
+        w_onehot = jax_whitelist._pad_rows(w_onehot, 2048)
+    kpad = port_whitelist.onehot_width(length)
+    expected = np.zeros((len(w_onehot), kpad), dtype=np.int8)
+    expected[:, : 4 * length] = w_onehot.astype(np.int8)
+    from_jax = state.table_from_jax(w_onehot, length, device="cpu")
+    np.testing.assert_array_equal(from_jax.onehot.numpy(), expected)
+    own = port_whitelist.make_table(
+        torch.from_numpy(port_whitelist.barcode_codes(whitelist, length))
+    )
+    np.testing.assert_array_equal(own.onehot.numpy(), expected[: len(whitelist)])
 
 
 def test_cuda_request_without_a_gpu_raises(monkeypatch, whitelist):
