@@ -20,13 +20,27 @@ Phases, in order; any failure exits non-zero before the last line:
               on 262,144 synthetic reads (4 batches of 65,536) with the
               737,280-barcode whitelist; every record's tags are re-read and
               checked, CB against the plain version's answer for its CR;
-5. kernels -- one JSON line per the port's kernel contract.
+5. metrics -- ``GenericPlatform.calculate_cell_metrics`` and
+              ``calculate_gene_metrics`` on the card at the gatherer's
+              2^20-record batch width: a synthetic 10x v2 library on GRCh38's
+              25 primary sequences, 1,250,000 records sorted by (CB, UB, GE)
+              and 1,150,000 of them by (GE, CB, UB), each one full batch, a
+              remainder and a carried tail; the CSVs of the commands, of the
+              same frames on the card and of the same frames on the CPU must
+              be equal byte for byte (decompressed), and per cell n_reads,
+              n_molecules, n_genes and n_mitochondrial_molecules must equal
+              the generator's counts. Prints records/s, the wall split, device
+              milliseconds per batch and the profiler's top device ops. The
+              metrics path has no hand kernel; the phase checks that none
+              launched;
+6. kernels -- one JSON line per the port's kernel contract.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-The whitelist is synthetic, of the size and length of Cell Ranger's
-737K-august-2016.txt, made from ``--seed``. Work files go to
-``.chip_smoke_work/`` in the checkout and are removed at the end.
+The whitelist and the metrics library are synthetic, made from ``--seed``;
+the whitelist has the size and length of Cell Ranger's
+737K-august-2016.txt. Work files go to ``.chip_smoke_work/`` in the
+checkout and are removed at the end.
 """
 
 from __future__ import annotations
@@ -179,6 +193,200 @@ def write_u2(path: Path, rng, n: int, bgzf) -> list:
         out.write(header)
         out.write(b"".join(struct.pack("<I", len(b)) + b for b in bodies))
     return bodies
+
+
+# GRCh38's 25 primary sequences (1-22, X, Y, MT) and their lengths
+GRCH38 = [
+    ("1", 248956422), ("2", 242193529), ("3", 198295559), ("4", 190214555),
+    ("5", 181538259), ("6", 170805979), ("7", 159345973), ("8", 145138636),
+    ("9", 138394717), ("10", 133797422), ("11", 135086622), ("12", 133275309),
+    ("13", 114364328), ("14", 107043718), ("15", 101991189), ("16", 90338345),
+    ("17", 83257441), ("18", 80373285), ("19", 58617616), ("20", 64444167),
+    ("21", 46709983), ("22", 50818468), ("X", 156040895), ("Y", 57227415), ("MT", 16569),
+]
+N_GENES, N_MITO_GENES, N_CELLS = 33_538, 37, 1_000  # Cell Ranger's GRCh38-2020-A gene count
+METRICS_BATCH = 1 << 20  # the gatherer's DEFAULT_BATCH_RECORDS, never cut
+# depth, cut so that the phase's four decodes stay near four minutes on the
+# card: each axis keeps one full 2^20-record batch, a cut remainder and the
+# carried tail (three device passes)
+CELL_RECORDS = 1_250_000
+GENE_RECORDS = 1_150_000
+XF_VALUES = (b"CODING", b"INTRONIC", b"UTR", b"INTERGENIC", b"")  # b"": no XF tag
+XF_P = (0.6, 0.15, 0.1, 0.1, 0.05)
+
+
+def gene_names() -> np.ndarray:
+    """33,538 names of 10 bytes; the last 37 are MT- genes."""
+    names = [b"GENE%06d" % i for i in range(N_GENES - N_MITO_GENES)]
+    names += [b"MT-G%06d" % i for i in range(N_MITO_GENES)]
+    return np.array(names, dtype="S10")
+
+
+def make_reads(rng, n: int) -> dict:
+    """Per-read columns of a synthetic 10x v2 library, in molecule order.
+
+    About 2.4 reads a molecule over ~1,000 cells (lognormal sizes), genes
+    Zipf-like over the vocabulary with 5% of molecules on MT- genes; 98 bp
+    reads, ~5% unmapped, ~10% duplicates, ~10% spliced (49M1000N49M); XF
+    over CODING/INTRONIC/UTR/INTERGENIC/missing with GE only on the first
+    three; ~0.5% of GE tags name two genes; NH in {1, 1, 1, 2, 3}; CR = CB
+    and UR = UB for 95% of reads.
+    """
+    cells = np.unique(LETTERS[rng.integers(0, 4, size=(N_CELLS + 64, CB_LEN))].view(f"S{CB_LEN}").ravel())
+    cells = np.sort(rng.choice(cells, N_CELLS, replace=False))
+    n_mol = int(n / 2.4 * 1.05)  # 2.4 reads a molecule on average; the surplus is cut
+    sizes = rng.lognormal(0, 0.6, N_CELLS)
+    mol_cell = rng.choice(N_CELLS, n_mol, p=sizes / sizes.sum())
+    mol_umi = LETTERS[rng.integers(0, 4, size=(n_mol, UMI_LEN))]
+    weights = 1.0 / (np.arange(N_GENES - N_MITO_GENES) + 10.0)
+    mol_gene = rng.choice(N_GENES - N_MITO_GENES, n_mol, p=weights / weights.sum())
+    mito = rng.random(n_mol) < 0.05
+    mol_gene[mito] = N_GENES - N_MITO_GENES + rng.integers(0, N_MITO_GENES, mito.sum())
+    mol_ref = np.where(mito, 24, mol_gene % 24)
+    lengths = np.array([length for _, length in GRCH38])
+    mol_pos = (rng.random(n_mol) * (lengths[mol_ref] - 2000)).astype(np.int64)
+    per_mol = 1 + rng.poisson(1.4, n_mol)
+    mol = np.repeat(np.arange(n_mol), per_mol)[:n]
+    if mol.size < n:
+        raise AssertionError("too few molecules for the record count")
+    unmapped = rng.random(n) < 0.05
+    xf = rng.choice(len(XF_VALUES), n, p=XF_P)
+    xf[unmapped] = len(XF_VALUES) - 1
+    names = gene_names()
+    ge = names[mol_gene[mol]].astype("S21")
+    multi = (rng.random(n) < 0.005) & (mol_gene[mol] < N_GENES - N_MITO_GENES - 1)
+    ge[multi] = np.char.add(np.char.add(names[mol_gene[mol][multi]], b","), names[mol_gene[mol][multi] + 1])
+    ge[xf >= 3] = b""
+    cb = cells[mol_cell[mol]]
+    cr = cb.view(np.uint8).reshape(n, CB_LEN).copy()
+    bad = np.flatnonzero(rng.random(n) < 0.05)
+    cr[bad, rng.integers(0, CB_LEN, bad.size)] = ord("N")
+    ub = mol_umi[mol]
+    ur = ub.copy()
+    bad = np.flatnonzero(rng.random(n) < 0.05)
+    ur[bad, rng.integers(0, UMI_LEN, bad.size)] = ord("N")
+    return dict(
+        cell=mol_cell[mol], cb=cb.view(np.uint8).reshape(n, CB_LEN), cr=cr, ub=ub, ur=ur,
+        ge=ge, xf=xf, unmapped=unmapped,
+        ref=np.where(unmapped, -1, mol_ref[mol]),
+        pos=np.where(unmapped, -1, mol_pos[mol] + rng.integers(0, 6, n)),
+        reverse=rng.random(n) < 0.5, duplicate=(rng.random(n) < 0.1) & ~unmapped,
+        spliced=(rng.random(n) < 0.1) & ~unmapped,
+        nh=np.where(unmapped, 0, rng.choice([1, 1, 1, 2, 3], n)),
+    )
+
+
+def sort_reads(reads: dict, order: str) -> dict:
+    """The reads sorted by (CB, UB, GE) for ``order="cell"``, else by
+    (GE, CB, UB); ties keep their order. A missing GE sorts first."""
+    _, ge_code = np.unique(reads["ge"], return_inverse=True)
+    umi = (np.searchsorted(LETTERS, reads["ub"]).astype(np.int64) * (4 ** np.arange(UMI_LEN - 1, -1, -1))).sum(1)
+    keys = (ge_code, umi, reads["cell"]) if order == "cell" else (umi, reads["cell"], ge_code)
+    perm = np.lexsort(keys)
+    return {name: column[perm] for name, column in reads.items()}
+
+
+def _u8(values, dtype) -> np.ndarray:
+    return np.ascontiguousarray(values.astype(dtype)).view(np.uint8).reshape(len(values), np.dtype(dtype).itemsize)
+
+
+def _z_tag(key: bytes, values: np.ndarray) -> np.ndarray:
+    head = np.frombuffer(key + b"Z", dtype=np.uint8)
+    n = len(values)
+    return np.concatenate(
+        [np.broadcast_to(head, (n, 3)), values, np.zeros((n, 1), np.uint8)], axis=1
+    )
+
+
+def write_tagged_bam(path: Path, rng, reads: dict, bgzf) -> None:
+    """The reads as raw BAM records (tags CB CR CY UB UR UY [GE] [XF] [NH]),
+    built with numpy one layout group at a time, BGZF level 1."""
+    n = len(reads["cell"])
+    qual_q = rng.integers(2, 42, size=(n, R2_LEN), dtype=np.uint8)
+    seq = LETTERS[rng.integers(0, 4, size=(n, R2_LEN))]
+    nt16 = np.zeros(256, dtype=np.uint8)
+    nt16[list(b"ACGT")] = (1, 2, 4, 8)
+    packed = (nt16[seq[:, 0::2]] << 4) | nt16[seq[:, 1::2]]
+    ge_len = np.char.str_len(reads["ge"])
+    xf_len = np.array([len(v) for v in XF_VALUES])[reads["xf"]]
+    n_cigar = np.where(reads["unmapped"], 0, np.where(reads["spliced"], 3, 1))
+    flag = (np.where(reads["unmapped"], 4, 0) | np.where(reads["reverse"], 16, 0)
+            | np.where(reads["duplicate"], 1024, 0))
+    rows = [None] * n
+    layout = np.stack([n_cigar, ge_len, reads["xf"], reads["nh"] > 0], axis=1)
+    groups, group_of = np.unique(layout, axis=0, return_inverse=True)
+    for g, (cig, glen, xf_code, has_nh) in enumerate(groups):
+        idx = np.flatnonzero(group_of.ravel() == g)
+        m = idx.size
+        cigar = {0: [], 1: [R2_LEN << 4], 3: [49 << 4, (1000 << 4) | 3, 49 << 4]}[int(cig)]
+        parts = [
+            None,  # block_size, filled in below
+            _u8(reads["ref"][idx], "<i4"), _u8(reads["pos"][idx], "<i4"),
+            np.broadcast_to(np.array([11, 0 if cig == 0 else 255], np.uint8), (m, 2)),
+            np.zeros((m, 2), np.uint8), np.broadcast_to(_u8(np.array([cig]), "<u2")[0], (m, 2)),
+            _u8(flag[idx], "<u2"), np.broadcast_to(_u8(np.array([R2_LEN]), "<i4")[0], (m, 4)),
+            np.broadcast_to(_u8(np.array([-1, -1, 0]), "<i4").ravel(), (m, 12)),
+            np.frombuffer(b"".join(b"r%09d\0" % i for i in idx), np.uint8).reshape(m, 11),
+            np.broadcast_to(_u8(np.array(cigar, np.uint32), "<u4").ravel(), (m, 4 * int(cig))),
+            packed[idx], qual_q[idx],
+            _z_tag(b"CB", reads["cb"][idx]), _z_tag(b"CR", reads["cr"][idx]),
+            _z_tag(b"CY", qual_q[idx, :CB_LEN] + 33),
+            _z_tag(b"UB", reads["ub"][idx]), _z_tag(b"UR", reads["ur"][idx]),
+            _z_tag(b"UY", qual_q[idx, CB_LEN : CB_LEN + UMI_LEN] + 33),
+        ]
+        if glen:
+            parts.append(_z_tag(b"GE", reads["ge"][idx].astype(f"S{glen}").view(np.uint8).reshape(m, glen)))
+        if XF_VALUES[xf_code]:
+            parts.append(_z_tag(b"XF", np.broadcast_to(np.frombuffer(XF_VALUES[xf_code], np.uint8), (m, len(XF_VALUES[xf_code])))))
+        if has_nh:
+            parts.append(np.concatenate([np.broadcast_to(np.frombuffer(b"NHC", np.uint8), (m, 3)),
+                                         reads["nh"][idx].astype(np.uint8)[:, None]], axis=1))
+        width = sum(p.shape[1] for p in parts[1:])
+        parts[0] = np.broadcast_to(_u8(np.array([width]), "<i4")[0], (m, 4))
+        blob = np.concatenate(parts, axis=1).tobytes()
+        size = width + 4
+        for j, i in enumerate(idx):
+            rows[i] = blob[j * size : (j + 1) * size]
+    text = b"@HD\tVN:1.6\tSO:unsorted\n" + b"".join(b"@SQ\tSN:%s\tLN:%d\n" % (name.encode(), length) for name, length in GRCH38)
+    header = b"BAM\1" + struct.pack("<I", len(text)) + text + struct.pack("<I", len(GRCH38))
+    for name, length in GRCH38:
+        header += struct.pack("<I", len(name) + 1) + name.encode() + b"\0" + struct.pack("<I", length)
+    with bgzf.BgzfWriter(str(path), level=1) as out:
+        out.write(header)
+        for start in range(0, n, 1 << 16):
+            out.write(b"".join(rows[start : start + (1 << 16)]))
+
+
+def write_mito_gtf(path: Path) -> None:
+    """A GTF declaring the 37 MT- genes (gene_id = gene_name, as in the BAM's
+    GE tags) and a few others."""
+    names = gene_names()
+    lines = ["#!genome-build synthetic\n"]
+    for i, name in enumerate(list(names[:50]) + list(names[-N_MITO_GENES:])):
+        chrom = "MT" if name.startswith(b"MT-") else "1"
+        lines.append(f'{chrom}\tsmoke\tgene\t{100 * i + 1}\t{100 * i + 90}\t.\t+\t.\t'
+                     f'gene_id "{name.decode()}"; gene_name "{name.decode()}";\n')
+    path.write_text("".join(lines))
+
+
+def expected_cell_counts(reads: dict) -> dict:
+    """Per cell barcode, (n_reads, n_molecules, n_genes,
+    n_mitochondrial_molecules) counted from the generator's columns: a
+    molecule is a distinct (CB, UB, GE), a gene a distinct GE (a missing GE
+    included), mitochondrial molecules the reads on an MT- gene."""
+    cell = reads["cell"]
+    _, ge_code = np.unique(reads["ge"], return_inverse=True)
+    umi = (np.searchsorted(LETTERS, reads["ub"]).astype(np.int64) * (4 ** np.arange(UMI_LEN - 1, -1, -1))).sum(1)
+    molecule = np.unique(np.stack([cell, umi, ge_code], axis=1), axis=0)[:, 0]
+    gene = np.unique(np.stack([cell, ge_code], axis=1), axis=0)[:, 0]
+    mito = np.char.startswith(reads["ge"], b"MT-")
+    counts = np.stack([
+        np.bincount(cell, minlength=N_CELLS), np.bincount(molecule, minlength=N_CELLS),
+        np.bincount(gene, minlength=N_CELLS), np.bincount(cell, weights=mito, minlength=N_CELLS),
+    ], axis=1).astype(np.int64)
+    first = np.zeros(N_CELLS, np.int64)
+    first[cell] = np.arange(len(cell))
+    return {reads["cb"][first[c]].tobytes().decode(): tuple(counts[c]) for c in np.unique(cell)}
 
 
 # ---------------------------------------------------------------- phases
@@ -482,6 +690,262 @@ def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, modules):
     return launches
 
 
+def decode_frames(path: str) -> list:
+    """The port's decode of ``path`` into frames of METRICS_BATCH records.
+
+    Runs in a spawned worker process once the timed commands are done: it
+    imports the port's host I/O only (no torch, no CUDA)."""
+    sys.path.insert(0, str(REPO))
+    from sctools_tpu_torch.io.packed import iter_frames_from_bam
+
+    return list(iter_frames_from_bam(path, METRICS_BATCH))
+
+
+@contextlib.contextmanager
+def recording(module, name: str, into: list):
+    """Within the block, ``module.name`` (a gatherer class) is a subclass
+    that appends each instance to ``into``, so a command's gatherer can be
+    read after the command returns."""
+    cls = getattr(module, name)
+
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            into.append(self)
+
+    setattr(module, name, Recorded)
+    try:
+        yield
+    finally:
+        setattr(module, name, cls)
+
+
+def read_csv(path: Path):
+    """(decompressed bytes, header, {index: fields}) of a metrics CSV."""
+    with gzip.open(path, "rb") as f:
+        data = f.read()
+    lines = data.decode().strip().split("\n")
+    rows = {}
+    for line in lines[1:]:
+        name, _, rest = line.partition(",")
+        if name in rows:
+            raise AssertionError(f"{path.name}: row {name} written twice")
+        rows[name] = rest.split(",")
+    return data, lines[0].split(",")[1:], rows
+
+
+def check_cell_rows(header, rows, expected: dict) -> None:
+    """Per cell, the CSV's n_reads, n_molecules, n_genes and
+    n_mitochondrial_molecules equal the generator's counts."""
+    columns = [header.index(c) for c in ("n_reads", "n_molecules", "n_genes", "n_mitochondrial_molecules")]
+    if set(rows) != set(expected):
+        raise AssertionError(f"cells: {len(rows)} rows, {len(expected)} expected; "
+                             f"e.g. {sorted(set(rows) ^ set(expected))[:3]}")
+    for cell, want in expected.items():
+        got = tuple(int(rows[cell][i]) for i in columns)
+        if got != tuple(int(v) for v in want):
+            raise AssertionError(f"cell {cell}: (n_reads, n_molecules, n_genes, n_mito) {got} != {want}")
+
+
+def _device_us(event) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, attr):
+            return getattr(event, attr)
+    return 0.0
+
+
+def device_events(prof) -> list:
+    """The profile's device-side entries (kernels, copies, fills) with their
+    device time. An aten op's device time is its kernels' again, so only
+    the device-side level is kept: counting both would count each twice."""
+    import torch
+
+    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    typed = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    return typed or events
+
+
+def device_busy_ms(prof) -> float:
+    """Milliseconds the device spent in the profile's kernels and copies (one
+    stream: they do not overlap)."""
+    return sum(_device_us(e) for e in device_events(prof)) / 1e3
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its return type and parameter list."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    if name.endswith(")"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    return name if len(name) <= 110 else name[:107] + "..."
+
+
+def top_device_ops(fn, n: int = 10):
+    """The ``n`` kernels of one call of ``fn`` with the most device time,
+    from ``torch.profiler``: [(name, calls, device ms)] and the total."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted(device_events(prof), key=_device_us, reverse=True)
+    return [(_short(e.key), e.count, _device_us(e) / 1e3) for e in events[:n]], device_busy_ms(prof)
+
+
+def phase_metrics(rng, stamp: str, modules) -> None:
+    """CalculateCellMetrics and CalculateGeneMetrics on the card at the
+    2^20-record batch width; the CSVs against the same port on the CPU and
+    against the generator's counts."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf = modules
+    if port_gatherer.DEFAULT_BATCH_RECORDS != METRICS_BATCH:
+        raise AssertionError("the smoke's batch width is not the gatherer's default")
+    WORK.mkdir(exist_ok=True)
+    start = time.perf_counter()
+    reads = make_reads(rng, CELL_RECORDS)
+    axes = {
+        "cell": sort_reads(reads, "cell"),
+        "gene": sort_reads({k: v[:GENE_RECORDS] for k, v in reads.items()}, "gene"),
+    }
+    paths = {axis: WORK / f"{axis}_sorted.bam" for axis in axes}
+    for axis, sorted_reads in axes.items():
+        write_tagged_bam(paths[axis], rng, sorted_reads, bgzf)
+    gtf_path = WORK / "mito.gtf"
+    write_mito_gtf(gtf_path)
+    expected = expected_cell_counts(axes["cell"])
+    gene_axis_names = set(np.unique(axes["gene"]["ge"]).astype(str))
+    want_genes = {name or "None" for name in gene_axis_names if "," not in name}
+    log(f"[metrics] inputs: {CELL_RECORDS} records sorted by (CB, UB, GE), {GENE_RECORDS} by "
+        f"(GE, CB, UB); {len(expected)} cells, {len(gene_axis_names)} GE values "
+        f"({sum(',' in n for n in gene_axis_names)} multi-gene), {N_GENES} genes in the "
+        f"vocabulary ({N_MITO_GENES} MT-), 25 GRCh38 references, {R2_LEN} bp; made in "
+        f"{time.perf_counter() - start:.1f} s")
+
+    # the profiler's first start in a process takes seconds (CUPTI set-up):
+    # take it here, outside the timed commands
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    launches_before = dict(kernels.launches)
+    entry = {"cell": "calculate_cell_metrics", "gene": "calculate_gene_metrics"}
+    cls_name = {"cell": "GatherCellMetrics", "gene": "GatherGeneMetrics"}
+    cli_csv = {}
+    # each command runs alone: nothing else decodes or unpickles meanwhile
+    for axis in ("cell", "gene"):
+        out = WORK / f"cli_{axis}"
+        args = ["-i", str(paths[axis]), "-o", str(out)] + (["-a", str(gtf_path)] if axis == "cell" else [])
+        made = []
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        # the device-side profile (no host ops) gives the command's busy time
+        with recording(port_platform, cls_name[axis], made), profile(
+            activities=[ProfilerActivity.CUDA]
+        ) as prof:
+            getattr(port_platform.GenericPlatform, entry[axis])(args)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - begin
+        busy_ms = device_busy_ms(prof)
+        gatherer = made[0]
+        device_ms = gatherer.device_ms()
+        split = gatherer.seconds
+        other = wall - sum(split.values())
+        n = len(axes[axis]["cell"])
+        log(f"[metrics] {stamp} | {entry[axis]} on cuda: {n} records in {wall:.2f} s = "
+            f"{n / wall:.0f} records/s; decode {split['decode']:.2f} s, pack "
+            f"{split['pack']:.2f} s, upload+enqueue {split['dispatch']:.2f} s, waiting on "
+            f"pulls {split['wait']:.2f} s, CSV {split['csv']:.2f} s, other {other:.2f} s; "
+            f"per batch, upload to pull on the stream (CUDA events, host gaps included) "
+            f"{' + '.join(f'{ms:.2f}' for ms in device_ms)} ms; device busy (torch.profiler, "
+            f"kernels and copies) {busy_ms:.1f} ms, idle share {1 - busy_ms / (wall * 1e3):.4f}")
+        for i, batch in enumerate(gatherer.batches):
+            log(f"[metrics] {axis} batch {i}: {batch['records']} records padded to "
+                f"{batch['padded']}, {batch['entities']} entities, "
+                f"{'prepacked' if batch['prepacked'] else 'plain'}, "
+                f"{'run-keyed' if batch['run_keyed'] else 'dense keys'}, "
+                f"{'presorted' if batch['presorted'] else 'device-sorted'}, "
+                f"{batch['h2d_bytes']} bytes up")
+        if len(gatherer.batches) < 3 or gatherer.batches[0]["padded"] != METRICS_BATCH:
+            raise AssertionError(f"{axis}: want a full {METRICS_BATCH}-record batch, a "
+                                 f"remainder and a tail")
+        cli_csv[axis] = read_csv(out.with_name(out.name + ".csv.gz"))
+
+    # the frames for the cuda/cpu comparison, both axes decoded at once in
+    # two worker processes
+    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        decoded = {axis: pool.submit(decode_frames, str(path)) for axis, path in paths.items()}
+        frames = {axis: future.result() for axis, future in decoded.items()}
+
+    mito = port_gtf.get_mitochondrial_gene_names(str(gtf_path))
+    if len(mito) != N_MITO_GENES:
+        raise AssertionError(f"{len(mito)} mitochondrial genes read from the GTF")
+    for axis in ("cell", "gene"):
+        cls = getattr(port_gatherer, cls_name[axis])
+        data = {}
+        for device in ("cuda", "cpu"):
+            out = WORK / f"frames_{axis}_{device}"
+            gatherer = cls(str(paths[axis]), str(out), mito if axis == "cell" else set(),
+                           frame_source=lambda: iter(frames[axis]), device=device)
+            begin = time.perf_counter()
+            gatherer.extract_metrics()
+            log(f"[metrics] {axis} from decoded frames on {device}: {time.perf_counter() - begin:.2f} s")
+            data[device] = read_csv(out.with_name(out.name + ".csv.gz"))
+        if not (data["cuda"][0] == data["cpu"][0] == cli_csv[axis][0]):
+            raise AssertionError(f"{axis}: the cuda, cpu and command CSVs differ")
+        _, header, rows = data["cuda"]
+        if axis == "cell":
+            check_cell_rows(header, rows, expected)
+        elif set(rows) != want_genes:
+            raise AssertionError(f"genes: {len(rows)} rows, {len(want_genes)} single-gene GE values")
+        log(f"[metrics] {axis}: decompressed CSVs equal on cuda, cpu and through the command "
+            f"({len(rows)} rows, {len(data['cuda'][0])} bytes)"
+            + ("; n_reads, n_molecules, n_genes, n_mitochondrial_molecules equal the generator's "
+               "for every cell" if axis == "cell" else "; no multi-gene row"))
+
+    # the device pass alone, on one staged full batch of each axis
+    for axis in ("cell", "gene"):
+        frame = frames[axis][0]
+        key = frame.cell if axis == "cell" else frame.gene
+        cut = int(np.nonzero(key[1:] != key[:-1])[0][-1]) + 1
+        batch = port_gatherer.slice_frame(frame, 0, cut)
+        gatherer = getattr(port_gatherer, cls_name[axis])(
+            str(paths[axis]), str(WORK / "unused"), mito if axis == "cell" else set(), device="cuda")
+        gatherer.start_stream()
+        cols, kwargs, decisions = gatherer.pack_batch(batch, pad_to=METRICS_BATCH)
+        staged = {name: torch.from_numpy(array).to(gatherer._device) for name, array in cols.items()}
+        int_names, float_names = port_gatherer.wire_result_names(gatherer.columns)
+        n_entities = int(np.count_nonzero(key[1:cut] != key[: cut - 1])) + 1
+        k = port_seg.entity_bucket(n_entities, METRICS_BATCH)
+
+        def one_batch():
+            result = port_device.compute_entity_metrics(staged, **kwargs)
+            return port_device.compact_results_wire(result, int_names, float_names, k)
+
+        ms = cuda_ms(one_batch, repeats=5)
+        ops, profiled_ms = top_device_ops(one_batch)
+        log(f"[metrics] {stamp} | {axis} device pass (compute_entity_metrics + "
+            f"compact_results_wire) per full batch ({decisions['records']} records padded to "
+            f"{kwargs['num_segments']}, {'run-keyed' if decisions['run_keyed'] else 'dense'}): "
+            f"{ms:.3f} ms (CUDA events, 5 calls queued back to back); torch.profiler device "
+            f"total {profiled_ms:.3f} ms; top ops:")
+        for name, count, op_ms in ops:
+            log(f"[metrics]   {op_ms:8.3f} ms  x{count:<4d} {name}")
+    if dict(kernels.launches) != launches_before:
+        raise AssertionError(f"a hand kernel launched in the metrics phase: {kernels.launches}")
+    log("[metrics] no hand kernel launched (kernels.launches unchanged)")
+    shutil.rmtree(WORK)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -491,12 +955,17 @@ def main(argv=None) -> int:
     import torch
 
     sms, clock_hz = phase_device()
+    stamp = nvidia_smi("name,power.limit")
     if not (REPO / "sctools_tpu_torch" / "csrc").is_dir():
         raise SystemExit(f"chip_smoke: no sctools_tpu_torch package beside {__file__}")
     sys.path.insert(0, str(REPO))
+    from sctools_tpu_torch import gtf as port_gtf
     from sctools_tpu_torch import kernels
     from sctools_tpu_torch import platform as port_platform
     from sctools_tpu_torch.io import bgzf, sam
+    from sctools_tpu_torch.metrics import device as port_device
+    from sctools_tpu_torch.metrics import gatherer as port_gatherer
+    from sctools_tpu_torch.ops import segments as port_seg
     from sctools_tpu_torch.ops import whitelist as wl_ops
 
     phase_build(kernels)
@@ -506,6 +975,10 @@ def main(argv=None) -> int:
     launches = phase_attach(
         rng, whitelist_ascii, args.reads, table, measured["ms"],
         (kernels, wl_ops, port_platform, bgzf, sam),
+    )
+    phase_metrics(
+        np.random.default_rng(args.seed + 1), stamp,
+        (kernels, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf),
     )
     record = {
         "name": "whitelist_correct",

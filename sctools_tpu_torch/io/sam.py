@@ -25,6 +25,9 @@ BAM_MAGIC = b"BAM\x01"
 CIGAR_OPS = "MIDNSHP=X"
 _CIGAR_OP_TO_CODE = {op: i for i, op in enumerate(CIGAR_OPS)}
 SEQ_NT16 = "=ACMGRSVTWYHKDBN"
+# the hex digits of packed sequence bytes are its 4-bit codes, high nibble
+# first: translating them decodes two bases a byte at C speed
+_HEX_TO_NT16 = str.maketrans("0123456789abcdef", SEQ_NT16)
 _NT16_CODE = {c: i for i, c in enumerate(SEQ_NT16)}
 for _c in "acmgrsvtwyhkdbn":
     _NT16_CODE[_c] = _NT16_CODE[_c.upper()]
@@ -323,12 +326,7 @@ class BamRecord:
             offset += 4
         seq_bytes = data[offset : offset + (l_seq + 1) // 2]
         offset += (l_seq + 1) // 2
-        seq_chars = []
-        for i in range(l_seq):
-            byte = seq_bytes[i // 2]
-            code = (byte >> 4) if i % 2 == 0 else (byte & 0xF)
-            seq_chars.append(SEQ_NT16[code])
-        sequence = "".join(seq_chars)
+        sequence = seq_bytes.hex().translate(_HEX_TO_NT16)[:l_seq]
         qual_bytes = data[offset : offset + l_seq]
         offset += l_seq
         quality: Optional[List[int]]

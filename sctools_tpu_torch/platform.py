@@ -1,11 +1,18 @@
-"""Command-line layer of the port: the barcode-attach entry points.
+"""Command-line layer of the port: the metrics and barcode-attach entry points.
 
-The port of ``TenXV2.attach_barcodes`` and ``BarcodePlatform.attach_barcodes``
-(sctools_tpu/platform.py:916-993, :1118-1389) with the same argparse
-surface, the same geometry validation and ``--read-structure``. Both run the
-port's batched attach loop (``sctools_tpu_torch.attach``), which follows the
-JAX package's native route: tags in the order CR CY [CB] UR UY [SR SY], and no
-line terminator inside the tags of a read shorter than its spans.
+``GenericPlatform.calculate_cell_metrics`` and ``calculate_gene_metrics`` are
+the ports of the JAX package's (sctools_tpu/platform.py:497-565) with the same
+argparse surface, so Optimus command lines parse unchanged; they run the
+port's streaming gatherer (``sctools_tpu_torch.metrics.gatherer``). Two of
+their options have no port yet and stop at the parser: ``--backend cpu`` (the
+host aggregators) and ``--devices N`` with N > 1 (the mesh).
+
+``TenXV2.attach_barcodes`` and ``BarcodePlatform.attach_barcodes`` are the
+ports of sctools_tpu/platform.py:916-993, :1118-1389, with the same
+geometry validation and ``--read-structure``. Both run the port's batched
+attach loop (``sctools_tpu_torch.attach``), which follows the JAX package's
+native route: tags in the order CR CY [CB] UR UY [SR SY], and no line
+terminator inside the tags of a read shorter than its spans.
 
 Every entry point is a classmethod taking an optional ``args`` list, plus a
 ``device`` keyword: ``cuda`` unless the caller passes ``device="cpu"``.
@@ -16,10 +23,11 @@ local to that call instead of storing it on the class.
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional, Tuple
+from typing import Iterable, List, Optional, Set, Tuple
 
-from . import attach, consts, fastq
+from . import attach, consts, fastq, gtf
 from .device import DeviceLike
+from .metrics.gatherer import GatherCellMetrics, GatherGeneMetrics
 
 
 def _build_parser(*specs) -> argparse.ArgumentParser:
@@ -72,7 +80,96 @@ _WHITELIST_SPEC = (
 )
 
 
-class TenXV2:
+_INPUT_BAM_SPEC = (("-i", "--input-bam"), dict(required=True, help="the sorted tagged bam"))
+_FILESTEM_SPEC = (
+    ("-o", "--output-filestem"),
+    dict(required=True, help="stem for the metrics csv"),
+)
+_BACKEND_SPEC = (
+    ("--backend",),
+    dict(
+        default="device",
+        choices=["device", "tpu", "cpu"],
+        help="compute backend: device/tpu = the torch engine on the device "
+        "(cuda unless the caller asks for the cpu); cpu = the host "
+        "aggregators, not ported yet (default: device)",
+    ),
+)
+_DEVICES_SPEC = (
+    ("--devices",),
+    dict(
+        type=int,
+        default=0,
+        help="shard the computation over N devices; 0/1 = one device "
+        "(default). N > 1 is not ported yet",
+    ),
+)
+
+
+def _metric_gatherer(kind: str, args, parser):
+    """The gatherer class of a metric command, or a parser error for the
+    options that have no port yet."""
+    if args.backend == "cpu":
+        parser.error(
+            "--backend cpu (the host aggregators) is not ported yet: "
+            "ROADMAP queue 1, item 1; use --backend device"
+        )
+    if args.devices and args.devices > 1:
+        parser.error(
+            "--devices N > 1 (the mesh) is not ported yet: ROADMAP queue 1, "
+            "item 5 (multi-GPU)"
+        )
+    return GatherCellMetrics if kind == "cell" else GatherGeneMetrics
+
+
+class GenericPlatform:
+    """Entry points shared by all sequencing platforms."""
+
+    @classmethod
+    def calculate_gene_metrics(
+        cls, args: Iterable[str] = None, device: DeviceLike = None
+    ) -> int:
+        """Per-gene QC metrics csv from a (GE, CB, UB)-sorted bam
+        (reference platform.py:225-261)."""
+        parser = _build_parser(_INPUT_BAM_SPEC, _FILESTEM_SPEC, _BACKEND_SPEC, _DEVICES_SPEC)
+        args = parser.parse_args(args)
+        gatherer_cls = _metric_gatherer("gene", args, parser)
+        gatherer_cls(args.input_bam, args.output_filestem, device=device).extract_metrics()
+        return 0
+
+    @classmethod
+    def calculate_cell_metrics(
+        cls, args: Iterable[str] = None, device: DeviceLike = None
+    ) -> int:
+        """Per-cell QC metrics csv from a (CB, UB, GE)-sorted bam
+        (reference platform.py:263-313)."""
+        parser = _build_parser(
+            _INPUT_BAM_SPEC,
+            _FILESTEM_SPEC,
+            (
+                ("-a", "--gtf-annotation-file"),
+                dict(
+                    required=False,
+                    default=None,
+                    help="the annotation the bam was aligned against; enables "
+                    "the mitochondrial metrics",
+                ),
+            ),
+            _BACKEND_SPEC,
+            _DEVICES_SPEC,
+        )
+        args = parser.parse_args(args)
+        gatherer_cls = _metric_gatherer("cell", args, parser)
+        mitochondrial_gene_ids: Set[str] = set()
+        if args.gtf_annotation_file:
+            mitochondrial_gene_ids = gtf.get_mitochondrial_gene_names(args.gtf_annotation_file)
+        gatherer_cls(
+            args.input_bam, args.output_filestem, mitochondrial_gene_ids, device=device
+        ).extract_metrics()
+        return 0
+
+
+class TenXV2(GenericPlatform):
     """10x Genomics v2 geometry: cell barcode r1[0:16), molecule barcode
     r1[16:26), sample barcode i1[0:8) (reference platform.py:608-625)."""
 
@@ -106,7 +203,7 @@ class TenXV2:
         return 0
 
 
-class BarcodePlatform:
+class BarcodePlatform(GenericPlatform):
     """User-defined barcode geometry (generalizes TenXV2.attach_barcodes;
     reference platform.py:761-1126)."""
 
