@@ -32,8 +32,22 @@ Phases, in order; any failure exits non-zero before the last line:
               the generator's counts. Prints records/s, the wall split, device
               milliseconds per batch and the profiler's top device ops. The
               metrics path has no hand kernel; the phase checks that none
-              launched;
-6. kernels -- one JSON line per the port's kernel contract.
+              launched. The commands' CSVs stay for phase 6;
+6. count   -- ``GenericPlatform.bam_to_count_matrix`` (CreateCountMatrix) on
+              the card at the count's 2^19-record batch width: a
+              queryname-grouped 10x v2 library of 750,000 queries (~1,180,000
+              records: two full batches, a remainder, carried tails) over all
+              33,538 genes of a GTF. The matrix must equal a numpy count of the
+              reference's rule over the generator's columns, entry for entry
+              and in row order; the command's decoded frames, counted again on
+              the card and on the CPU, must give the same files; the matrix
+              split in two must merge back (MergeCountMatrices), and phase 5's
+              CSVs must merge as they should (MergeCellMetrics of the cell CSV
+              in two files, MergeGeneMetrics of the gene CSV with itself).
+              Prints records/s, the wall split, the idle share, and the count
+              pass alone on one staged full batch with its top device ops. No
+              hand kernel may launch;
+7. kernels -- one JSON line per the port's kernel contract.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -299,9 +313,15 @@ def _z_tag(key: bytes, values: np.ndarray) -> np.ndarray:
 
 
 def write_tagged_bam(path: Path, rng, reads: dict, bgzf) -> None:
-    """The reads as raw BAM records (tags CB CR CY UB UR UY [GE] [XF] [NH]),
-    built with numpy one layout group at a time, BGZF level 1."""
+    """The reads as raw BAM records (tags [CB] CR CY [UB] UR UY [GE] [XF]
+    [NH]), built with numpy one layout group at a time, BGZF level 1.
+    Optional columns: ``qname`` (the number in each record's name; by
+    default its position) and ``has_cb`` / ``has_ub`` (False leaves out the
+    CB / UB tag)."""
     n = len(reads["cell"])
+    qname = reads.get("qname", np.arange(n))
+    has_cb = reads.get("has_cb", np.ones(n, dtype=bool))
+    has_ub = reads.get("has_ub", np.ones(n, dtype=bool))
     qual_q = rng.integers(2, 42, size=(n, R2_LEN), dtype=np.uint8)
     seq = LETTERS[rng.integers(0, 4, size=(n, R2_LEN))]
     nt16 = np.zeros(256, dtype=np.uint8)
@@ -313,9 +333,9 @@ def write_tagged_bam(path: Path, rng, reads: dict, bgzf) -> None:
     flag = (np.where(reads["unmapped"], 4, 0) | np.where(reads["reverse"], 16, 0)
             | np.where(reads["duplicate"], 1024, 0))
     rows = [None] * n
-    layout = np.stack([n_cigar, ge_len, reads["xf"], reads["nh"] > 0], axis=1)
+    layout = np.stack([n_cigar, ge_len, reads["xf"], reads["nh"] > 0, has_cb, has_ub], axis=1)
     groups, group_of = np.unique(layout, axis=0, return_inverse=True)
-    for g, (cig, glen, xf_code, has_nh) in enumerate(groups):
+    for g, (cig, glen, xf_code, has_nh, cb_on, ub_on) in enumerate(groups):
         idx = np.flatnonzero(group_of.ravel() == g)
         m = idx.size
         cigar = {0: [], 1: [R2_LEN << 4], 3: [49 << 4, (1000 << 4) | 3, 49 << 4]}[int(cig)]
@@ -326,14 +346,15 @@ def write_tagged_bam(path: Path, rng, reads: dict, bgzf) -> None:
             np.zeros((m, 2), np.uint8), np.broadcast_to(_u8(np.array([cig]), "<u2")[0], (m, 2)),
             _u8(flag[idx], "<u2"), np.broadcast_to(_u8(np.array([R2_LEN]), "<i4")[0], (m, 4)),
             np.broadcast_to(_u8(np.array([-1, -1, 0]), "<i4").ravel(), (m, 12)),
-            np.frombuffer(b"".join(b"r%09d\0" % i for i in idx), np.uint8).reshape(m, 11),
+            np.frombuffer(b"".join(b"r%09d\0" % i for i in qname[idx]), np.uint8).reshape(m, 11),
             np.broadcast_to(_u8(np.array(cigar, np.uint32), "<u4").ravel(), (m, 4 * int(cig))),
             packed[idx], qual_q[idx],
-            _z_tag(b"CB", reads["cb"][idx]), _z_tag(b"CR", reads["cr"][idx]),
+            _z_tag(b"CB", reads["cb"][idx]) if cb_on else None, _z_tag(b"CR", reads["cr"][idx]),
             _z_tag(b"CY", qual_q[idx, :CB_LEN] + 33),
-            _z_tag(b"UB", reads["ub"][idx]), _z_tag(b"UR", reads["ur"][idx]),
+            _z_tag(b"UB", reads["ub"][idx]) if ub_on else None, _z_tag(b"UR", reads["ur"][idx]),
             _z_tag(b"UY", qual_q[idx, CB_LEN : CB_LEN + UMI_LEN] + 33),
         ]
+        parts = parts[:1] + [part for part in parts[1:] if part is not None]
         if glen:
             parts.append(_z_tag(b"GE", reads["ge"][idx].astype(f"S{glen}").view(np.uint8).reshape(m, glen)))
         if XF_VALUES[xf_code]:
@@ -943,7 +964,331 @@ def phase_metrics(rng, stamp: str, modules) -> None:
     if dict(kernels.launches) != launches_before:
         raise AssertionError(f"a hand kernel launched in the metrics phase: {kernels.launches}")
     log("[metrics] no hand kernel launched (kernels.launches unchanged)")
+    # the commands' CSVs stay for the count phase's merges
+    for path in WORK.iterdir():
+        if not path.name.startswith("cli_"):
+            path.unlink()
+    return {axis: WORK / f"cli_{axis}.csv.gz" for axis in ("cell", "gene")}
+
+
+COUNT_BATCH = 1 << 19  # the count's DEFAULT_BATCH_RECORDS, never cut
+# depth: ~1,180,000 records, two full 2^19 batches, a remainder and the
+# carried tails at each cut
+COUNT_QUERIES = 750_000
+ELIGIBLE_XF = (0, 1, 2)  # CODING, INTRONIC, UTR in XF_VALUES
+INTERGENIC = 3
+
+
+def make_count_library(rng, n_queries: int) -> dict:
+    """Per-record columns of a queryname-grouped 10x v2 library.
+
+    ~2.4 queries a molecule (cell, UMI, gene as in ``make_reads``); a query
+    has NH = k alignments (k = 1, 2, 3 at 57/30/13%) with its molecule's CB
+    and UB. The first alignment carries the molecule's gene (5% of them
+    INTERGENIC, with no GE); each other one the same gene (60%), another
+    gene (25%) or INTERGENIC with no GE (15%). ~0.5% of queries lack CB and
+    ~0.5% lack UB; ~0.5% of GE tags name two genes. Queries come in random
+    molecule order under increasing zero-padded names, as a queryname sort
+    leaves them, so a molecule's queries fall in different batches.
+    """
+    cells = np.unique(LETTERS[rng.integers(0, 4, size=(N_CELLS + 64, CB_LEN))].view(f"S{CB_LEN}").ravel())
+    cells = np.sort(rng.choice(cells, N_CELLS, replace=False))
+    n_mol = int(n_queries / 2.4)
+    sizes = rng.lognormal(0, 0.6, N_CELLS)
+    mol_cell = rng.choice(N_CELLS, n_mol, p=sizes / sizes.sum())
+    mol_umi = LETTERS[rng.integers(0, 4, size=(n_mol, UMI_LEN))]
+    weights = 1.0 / (np.arange(N_GENES - N_MITO_GENES) + 10.0)
+    mol_gene = rng.choice(N_GENES - N_MITO_GENES, n_mol, p=weights / weights.sum())
+    mito = rng.random(n_mol) < 0.05
+    mol_gene[mito] = N_GENES - N_MITO_GENES + rng.integers(0, N_MITO_GENES, mito.sum())
+    query_mol = rng.integers(0, n_mol, n_queries)
+    hits = rng.choice([1, 2, 3], n_queries, p=[0.57, 0.30, 0.13])
+    query = np.repeat(np.arange(n_queries), hits)
+    n = query.size
+    first = np.ones(n, dtype=bool)
+    first[1:] = query[1:] != query[:-1]
+    mol = query_mol[query]
+    gene = mol_gene[mol].copy()
+    draw = rng.random(n)
+    other = ~first & (draw >= 0.6) & (draw < 0.85)
+    gene[other] = rng.integers(0, N_GENES, other.sum())
+    intergenic = np.where(first, draw < 0.05, draw >= 0.85)
+    xf = np.where(intergenic, INTERGENIC, rng.choice(ELIGIBLE_XF, n, p=[0.7, 0.2, 0.1]))
+    names = gene_names()
+    ge = names[gene].astype("S21")
+    multi = ~intergenic & (rng.random(n) < 0.005) & (gene < N_GENES - 1)
+    ge[multi] = np.char.add(np.char.add(names[gene[multi]], b","), names[gene[multi] + 1])
+    ge[intergenic] = b""
+    cb = cells[mol_cell[mol]].view(np.uint8).reshape(n, CB_LEN)
+    ub = mol_umi[mol]
+    ref = np.where(gene >= N_GENES - N_MITO_GENES, 24, gene % 24)
+    lengths = np.array([length for _, length in GRCH38])
+    return dict(
+        cell=mol_cell[mol], cb=cb, cr=cb, ub=ub, ur=ub, ge=ge, xf=xf,
+        unmapped=np.zeros(n, dtype=bool), ref=ref,
+        pos=(rng.random(n) * (lengths[ref] - 2000)).astype(np.int64),
+        reverse=rng.random(n) < 0.5, duplicate=np.zeros(n, dtype=bool),
+        spliced=np.zeros(n, dtype=bool), nh=hits[query],
+        qname=query, has_cb=np.repeat(rng.random(n_queries) >= 0.005, hits),
+        has_ub=np.repeat(rng.random(n_queries) >= 0.005, hits),
+        gene=gene, eligible=~intergenic & ~multi,
+    )
+
+
+def expected_count_matrix(library: dict):
+    """(row names, CSR matrix) by the reference's rule (count.py:156-169),
+    counted with numpy from the generator's own columns: a query counts iff
+    its first alignment has CB and UB and its alignments name exactly one
+    eligible gene; each (CB, UB, gene) counts once; rows in order of each
+    cell's first counted query (count.py:319-329)."""
+    import scipy.sparse as sp
+
+    query, eligible, gene = library["qname"], library["eligible"], library["gene"]
+    starts = np.flatnonzero(np.r_[True, query[1:] != query[:-1]])
+    lowest = np.minimum.reduceat(np.where(eligible, gene, N_GENES), starts)
+    highest = np.maximum.reduceat(np.where(eligible, gene, -1), starts)
+    counted = (highest >= 0) & (lowest == highest) & library["has_cb"][starts] & library["has_ub"][starts]
+    rows = starts[counted]  # each counted query's first record, in file order
+    umi = (np.searchsorted(LETTERS, library["ub"][rows]).astype(np.int64)
+           * (4 ** np.arange(UMI_LEN - 1, -1, -1))).sum(1)
+    cell = library["cell"][rows]
+    key = (cell.astype(np.int64) * 4 ** UMI_LEN + umi) * N_GENES + lowest[counted]
+    _, first = np.unique(key, return_index=True)  # each triple's first query
+    cell, triple_gene, first_row = cell[first], lowest[counted][first], rows[first]
+    present = np.unique(cell)
+    cell_first = np.full(N_CELLS, np.iinfo(np.int64).max)
+    np.minimum.at(cell_first, cell, first_row)
+    order = present[np.argsort(cell_first[present], kind="stable")]
+    rank = np.empty(N_CELLS, dtype=np.int64)
+    rank[order] = np.arange(order.size)
+    matrix = sp.coo_matrix(
+        (np.ones(cell.size, dtype=np.uint32), (rank[cell], triple_gene)),
+        shape=(order.size, N_GENES), dtype=np.uint32,
+    ).tocsr()
+    first_record = np.zeros(N_CELLS, dtype=np.int64)
+    first_record[library["cell"][::-1]] = np.arange(len(library["cell"]))[::-1]
+    names = [library["cb"][first_record[c]].tobytes().decode() for c in order]
+    return names, matrix
+
+
+def write_gene_gtf(path: Path) -> None:
+    """A GTF declaring all 33,538 genes (gene_id = gene_name)."""
+    lines = ["#!genome-build synthetic\n"]
+    for i, name in enumerate(gene_names().astype(str)):
+        chrom = "MT" if name.startswith("MT-") else "1"
+        lines.append(f'{chrom}\tsmoke\tgene\t{100 * i + 1}\t{100 * i + 90}\t.\t+\t.\t'
+                     f'gene_id "{name}"; gene_name "{name}";\n')
+    path.write_text("".join(lines))
+
+
+def canonical(matrix):
+    """The CSR matrix with duplicates summed and column indices sorted."""
+    matrix = matrix.tocsr(copy=True)
+    matrix.sum_duplicates()
+    matrix.sort_indices()
+    return matrix
+
+
+def check_same_matrix(name: str, got, want_rows, want) -> None:
+    """Entry for entry, in the same row order, with the same row index."""
+    if list(map(str, got.row_index)) != list(want_rows):
+        raise AssertionError(f"{name}: row index differs ({len(got.row_index)} rows, want {len(want_rows)})")
+    a, b = canonical(got.matrix), canonical(want)
+    if a.shape != b.shape or a.dtype != b.dtype or not all(
+        np.array_equal(getattr(a, attr), getattr(b, attr)) for attr in ("indptr", "indices", "data")
+    ):
+        raise AssertionError(f"{name}: matrix differs ({a.shape} {a.dtype}, nnz {a.nnz}; want {b.shape} "
+                             f"{b.dtype}, nnz {b.nnz})")
+
+
+def same_files(prefix_a: Path, prefix_b: Path) -> bool:
+    """Index files equal byte for byte, the .npz arrays equal."""
+    for suffix in ("_row_index.npy", "_col_index.npy"):
+        if Path(f"{prefix_a}{suffix}").read_bytes() != Path(f"{prefix_b}{suffix}").read_bytes():
+            return False
+    with np.load(f"{prefix_a}.npz") as a, np.load(f"{prefix_b}.npz") as b:
+        return sorted(a.files) == sorted(b.files) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a.files)
+
+
+def write_csv_gz(path: Path, lines) -> Path:
+    with gzip.open(path, "wb", compresslevel=1) as f:
+        f.write(("\n".join(lines) + "\n").encode())
+    return path
+
+
+def as_pandas_reads(port_merge, text: str) -> float:
+    """A CSV field as the merge reads it (pandas' NA spellings are NaN)."""
+    return float("nan") if text in port_merge._NA_VALUES else port_merge._parse_float(text)
+
+
+def check_metric_merges(port_platform, port_merge, csvs: dict) -> str:
+    """MergeCellMetrics on the cell CSV split in two gives its rows back;
+    MergeGeneMetrics on the gene CSV and a copy doubles every count, keeps
+    every ratio and every read-weighted mean (rtol 1e-12)."""
+    _, header, rows = read_csv(csvs["cell"])
+    names = list(rows)
+    half = len(names) // 2
+    parts = [write_csv_gz(WORK / f"cell_part{i}.csv.gz",
+                          ["," + ",".join(header)] + [f"{n},{','.join(rows[n])}" for n in chunk])
+             for i, chunk in enumerate((names[:half], names[half:]))]
+    out = WORK / "merged_cell"
+    port_platform.GenericPlatform.merge_cell_metrics([*map(str, parts), "-o", str(out)])
+    _, merged_header, merged = read_csv(out.with_name(out.name + ".csv.gz"))
+    # the merge reads as pandas does: "None" is NA (written empty), and a
+    # float is pandas' parse of its text
+    want_names = ["" if n == "None" else n for n in names]
+    if merged_header != header or list(merged) != want_names:
+        raise AssertionError("merged cell CSV: header or row order differs")
+    for name, want_name in zip(names, want_names):
+        for got, text in zip(merged[want_name], rows[name]):
+            # the merge writes the shortest text of what it read
+            if got != text and not np.isclose(float(got or "nan"), as_pandas_reads(port_merge, text),
+                                              rtol=0, atol=0, equal_nan=True):
+                raise AssertionError(f"merged cell {name}: {got!r} is not {text!r}")
+
+    _, gene_header, gene_rows = read_csv(csvs["gene"])
+    out = WORK / "merged_gene"
+    port_platform.GenericPlatform.merge_gene_metrics([str(csvs["gene"]), str(csvs["gene"]), "-o", str(out)])
+    _, header, merged = read_csv(out.with_name(out.name + ".csv.gz"))
+    if set(merged) != set(gene_rows) - {"None"} or list(merged) != sorted(merged):
+        raise AssertionError("merged gene CSV: genes differ from the input's, or unsorted")
+    counts = port_merge.MergeGeneMetrics.COUNT_COLUMNS_TO_SUM
+    weighted = port_merge.MergeGeneMetrics.READ_WEIGHTED_COLUMNS
+    ratios = {"reads_per_molecule": ("n_reads", "n_molecules"),
+              "fragments_per_molecule": ("n_fragments", "n_molecules"),
+              "reads_per_fragment": ("n_reads", "n_fragments")}
+    for gene, fields in merged.items():
+        got = dict(zip(header, fields))
+        src = dict(zip(gene_header, gene_rows[gene]))
+        for column in counts:
+            if int(got[column]) != 2 * int(src[column]):
+                raise AssertionError(f"merged gene {gene}: {column} {got[column]} is not 2 x {src[column]}")
+        for column, (top, bottom) in ratios.items():
+            with np.errstate(divide="ignore", invalid="ignore"):
+                want = np.float64(int(src[top])) / np.float64(int(src[bottom]))
+            value = float(got[column]) if got[column] else float("nan")
+            if not (value == want or (np.isnan(value) and np.isnan(want))):
+                raise AssertionError(f"merged gene {gene}: {column} {value} is not {want}")
+        for column in weighted:
+            want, value = as_pandas_reads(port_merge, src[column]), float(got[column] or "nan")
+            if not np.isclose(value, want, rtol=1e-12, atol=0, equal_nan=True):
+                raise AssertionError(f"merged gene {gene}: {column} {value} is not {want}")
+    return (f"MergeCellMetrics of the cell CSV in two files gave its {len(names)} rows back; "
+            f"MergeGeneMetrics of the gene CSV with itself: {len(merged)} genes, counts doubled, "
+            f"ratios kept, read-weighted means within rtol 1e-12")
+
+
+def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
+    """CreateCountMatrix on the card at the count's 2^19-record batch width
+    against a numpy count of the generator's columns, the same frames on the
+    card and on the CPU, and the three merges."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf = modules
+    if port_count.DEFAULT_BATCH_RECORDS != COUNT_BATCH:
+        raise AssertionError("the smoke's batch width is not the count's default")
+    phase_start = start = time.perf_counter()
+    library = make_count_library(rng, COUNT_QUERIES)
+    bam, gtf_path = WORK / "count.bam", WORK / "genes.gtf"
+    write_tagged_bam(bam, rng, library, bgzf)
+    write_gene_gtf(gtf_path)
+    want_rows, want = expected_count_matrix(library)
+    n = len(library["qname"])
+    log(f"[count] inputs: {COUNT_QUERIES} queries, {n} records grouped by query name, "
+        f"{len(want_rows)} cells, {N_GENES} genes in the GTF; made in {time.perf_counter() - start:.1f} s")
+
+    # the command decodes once: its frames are kept for the comparisons
+    kept = []
+    decode = port_count.iter_frames_from_bam
+
+    def keeping(*args, **kwargs):
+        for frame in decode(*args, **kwargs):
+            kept.append(frame)
+            yield frame
+
+    launches_before = dict(kernels.launches)
+    made = []
+    out = WORK / "cli_count"
+    port_count.iter_frames_from_bam = keeping
+    try:
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        with recording(port_platform, "CountMatrix", made), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            port_platform.GenericPlatform.bam_to_count_matrix(
+                ["-b", str(bam), "-a", str(gtf_path), "-o", str(out)])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - begin
+    finally:
+        port_count.iter_frames_from_bam = decode
+    busy_ms = device_busy_ms(prof)
+    command = made[0]
+    split = command.seconds
+    other = wall - sum(split.values())
+    log(f"[count] {stamp} | bam_to_count_matrix on cuda: {n} records in {wall:.2f} s = "
+        f"{n / wall:.0f} records/s; decode {split['decode']:.2f} s, carried tails (concat, "
+        f"compact, copy) {split['carry']:.2f} s, pack {split['pack']:.2f} s, "
+        f"upload+enqueue {split['dispatch']:.2f} s, waiting on pulls {split['wait']:.2f} s, "
+        f"accumulate {split['accumulate']:.2f} s, assemble {split['assemble']:.2f} s, save "
+        f"{split['save']:.2f} s, other (GTF, CLI, profiler) {other:.2f} s; device busy (torch.profiler, kernels "
+        f"and copies) {busy_ms:.1f} ms, idle share {1 - busy_ms / (wall * 1e3):.4f}")
+    for i, batch in enumerate(command.batches):
+        log(f"[count] batch {i}: {batch['records']} records padded to {batch['padded']}, "
+            f"{batch['molecules']} molecules, {batch['h2d_bytes']} bytes up")
+    if len(command.batches) < 3 or [b["padded"] for b in command.batches[:2]] != [COUNT_BATCH] * 2:
+        raise AssertionError(f"want two full {COUNT_BATCH}-record batches and a remainder")
+    check_same_matrix("command", port_count.CountMatrix.load(str(out)), want_rows, want)
+    log(f"[count] the command's matrix equals the generator's count: {want.shape[0]} cells x "
+        f"{want.shape[1]} genes, {want.nnz} entries, {int(want.sum())} molecules, same row order")
+
+    for device in ("cuda", "cpu"):
+        prefix = WORK / f"frames_count_{device}"
+        begin = time.perf_counter()
+        port_count.CountMatrix.from_sorted_tagged_bam(
+            str(bam), port_gtf.extract_gene_names(str(gtf_path)),
+            frame_source=lambda: iter(kept), device=device).save(str(prefix))
+        log(f"[count] from the kept frames on {device}: {time.perf_counter() - begin:.2f} s")
+        if not same_files(prefix, out):
+            raise AssertionError(f"the count of the kept frames on {device} differs from the command's")
+    log("[count] the kept frames counted on cuda and on cpu give the command's .npy bytes and .npz arrays")
+
+    # the count pass alone, on one staged full batch
+    frame = kept[0]
+    cut = int(np.nonzero(frame.qname[1:] != frame.qname[:-1])[0][-1]) + 1
+    block = port_count.pack_count_block(port_count.slice_frame(frame, 0, cut), pad_to=COUNT_BATCH)
+    staged = torch.from_numpy(block).to("cuda")
+
+    def one_pass():
+        return port_counting.count_molecules(dict(zip(port_count.UPLOAD_COLUMNS, staged)),
+                                             num_segments=COUNT_BATCH)
+
+    ms = cuda_ms(one_pass, repeats=5)
+    ops, profiled_ms = top_device_ops(one_pass)
+    log(f"[count] {stamp} | count_molecules per full batch ({cut} records padded to {COUNT_BATCH}): "
+        f"{ms:.3f} ms (CUDA events, 5 calls queued back to back); torch.profiler device total "
+        f"{profiled_ms:.3f} ms; top ops:")
+    for name, count, op_ms in ops:
+        log(f"[count]   {op_ms:8.3f} ms  x{count:<4d} {name}")
+
+    # MergeCountMatrices of the matrix split by rows gives it back
+    whole = port_count.CountMatrix.load(str(out))
+    half = whole.matrix.shape[0] // 2
+    parts = []
+    for i, rows in enumerate((slice(0, half), slice(half, None))):
+        parts.append(str(WORK / f"count_part{i}"))
+        port_count.CountMatrix(whole.matrix[rows].tocsr(), whole.row_index[rows], whole.col_index).save(parts[-1])
+    port_platform.GenericPlatform.merge_count_matrices(["-i", *parts, "-o", str(WORK / "merged_count")])
+    check_same_matrix("MergeCountMatrices", port_count.CountMatrix.load(str(WORK / "merged_count")),
+                      want_rows, want)
+    log(f"[count] MergeCountMatrices of the matrix in two row chunks ({half} + "
+        f"{whole.matrix.shape[0] - half} cells) gave it back exactly")
+    log(f"[count] {check_metric_merges(port_platform, port_merge, csvs)}")
+    if dict(kernels.launches) != launches_before:
+        raise AssertionError(f"a hand kernel launched in the count phase: {kernels.launches}")
+    log("[count] no hand kernel launched (kernels.launches unchanged)")
     shutil.rmtree(WORK)
+    log(f"[count] phase 6 took {time.perf_counter() - phase_start:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -959,12 +1304,15 @@ def main(argv=None) -> int:
     if not (REPO / "sctools_tpu_torch" / "csrc").is_dir():
         raise SystemExit(f"chip_smoke: no sctools_tpu_torch package beside {__file__}")
     sys.path.insert(0, str(REPO))
+    from sctools_tpu_torch import count as port_count
     from sctools_tpu_torch import gtf as port_gtf
     from sctools_tpu_torch import kernels
     from sctools_tpu_torch import platform as port_platform
     from sctools_tpu_torch.io import bgzf, sam
     from sctools_tpu_torch.metrics import device as port_device
     from sctools_tpu_torch.metrics import gatherer as port_gatherer
+    from sctools_tpu_torch.metrics import merge as port_merge
+    from sctools_tpu_torch.ops import counting as port_counting
     from sctools_tpu_torch.ops import segments as port_seg
     from sctools_tpu_torch.ops import whitelist as wl_ops
 
@@ -976,9 +1324,13 @@ def main(argv=None) -> int:
         rng, whitelist_ascii, args.reads, table, measured["ms"],
         (kernels, wl_ops, port_platform, bgzf, sam),
     )
-    phase_metrics(
+    csvs = phase_metrics(
         np.random.default_rng(args.seed + 1), stamp,
         (kernels, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf),
+    )
+    phase_count(
+        np.random.default_rng(args.seed + 2), stamp,
+        (kernels, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf), csvs,
     )
     record = {
         "name": "whitelist_correct",

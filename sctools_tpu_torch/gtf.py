@@ -1,20 +1,24 @@
-"""GTF parsing for the metrics path: the mitochondrial gene set.
+"""GTF parsing for the metrics and count paths.
 
-The port's own copy of the part of ``sctools_tpu.gtf`` that
-``CalculateCellMetrics -a`` runs: lines parse once into a columnar
-:class:`GTFTable` (numpy object arrays per field), and attributes stay raw
-strings, decoded by regex only for the keys a caller asks for.
+The port's own copy of the parts of ``sctools_tpu.gtf`` that
+``CalculateCellMetrics -a`` (the mitochondrial gene set) and
+``CreateCountMatrix -a`` (the gene axis) run: lines parse once into a
+columnar :class:`GTFTable` (numpy object arrays per field), and attributes
+stay raw strings, decoded by regex only for the keys a caller asks for.
 """
 
 from __future__ import annotations
 
+import logging
 import re
 from dataclasses import dataclass
-from typing import List, Set, Union
+from typing import Dict, List, Set, Union
 
 import numpy as np
 
 from . import reader
+
+_logger = logging.getLogger(__name__)
 
 _MITO_PATTERN = re.compile(r"^mt-", re.IGNORECASE)
 
@@ -80,6 +84,33 @@ def read_table(
         end=np.asarray(ends, dtype=np.int64),
         attributes=np.asarray(attributes, dtype=object),
     )
+
+
+def _first_occurrence_filter(names: np.ndarray) -> np.ndarray:
+    """Boolean mask keeping the first row of each name; warn on repeats."""
+    seen: Set[str] = set()
+    keep = np.zeros(len(names), dtype=bool)
+    for i, name in enumerate(names):
+        if name in seen:
+            _logger.warning(
+                f'Multiple entries encountered for "{name}". Please validate '
+                f"the input GTF file(s). Skipping the record for now; in the "
+                f"future, this will be considered as a malformed GTF file."
+            )
+            continue
+        seen.add(name)
+        keep[i] = True
+    return keep
+
+
+def extract_gene_names(
+    files: Union[str, List[str]] = "-", mode: str = "r", header_comment_char: str = "#"
+) -> Dict[str, int]:
+    """Map each gene_name to its occurrence order (the count-matrix column)."""
+    table = read_table(files, mode, header_comment_char, feature="gene")
+    names = table.attribute_column("gene_name", required=True)
+    keep = _first_occurrence_filter(names)
+    return {name: index for index, name in enumerate(names[keep])}
 
 
 def get_mitochondrial_gene_names(

@@ -117,6 +117,47 @@ def wire_layout(
     return cols
 
 
+# 3-bit-per-base packed barcodes: A=1 C=2 G=3 N=4 T=5, left-aligned in a
+# uint64, so integer order == byte-lexicographic string order and ""
+# (missing tag) packs to 0, sorting first. Strings that cannot pack
+# (non-ACGTN or > 21 bases) have no u64 form: callers assign synthetic ids
+# above 2**63 (all regular packings are < 5<<60 < 2**63).
+_BASE_CODE = {"A": 1, "C": 2, "G": 3, "N": 4, "T": 5}
+_CODE_BASE = {v: k for k, v in _BASE_CODE.items()}
+BARCODE_U64_MAX_LEN = 21
+IRREGULAR_BARCODE_BASE = np.uint64(1) << np.uint64(63)
+
+
+def pack_barcode_u64(value: str):
+    """Pack an ACGTN string (<= 21 bases) to its order-preserving uint64.
+
+    Returns None when the string cannot pack (the caller assigns a
+    synthetic irregular id).
+    """
+    if len(value) > BARCODE_U64_MAX_LEN:
+        return None
+    packed = 0
+    shift = 60
+    for ch in value:
+        code = _BASE_CODE.get(ch)
+        if code is None:
+            return None
+        packed |= code << shift
+        shift -= 3
+    return packed
+
+
+def unpack_barcode_u64(packed: int) -> str:
+    """Inverse of pack_barcode_u64 for regular (non-synthetic) values."""
+    out = []
+    for shift in range(60, -1, -3):
+        code = (int(packed) >> shift) & 7
+        if code == 0:
+            break
+        out.append(_CODE_BASE[code])
+    return "".join(out)
+
+
 def pack_flags(
     strand: np.ndarray,
     unmapped: np.ndarray,

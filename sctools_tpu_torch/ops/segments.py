@@ -10,8 +10,9 @@ Padded (invalid) records must carry key values that sort after all real
 records; reductions mask them out through the ``valid`` array.
 
 The scatter-based ``segment_sum`` / ``segment_count`` / ``segment_min`` /
-``first_index_per_segment`` of the JAX module are not on the metrics path and
-are not ported here.
+``first_index_per_segment`` of the JAX module are on neither the metrics nor
+the count path (``ops/counting.py`` runs on ``RunBounds``) and are not
+ported here.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Command-line layer of the port: the metrics and barcode-attach entry points.
+"""Command-line layer of the port: metrics, count, merge and attach entry points.
 
 ``GenericPlatform.calculate_cell_metrics`` and ``calculate_gene_metrics`` are
 the ports of the JAX package's (sctools_tpu/platform.py:497-565) with the same
@@ -6,6 +6,13 @@ argparse surface, so Optimus command lines parse unchanged; they run the
 port's streaming gatherer (``sctools_tpu_torch.metrics.gatherer``). Two of
 their options have no port yet and stop at the parser: ``--backend cpu`` (the
 host aggregators) and ``--devices N`` with N > 1 (the mesh).
+
+``GenericPlatform.bam_to_count_matrix`` (``CreateCountMatrix``) and the
+three merges, ``merge_count_matrices``, ``merge_gene_metrics`` and
+``merge_cell_metrics``, are the ports of sctools_tpu/platform.py:567-750,
+with the same flags. ``--devices N`` with N > 1 stops at the parser there
+too; the count's ``--backend cpu`` is ported (the reference-semantics host
+loop of ``count.py``).
 
 ``TenXV2.attach_barcodes`` and ``BarcodePlatform.attach_barcodes`` are the
 ports of sctools_tpu/platform.py:916-993, :1118-1389, with the same
@@ -26,13 +33,17 @@ import argparse
 from typing import Iterable, List, Optional, Set, Tuple
 
 from . import attach, consts, fastq, gtf
+from .count import DEFAULT_BATCH_RECORDS, CountMatrix
 from .device import DeviceLike
 from .metrics.gatherer import GatherCellMetrics, GatherGeneMetrics
+from .metrics.merge import MergeCellMetrics, MergeGeneMetrics
 
 
-def _build_parser(*specs) -> argparse.ArgumentParser:
+def _build_parser(*specs, defaults=None) -> argparse.ArgumentParser:
     """An ArgumentParser from compact ``(flags, options)`` pairs."""
     parser = argparse.ArgumentParser()
+    if defaults:
+        parser.set_defaults(**defaults)
     for flags, options in specs:
         parser.add_argument(*flags, **options)
     return parser
@@ -106,20 +117,32 @@ _DEVICES_SPEC = (
 )
 
 
+def _refuse_devices(args, parser) -> None:
+    """A parser error for ``--devices N`` with N > 1 (no mesh yet)."""
+    if args.devices and args.devices > 1:
+        parser.error(
+            "--devices N > 1 (the mesh) is not ported yet: ROADMAP queue 1, "
+            "item 5 (multi-GPU)"
+        )
+
+
 def _metric_gatherer(kind: str, args, parser):
     """The gatherer class of a metric command, or a parser error for the
     options that have no port yet."""
     if args.backend == "cpu":
         parser.error(
             "--backend cpu (the host aggregators) is not ported yet: "
-            "ROADMAP queue 1, item 1; use --backend device"
+            "ROADMAP queue 1, item 13; use --backend device"
         )
-    if args.devices and args.devices > 1:
-        parser.error(
-            "--devices N > 1 (the mesh) is not ported yet: ROADMAP queue 1, "
-            "item 5 (multi-GPU)"
-        )
+    _refuse_devices(args, parser)
     return GatherCellMetrics if kind == "cell" else GatherGeneMetrics
+
+
+_MERGE_SPECS = (
+    (("metric_files",), dict(nargs="+", help="the chunked metric csvs")),
+    (("-o", "--output-filestem"), dict(required=True, help="stem for the merged csv")),
+    _DEVICES_SPEC,
+)
 
 
 class GenericPlatform:
@@ -166,6 +189,132 @@ class GenericPlatform:
         gatherer_cls(
             args.input_bam, args.output_filestem, mitochondrial_gene_ids, device=device
         ).extract_metrics()
+        return 0
+
+
+    @classmethod
+    def merge_gene_metrics(cls, args: Iterable[str] = None, device: DeviceLike = None) -> int:
+        """Merge chunked gene metrics csvs (reference platform.py:315-347).
+
+        A host merge: ``device`` is accepted for a uniform surface and not
+        used."""
+        parser = _build_parser(*_MERGE_SPECS)
+        args = parser.parse_args(args)
+        _refuse_devices(args, parser)
+        MergeGeneMetrics(args.metric_files, args.output_filestem).execute()
+        return 0
+
+    @classmethod
+    def merge_cell_metrics(cls, args: Iterable[str] = None, device: DeviceLike = None) -> int:
+        """Merge chunked cell metrics csvs (cells are disjoint across chunks;
+        reference platform.py:349-381). A host merge, like the gene one."""
+        parser = _build_parser(*_MERGE_SPECS)
+        args = parser.parse_args(args)
+        _refuse_devices(args, parser)
+        MergeCellMetrics(args.metric_files, args.output_filestem).execute()
+        return 0
+
+    @classmethod
+    def bam_to_count_matrix(cls, args: Iterable[str] = None, device: DeviceLike = None) -> int:
+        """Count matrix from a queryname-grouped tagged bam (reference
+        platform.py:383-473)."""
+        parser = _build_parser(
+            (("-b", "--bam-file"), dict(required=True, help="the queryname-sorted tagged bam")),
+            (
+                ("-o", "--output-prefix"),
+                dict(required=True, help="stem for the .npz/.npy matrix files"),
+            ),
+            (
+                ("-a", "--gtf-annotation-file"),
+                dict(
+                    required=True,
+                    help="the annotation the bam was aligned against (defines the gene axis)",
+                ),
+            ),
+            (
+                ("-c", "--cell-barcode-tag"),
+                dict(help=f"cell barcode tag (default = {consts.CELL_BARCODE_TAG_KEY})"),
+            ),
+            (
+                ("-m", "--molecule-barcode-tag"),
+                dict(help=f"molecule barcode tag (default = {consts.MOLECULE_BARCODE_TAG_KEY})"),
+            ),
+            (
+                ("-g", "--gene-id-tag"),
+                dict(
+                    dest="gene_name_tag",
+                    help=f"gene name tag (default = {consts.GENE_NAME_TAG_KEY})",
+                ),
+            ),
+            (
+                ("-n", "--sn-rna-seq-mode"),
+                dict(action="store_true", help="snRNA Seq mode (default = False)"),
+            ),
+            (
+                ("--batch-records",),
+                dict(
+                    type=int,
+                    default=None,
+                    help="alignments decoded per streaming batch (bounds host "
+                    f"memory; default {DEFAULT_BATCH_RECORDS})",
+                ),
+            ),
+            (
+                ("--backend",),
+                dict(
+                    default="device",
+                    choices=["device", "tpu", "cpu"],
+                    help="compute backend: device/tpu = the torch count pass on the "
+                    "device (cuda unless the caller asks for the cpu); cpu = the "
+                    "reference-semantics host loop (default: device)",
+                ),
+            ),
+            _DEVICES_SPEC,
+            defaults=dict(
+                cell_barcode_tag=consts.CELL_BARCODE_TAG_KEY,
+                molecule_barcode_tag=consts.MOLECULE_BARCODE_TAG_KEY,
+                gene_name_tag=consts.GENE_NAME_TAG_KEY,
+            ),
+        )
+        args = parser.parse_args(args)
+        _refuse_devices(args, parser)
+        open_mode = "r" if args.bam_file.endswith(".sam") else "rb"
+        gene_name_to_index = gtf.extract_gene_names(args.gtf_annotation_file)
+        # snRNA mode loads extended gene locations in the reference, but the
+        # counting never reads them: the flag is accepted for CLI parity
+        matrix = CountMatrix.from_sorted_tagged_bam(
+            bam_file=args.bam_file,
+            gene_name_to_index=gene_name_to_index,
+            cell_barcode_tag=args.cell_barcode_tag,
+            molecule_barcode_tag=args.molecule_barcode_tag,
+            gene_name_tag=args.gene_name_tag,
+            open_mode=open_mode,
+            backend="cpu" if args.backend == "cpu" else "device",
+            batch_records=(
+                args.batch_records if args.batch_records is not None else DEFAULT_BATCH_RECORDS
+            ),
+            device=device,
+        )
+        matrix.save(args.output_prefix)
+        return 0
+
+    @classmethod
+    def merge_count_matrices(cls, args: Iterable[str] = None, device: DeviceLike = None) -> int:
+        """Concatenate chunked count matrices (reference platform.py:475-516).
+        A host merge, like the metric ones."""
+        parser = _build_parser(
+            (
+                ("-i", "--input-prefixes"),
+                dict(
+                    nargs="+",
+                    help="stems of the chunked matrices: PREFIX names PREFIX.npz, "
+                    "PREFIX_col_index.npy and PREFIX_row_index.npy",
+                ),
+            ),
+            (("-o", "--output-stem"), dict(required=True, help="stem for the merged csr matrix")),
+        )
+        args = parser.parse_args(args)
+        CountMatrix.merge_matrices(args.input_prefixes).save(args.output_stem)
         return 0
 
 

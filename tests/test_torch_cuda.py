@@ -11,11 +11,13 @@ The metrics engine (plain torch ops, no hand kernel) is held here to its own
 CPU results bit for bit, floats included, on a run-keyed prepacked batch and
 a plain unsorted one, at 5,000 records and at 2^20 (where the scan's stride
 loop runs to 2^19), and one ``GatherCellMetrics`` CSV on the card to the
-same on the CPU.
+same on the CPU. The count pass (plain torch ops too) is held to its CPU
+results at 5,000 records and at 2^19, the count's batch width, and one
+``CreateCountMatrix`` run on the card to the same on the CPU.
 
 The JAX comparisons of the same functions run on the CPU in
-``test_torch_whitelist.py``, ``test_torch_attach.py`` and
-``test_torch_metrics.py``.
+``test_torch_whitelist.py``, ``test_torch_attach.py``,
+``test_torch_metrics.py`` and ``test_torch_count.py``.
 """
 
 import gzip
@@ -30,6 +32,7 @@ from sctools_tpu_torch.io.packed import ReadFrame
 from sctools_tpu_torch.io.sam import AlignmentWriter, BamHeader, BamRecord
 from sctools_tpu_torch.metrics import device as port_device
 from sctools_tpu_torch.metrics import gatherer as port_gatherer
+from sctools_tpu_torch.ops import counting as port_counting
 from sctools_tpu_torch.ops import segments as port_seg
 from sctools_tpu_torch.ops import whitelist as port_whitelist
 
@@ -305,3 +308,84 @@ def test_cell_metrics_csv_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         with gzip.open(tmp_path / f"{device}.csv.gz", "rb") as f:
             csv[device] = f.read()
     assert csv["cuda"] == csv["cpu"] and csv["cpu"].count(b"\n") == 301
+
+
+# -------------------------------------------------------------------- count
+
+
+def _count_columns(rng, n: int):
+    """Count columns of ``n`` records: ~1.6 alignments a query in scattered
+    order, a padded tail, ~15% ineligible, ~1% without CB or UB."""
+    n_q = int(n / 1.6)
+    return dict(
+        qname=rng.permutation(np.sort(rng.integers(0, n_q, n))).astype(np.int32),
+        cell=rng.integers(0, 1000, n).astype(np.int32),
+        umi=rng.integers(0, 50_000, n).astype(np.int32),
+        gene=rng.integers(0, 30_000, n).astype(np.int32),
+        eligible=rng.random(n) < 0.85,
+        cb_ok=rng.random(n) < 0.99,
+        ub_ok=rng.random(n) < 0.99,
+        valid=np.arange(n) < n - n // 9,
+    )
+
+
+@pytest.mark.parametrize("n", [5000, 1 << 19])
+def test_count_molecules_on_the_card_matches_the_cpu(cuda_device, n):
+    cols = _count_columns(np.random.default_rng(n), n)
+    results = {
+        device: port_counting.count_molecules(
+            {name: torch.from_numpy(value).to(device) for name, value in cols.items()}, num_segments=n
+        )
+        for device in ("cpu", "cuda")
+    }
+    assert int(results["cpu"]["is_molecule"].sum()) > n // 20
+    for key, value in results["cpu"].items():
+        np.testing.assert_array_equal(results["cuda"][key].cpu().numpy(), value.numpy(), err_msg=key)
+
+
+def test_count_matrix_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """A queryname-grouped BAM of shuffled queries, counted in 2,000-record
+    batches (three batches padded to 4,096 and cross-batch duplicates)."""
+    rng = np.random.default_rng(8)
+    genes = [f"G{i:03d}" for i in range(40)]
+    gtf = tmp_path / "genes.gtf"
+    gtf.write_text("".join(
+        f'chr1\tt\tgene\t{i * 100 + 1}\t{i * 100 + 90}\t.\t+\t.\tgene_id "{g}"; gene_name "{g}";\n'
+        for i, g in enumerate(genes)))
+    header = BamHeader.from_text("@HD\tVN:1.6\tSO:queryname\n@SQ\tSN:chr1\tLN:1000000\n")
+    cells, umis = _barcodes(rng, 60, 16), _barcodes(rng, 30, 10)
+    queries = []
+    for q in range(4000):
+        cell, umi = cells[rng.integers(60)], umis[rng.integers(30)]
+        tags = {"UB": ("Z", umi)} if rng.random() > 0.01 else {}
+        if rng.random() > 0.01:
+            tags["CB"] = ("Z", cell)
+        first = genes[rng.integers(40)]
+        hits = []
+        for _ in range(int(rng.choice([1, 1, 1, 2, 3]))):
+            gene = first if rng.random() < 0.7 else genes[rng.integers(40)]
+            extra = {"GE": ("Z", gene), "XF": ("Z", "CODING")} if rng.random() < 0.85 else {
+                "XF": ("Z", "INTERGENIC")}
+            hits.append(dict(tags, **extra))
+        queries.append(hits)
+    order = rng.permutation(len(queries))
+    bam = str(tmp_path / "grouped.bam")
+    with AlignmentWriter(bam, header) as out:
+        for rank, q in enumerate(order):
+            for tags in queries[q]:
+                out.write(BamRecord(query_name=f"q{rank:06d}", flag=0, reference_id=0, pos=100,
+                                    cigar=[(0, 20)], sequence="A" * 20, quality=[30] * 20, tags=tags))
+    files = {}
+    for device in ("cpu", "cuda"):
+        prefix = str(tmp_path / device)
+        port_platform.GenericPlatform.bam_to_count_matrix(
+            ["-b", bam, "-a", str(gtf), "-o", prefix, "--batch-records", "2000"], device=device)
+        files[device] = [open(prefix + suffix, "rb").read() for suffix in ("_row_index.npy", "_col_index.npy")]
+        with np.load(prefix + ".npz") as npz:
+            files[device] += [npz[key] for key in sorted(npz.files)]
+    for cpu, card in zip(files["cpu"], files["cuda"]):
+        if isinstance(cpu, bytes):
+            assert cpu == card
+        else:
+            np.testing.assert_array_equal(card, cpu)
+    assert len(files["cpu"][2]) > 100  # data: molecules were counted
