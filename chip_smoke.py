@@ -47,7 +47,21 @@ Phases, in order; any failure exits non-zero before the last line:
               Prints records/s, the wall split, the idle share, and the count
               pass alone on one staged full batch with its top device ops. No
               hand kernel may launch;
-7. kernels -- one JSON line per the port's kernel contract.
+7. fastq   -- ``TenXV2.fastq_process`` (FastqProcess -w) on 262,144 synthetic
+              10x v2 triplets in two triplet files with the 737,280-barcode
+              whitelist, 4 shards from ``--bam-size``, in BAM and in FASTQ
+              mode: every shard re-read, every read once, its tags, bases and
+              qualities equal to the generator's and its CB to the plain
+              version's on the card, the counters, the same shard in both
+              modes; ``check_barcode_partition`` 0 on the shards, 1 on a
+              shard beside its copy; ``GenericPlatform.sample_fastq`` on
+              131,072 slide-seq pairs (8C18X6C9M1X) with a 100,000 x 14 bp
+              whitelist, every kept read's R1 rewrite and R2 exact;
+              ``fastq_metrics`` on the R1 files against numpy counts. Prints
+              reads/s, the wall split and the kernel launches of each
+              command, which must equal its batches;
+8. kernels -- one JSON line per the port's kernel contract; its launches are
+              those of every main-path run (phases 4 and 7).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1291,6 +1305,300 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
     log(f"[count] phase 6 took {time.perf_counter() - phase_start:.1f} s")
 
 
+FASTQ_READS = 4 * BATCH  # FastqProcess triplets, in two triplet files
+FASTQ_SHARDS = 4
+SLIDESEQ_READS = 2 * BATCH
+SLIDESEQ_WHITELIST = 100_000
+SLIDESEQ_STRUCTURE = "8C18X6C9M1X"  # 14-base cell barcode around an 18-base linker
+IUPAC = np.frombuffer(b"RYKMSWBDHVN", dtype=np.uint8)
+# BAM base codes as FastqProcess writes them: ACGT in either case, else 15
+NIBBLE = np.full(256, 15, dtype=np.uint8)
+NIBBLE[list(b"ACGTacgt")] = (1, 2, 4, 8, 1, 2, 4, 8)
+
+
+def full_rows(rows: np.ndarray) -> list:
+    """Each row of a 2-D uint8 array as bytes."""
+    return as_bytes(rows, np.full(len(rows), rows.shape[1]))
+
+
+def write_fastq_files(paths, names, sequences, qualities, cuts) -> None:
+    """Records [lo, hi) of each cut into its own gzipped FASTQ file."""
+    for path, (lo, hi) in zip(paths, cuts):
+        with gzip.open(path, "wb", compresslevel=1) as f:
+            f.write(b"".join(b"@%s\n%s\n+\n%s\n" % (names[i], sequences[i], qualities[i])
+                             for i in range(lo, hi)))
+
+
+def expected_indices(wl_ops, table, barcodes, length) -> np.ndarray:
+    """The plain version's whitelist index per barcode, on the card, batch by
+    batch; -1 for a barcode of another length."""
+    import torch
+
+    out = []
+    for lo in range(0, len(barcodes), BATCH):
+        q = torch.from_numpy(wl_ops.barcode_codes(barcodes[lo : lo + BATCH], length)).to(table.codes.device)
+        out.append(wl_ops.correct_plain(q, table).cpu().numpy())
+    out = np.concatenate(out)
+    out[np.array([len(b) for b in barcodes]) != length] = -1
+    return out
+
+
+def read_bam_shard(path: str, bgzf, sam) -> list:
+    """(name, packed bases, qualities, [(tag, value)]) of each record of an
+    unaligned shard, in order."""
+    text = b"@HD\tVN:1.6\tSO:unsorted\n@RG\tID:A\tSM:smoke\n"
+    records = []
+    with bgzf.open_bgzf_reader(path) as fh:
+        if sam.read_raw_header(fh) != b"BAM\1" + struct.pack("<I", len(text)) + text + struct.pack("<I", 0):
+            raise AssertionError(f"{path}: unexpected header")
+        for body in sam.iter_raw_records(fh):
+            l_name, (l_seq,) = body[8], struct.unpack_from("<I", body, 16)
+            if body[:16] != struct.pack("<iiBBHHH", -1, -1, l_name, 0, 4680, 0, 4):
+                raise AssertionError(f"{path}: unexpected fixed fields {body[:16]!r}")
+            seq_at = 32 + l_name
+            qual_at = seq_at + (l_seq + 1) // 2
+            records.append((body[32 : seq_at - 1], body[seq_at:qual_at], body[qual_at : qual_at + l_seq],
+                            parse_z_tags(body[qual_at + l_seq :])))
+    return records
+
+
+def timed_command(kernels, module, class_name, call):
+    """Run ``call`` with the launch counts reset just before and read just
+    after; returns (result, wall seconds, launches, the command's instance)."""
+    import torch
+
+    made = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()  # a main path's run starts here
+    start = time.perf_counter()
+    with recording(module, class_name, made):
+        result = call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = dict(kernels.launches)  # ... and ends here
+    return result, seconds, launches, made[0]
+
+
+def split_line(seconds: float, split: dict) -> str:
+    other = seconds - sum(split.values())
+    return (f"read {split['read']:.2f} s, correct (submit + wait) {split['correct']:.2f} s, "
+            f"write/compress {split['write']:.2f} s, other {other:.2f} s")
+
+
+def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules) -> int:
+    """FastqProcess (BAM and FASTQ shards), SampleFastq, FastqMetrics and
+    CheckBarcodePartition through their entry points on the card, against
+    the generator and the plain version; returns the kernel launches of
+    the phase's main-path runs."""
+    import torch
+
+    kernels, wl_ops, port_platform, port_fqp, port_sample, bgzf, sam = modules
+    phase_start = start = time.perf_counter()
+    WORK.mkdir(exist_ok=True)
+    wl_path = WORK / "whitelist.txt"
+    newline = np.full((whitelist_ascii.shape[0], 1), ord("\n"), dtype=np.uint8)
+    wl_path.write_bytes(np.concatenate([whitelist_ascii, newline], axis=1).tobytes())
+
+    # 10x v2 triplets: phase 4's query mix without its short reads (FastqMetrics
+    # refuses reads shorter than 16C10M; short reads run in the card tests)
+    n = FASTQ_READS
+    cb_ascii, _, _ = make_queries(rng, whitelist_ascii, n)
+    r1_ascii = np.concatenate([cb_ascii, LETTERS[rng.integers(0, 4, size=(n, R1_LEN - CB_LEN))]], axis=1)
+    r2_ascii = LETTERS[rng.integers(0, 4, size=(n, R2_LEN))]
+    odd = rng.random((n, R2_LEN))
+    r2_ascii[odd < 0.002] = IUPAC[rng.integers(0, IUPAC.size, size=int((odd < 0.002).sum()))]
+    r2_ascii[(odd >= 0.002) & (odd < 0.004)] += ord("a") - ord("A")
+    r1_seq, r2_seq = full_rows(r1_ascii), full_rows(r2_ascii)
+    r1_qual = full_rows(rng.integers(35, 75, size=(n, R1_LEN), dtype=np.uint8))
+    r2_qual_rows = rng.integers(35, 75, size=(n, R2_LEN), dtype=np.uint8)
+    r2_qual = full_rows(r2_qual_rows)
+    i1_seq = full_rows(LETTERS[rng.integers(0, 4, size=(n, SAMPLE_LEN))])
+    i1_qual = full_rows(rng.integers(35, 75, size=(n, SAMPLE_LEN), dtype=np.uint8))
+    names = [b"r%07d 1:N:0:1" % i for i in range(n)]  # Illumina comments: cut at the space
+    cuts = ((0, n // 2), (n // 2, n))
+    paths = {kind: [str(WORK / f"{kind}_{t}.fastq.gz") for t in range(2)] for kind in ("r1", "r2", "i1")}
+    for kind, (seqs, quals) in (("r1", (r1_seq, r1_qual)), ("r2", (r2_seq, r2_qual)), ("i1", (i1_seq, i1_qual))):
+        write_fastq_files(paths[kind], names, seqs, quals, cuts)
+    total_bytes = sum(Path(p).stat().st_size for kind in paths.values() for p in kind)
+    bam_size = total_bytes / ((FASTQ_SHARDS - 0.5) * (1 << 30))  # ceil(3.5) = 4 shards
+    log(f"[fastq] inputs: {n} 10x v2 triplets in 2 triplet files (R1 {R1_LEN} bp, R2 {R2_LEN} bp with "
+        f"IUPAC and lowercase bases, I1 {SAMPLE_LEN} bp; gz), {total_bytes} bytes, --bam-size {bam_size!r}; "
+        f"whitelist {whitelist_ascii.shape[0]} x {CB_LEN}; made in {time.perf_counter() - start:.1f} s")
+
+    cr = [s[:CB_LEN] for s in r1_seq]
+    want_index = expected_indices(wl_ops, table, cr, CB_LEN)
+    whitelist_rows = whitelist_ascii.tobytes()
+    want_cb = [whitelist_rows[k * CB_LEN : (k + 1) * CB_LEN] if k >= 0 else None for k in want_index.tolist()]
+    want_counts = {"correct": sum(c is not None and c == r for c, r in zip(want_cb, cr)),
+                   "uncorrectable": int((want_index < 0).sum())}
+    want_counts["corrected"] = n - want_counts["correct"] - want_counts["uncorrectable"]
+    want_packed = ((NIBBLE[r2_ascii[:, 0::2]] << 4) | NIBBLE[r2_ascii[:, 1::2]]).tobytes()
+    want_phred = (r2_qual_rows - 33).tobytes()
+    half = R2_LEN // 2
+
+    base = ["--r1", *paths["r1"], "--r2", *paths["r2"], "--i1", *paths["i1"], "-w", str(wl_path),
+            "--bam-size", repr(bam_size), "--sample-id", "smoke"]
+    launches_total = 0
+    shard_of = {}
+    for fmt in ("BAM", "FASTQ"):
+        prefix = WORK / f"shard_{fmt.lower()}"
+        stderr = io.StringIO()
+        with contextlib.redirect_stderr(stderr):
+            rc, seconds, launches, command = timed_command(
+                kernels, port_fqp, "FastqProcess",
+                lambda: port_platform.TenXV2.fastq_process(base + ["--output-format", fmt, "-o", str(prefix)]))
+        if rc != 0:
+            raise AssertionError(f"FastqProcess {fmt} returned {rc}")
+        batches = -(-n // BATCH)
+        launches_total += launches["whitelist_correct"]
+        if launches["whitelist_correct"] != batches:
+            raise AssertionError(f"FastqProcess {fmt}: {launches['whitelist_correct']} launches, want {batches}")
+        lines = stderr.getvalue().strip().splitlines()
+        want_lines = [f"Total barcodes:{n}", f" correct:{want_counts['correct']}",
+                      f"corrected:{want_counts['corrected']}", f"uncorrectible:{want_counts['uncorrectable']}",
+                      f"uncorrected:{want_counts['uncorrectable'] / n * 100.0:f}",
+                      f"wrote {FASTQ_SHARDS} {fmt} shard(s), {n} reads"]
+        if lines != want_lines:
+            raise AssertionError(f"FastqProcess {fmt} stderr {lines} != {want_lines}")
+        log(f"[fastq] {stamp} | FastqProcess -w {fmt} on cuda: {n} reads in {seconds:.2f} s = "
+            f"{n / seconds:.0f} reads/s; {split_line(seconds, command.seconds)}; {batches} batches, "
+            f"{launches['whitelist_correct']} kernel launches; counters {want_counts}")
+
+        check_start = time.perf_counter()
+        seen = np.zeros(n, dtype=np.int64)
+        if fmt == "BAM":
+            shards = port_fqp.shard_paths(str(prefix), FASTQ_SHARDS)
+            for shard, path in enumerate(shards):
+                for name, packed, phred, tags in read_bam_shard(path, bgzf, sam):
+                    i = int(name[1:])
+                    seen[i] += 1
+                    shard_of[i] = shard
+                    want = [("CR", cr[i]), ("CY", r1_qual[i][:CB_LEN])]
+                    if want_cb[i] is not None:
+                        want.append(("CB", want_cb[i]))
+                    want += [("UR", r1_seq[i][CB_LEN : CB_LEN + UMI_LEN]), ("UY", r1_qual[i][CB_LEN : CB_LEN + UMI_LEN]),
+                             ("SR", i1_seq[i]), ("SY", i1_qual[i])]
+                    if (name != b"r%07d" % i or tags != want or packed != want_packed[i * half : (i + 1) * half]
+                            or phred != want_phred[i * R2_LEN : (i + 1) * R2_LEN]):
+                        raise AssertionError(f"BAM shard {shard}: read {i} differs: {name!r} {tags} != {want}")
+            partition = io.StringIO()
+            with contextlib.redirect_stderr(partition):
+                begin = time.perf_counter()
+                ok = port_platform.GenericPlatform.check_barcode_partition(["-b", *shards])
+                partition_seconds = time.perf_counter() - begin
+                copy = str(WORK / "copy_of_shard_0.bam")
+                shutil.copy(shards[0], copy)
+                duplicated = port_platform.GenericPlatform.check_barcode_partition(["-b", shards[0], copy])
+            if (ok, duplicated) != (0, 1):
+                raise AssertionError(f"CheckBarcodePartition: {ok} on the shards, {duplicated} on a shard "
+                                     f"and its copy: {partition.getvalue()[-300:]}")
+            report = partition.getvalue().strip().splitlines()
+            log(f"[fastq] CheckBarcodePartition: 0 on the {FASTQ_SHARDS} shards ({report[0]}; {n} records in "
+                f"{partition_seconds:.2f} s), 1 on shard 0 beside its copy ({report[-1]})")
+        else:
+            for shard in range(FASTQ_SHARDS):
+                r1_lines = gzip.decompress(Path(f"{prefix}_R1_{shard}.fastq.gz").read_bytes()).split(b"\n")
+                r2_lines = gzip.decompress(Path(f"{prefix}_R2_{shard}.fastq.gz").read_bytes()).split(b"\n")
+                for k in range(0, len(r1_lines) - 1, 4):
+                    i = int(r1_lines[k][2:])
+                    seen[i] += 1
+                    want_r1 = [b"@r%07d" % i, r1_seq[i][: CB_LEN + UMI_LEN], b"+", r1_qual[i][: CB_LEN + UMI_LEN]]
+                    want_r2 = [b"@r%07d" % i, r2_seq[i], b"+", r2_qual[i]]
+                    if r1_lines[k : k + 4] != want_r1 or r2_lines[k : k + 4] != want_r2 or shard_of[i] != shard:
+                        raise AssertionError(f"FASTQ shard {shard}: read {i} differs or moved from BAM shard "
+                                             f"{shard_of[i]}")
+        if not (seen == 1).all():
+            raise AssertionError(f"{fmt}: {int((seen == 0).sum())} reads missing, {int((seen > 1).sum())} repeated")
+        sizes = np.bincount(np.array([shard_of[i] for i in range(n)]), minlength=FASTQ_SHARDS)
+        log(f"[fastq] {fmt} shards checked in {time.perf_counter() - check_start:.1f} s: every read once, "
+            + ("names, bases (IUPAC as 15), qualities and tags CR CY [CB] UR UY SR SY equal the generator's, "
+               "CB the plain version's on the card" if fmt == "BAM" else
+               "R1 = CR+UR / CY+UY, R2 the read, each read in its BAM shard")
+            + f"; reads per shard {sizes.tolist()}")
+
+    # SampleFastq: slide-seq pairs, R1 and R2 each over two files cut at
+    # different reads (two concatenated streams)
+    start = time.perf_counter()
+    m = SLIDESEQ_READS
+    wl14 = make_whitelist(rng, SLIDESEQ_WHITELIST, 14)
+    wl14_path = WORK / "whitelist14.txt"
+    wl14_path.write_bytes(np.concatenate([wl14, np.full((len(wl14), 1), ord("\n"), np.uint8)], axis=1).tobytes())
+    bc_ascii, bc_len, _ = make_queries(rng, wl14, m)
+    linker = LETTERS[rng.integers(0, 4, size=(m, 18))]
+    umi = LETTERS[rng.integers(0, 4, size=(m, 10))]
+    s1_ascii = np.concatenate([bc_ascii[:, :8], linker, bc_ascii[:, 8:], umi], axis=1)  # 42 bp
+    s1_seq = [s if k == 14 else bc[:k] for s, bc, k in zip(full_rows(s1_ascii), full_rows(bc_ascii), bc_len)]
+    s1_qual = [q[: len(s)] for q, s in zip(full_rows(rng.integers(35, 75, size=(m, 42), dtype=np.uint8)), s1_seq)]
+    s2_seq = full_rows(LETTERS[rng.integers(0, 4, size=(m, R2_LEN))])
+    s2_qual = full_rows(rng.integers(35, 75, size=(m, R2_LEN), dtype=np.uint8))
+    s_names = [b"s%07d" % i for i in range(m)]
+    s_paths = {kind: [str(WORK / f"s{kind}_{t}.fastq.gz") for t in range(2)] for kind in ("r1", "r2")}
+    write_fastq_files(s_paths["r1"], s_names, s1_seq, s1_qual, ((0, m // 3), (m // 3, m)))
+    write_fastq_files(s_paths["r2"], s_names, s2_seq, s2_qual, ((0, m // 2 + 17), (m // 2 + 17, m)))
+    barcodes = [s[:8] + s[26:32] if len(s) == 42 else s for s in s1_seq]
+    table14 = wl_ops.make_table(
+        torch.from_numpy(wl_ops.barcode_codes(full_rows(wl14), 14)).to(table.codes.device))
+    kept_rows = np.flatnonzero(expected_indices(wl_ops, table14, barcodes, 14) >= 0)
+    log(f"[fastq] SampleFastq inputs: {m} {SLIDESEQ_STRUCTURE} pairs (R1 42 bp, R2 {R2_LEN} bp; R1 and R2 in "
+        f"two files each, cut at different reads), whitelist {SLIDESEQ_WHITELIST} x 14; made in "
+        f"{time.perf_counter() - start:.1f} s")
+    out = WORK / "sampled"
+    stdout = io.StringIO()
+    with contextlib.redirect_stdout(stdout):
+        rc, seconds, launches, command = timed_command(
+            kernels, port_sample, "SampleFastq",
+            lambda: port_platform.GenericPlatform.sample_fastq(
+                ["--R1", *s_paths["r1"], "--R2", *s_paths["r2"], "--white-list", str(wl14_path),
+                 "--read-structure", SLIDESEQ_STRUCTURE, "--output-prefix", str(out)]))
+    batches = -(-m // BATCH)
+    launches_total += launches["whitelist_correct"]
+    if rc != 0 or stdout.getvalue() != f"kept {kept_rows.size} of {m} reads\n":
+        raise AssertionError(f"SampleFastq: rc {rc}, {stdout.getvalue()!r}, want {kept_rows.size} kept of {m}")
+    if launches["whitelist_correct"] != batches:
+        raise AssertionError(f"SampleFastq: {launches['whitelist_correct']} launches, want {batches}")
+    want_r1 = b"".join(
+        b"@s%07d\n%s%s%s%sT\n+\n%s%s%s%sF\n" % (
+            i, s1_seq[i][:8], b"CTTCAGCGTTCCCGAGAG", s1_seq[i][26:32], s1_seq[i][32:41],
+            s1_qual[i][:8], b"F" * 18, s1_qual[i][26:32], s1_qual[i][32:41])
+        for i in kept_rows.tolist())
+    want_r2 = b"".join(b"@s%07d\n%s\n+\n%s\n" % (i, s2_seq[i], s2_qual[i]) for i in kept_rows.tolist())
+    if Path(f"{out}.R1").read_bytes() != want_r1 or Path(f"{out}.R2").read_bytes() != want_r2:
+        raise AssertionError("SampleFastq: the kept reads' R1 rewrite or R2 differs from the generator's")
+    log(f"[fastq] {stamp} | SampleFastq on cuda: {m} pairs in {seconds:.2f} s = {m / seconds:.0f} reads/s; "
+        f"{split_line(seconds, command.seconds)}; {batches} batches, {launches['whitelist_correct']} kernel "
+        f"launches; kept {kept_rows.size} (the plain version's count on the card), every rewritten R1 "
+        f"(barcode[:8] + linker + barcode[8:] + UMI + T) and R2 exact")
+
+    # FastqMetrics on FastqProcess's R1 files
+    prefix = WORK / "fastq_metrics"
+    begin = time.perf_counter()
+    port_platform.GenericPlatform.fastq_metrics(["--R1", *paths["r1"], "--read-structure", "16C10M",
+                                                 "--sample-id", str(prefix)])
+    seconds = time.perf_counter() - begin
+    for suffix, rows in ((".numReads_perCell_XC.txt", r1_ascii[:, :CB_LEN]),
+                         (".numReads_perCell_XM.txt", r1_ascii[:, CB_LEN : CB_LEN + UMI_LEN])):
+        values, first, counts = np.unique(np.ascontiguousarray(rows).view(f"S{rows.shape[1]}").ravel(),
+                                          return_index=True, return_counts=True)
+        order = np.lexsort((first, -counts))
+        want = b"".join(b"%d\t%s\n" % (counts[k], values[k]) for k in order)
+        if Path(f"{prefix}{suffix}").read_bytes() != want:
+            raise AssertionError(f"FastqMetrics {suffix} differs from the generator's counts")
+    upper = np.where((r1_ascii >= ord("a")) & (r1_ascii <= ord("z")), r1_ascii - 32, r1_ascii)
+    for suffix, rows in ((".barcode_distribution_XC.txt", upper[:, :CB_LEN]),
+                         (".barcode_distribution_XM.txt", upper[:, CB_LEN : CB_LEN + UMI_LEN])):
+        table_rows = np.stack([(rows == ord(b)).sum(axis=0) for b in "ACGTN"], axis=1)
+        want = b"position\tA\tC\tG\tT\tN\n" + b"".join(
+            b"%d\t%d\t%d\t%d\t%d\t%d\n" % (k + 1, *row) for k, row in enumerate(table_rows.tolist()))
+        if Path(f"{prefix}{suffix}").read_bytes() != want:
+            raise AssertionError(f"FastqMetrics {suffix} differs from the generator's counts")
+    log(f"[fastq] FastqMetrics (host) on the 2 R1 files: {n} reads in {seconds:.2f} s = {n / seconds:.0f} reads/s; "
+        f"the four files equal numpy counts of the generator")
+    shutil.rmtree(WORK)
+    log(f"[fastq] phase 7 took {time.perf_counter() - phase_start:.1f} s")
+    return launches_total
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1299,15 +1607,18 @@ def main(argv=None) -> int:
 
     import torch
 
+    smoke_start = time.perf_counter()
     sms, clock_hz = phase_device()
     stamp = nvidia_smi("name,power.limit")
     if not (REPO / "sctools_tpu_torch" / "csrc").is_dir():
         raise SystemExit(f"chip_smoke: no sctools_tpu_torch package beside {__file__}")
     sys.path.insert(0, str(REPO))
     from sctools_tpu_torch import count as port_count
+    from sctools_tpu_torch import fastqprocess as port_fqp
     from sctools_tpu_torch import gtf as port_gtf
     from sctools_tpu_torch import kernels
     from sctools_tpu_torch import platform as port_platform
+    from sctools_tpu_torch import samplefastq as port_sample
     from sctools_tpu_torch.io import bgzf, sam
     from sctools_tpu_torch.metrics import device as port_device
     from sctools_tpu_torch.metrics import gatherer as port_gatherer
@@ -1332,15 +1643,22 @@ def main(argv=None) -> int:
         np.random.default_rng(args.seed + 2), stamp,
         (kernels, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf), csvs,
     )
+    fastq_launches = phase_fastq(
+        np.random.default_rng(args.seed + 3), whitelist_ascii, table, stamp,
+        (kernels, wl_ops, port_platform, port_fqp, port_sample, bgzf, sam),
+    )
     record = {
         "name": "whitelist_correct",
         "route": "cuda",
         "source": "sctools_tpu_torch/csrc/whitelist_correct.cu",
         "replaces": "sctools_tpu/ops/whitelist.py:125",
-        "launches": launches["whitelist_correct"],
+        # every main-path run of the smoke: attach, FastqProcess in both
+        # formats, SampleFastq
+        "launches": launches["whitelist_correct"] + fastq_launches,
         "verdict": "exact",
         **measured,
     }
+    log(f"[smoke] phases 1-7 took {time.perf_counter() - smoke_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

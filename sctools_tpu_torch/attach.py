@@ -31,22 +31,13 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence
 
 from . import consts
 from .device import DeviceLike, resolve
-from .fastq import Spans, extract_spans, iter_batches
+from .fastq import Spans, extract_spans, iter_batches, span_len
 from .io import bgzf
-from .io.sam import iter_raw_records, read_raw_header
-from .ops.whitelist import PendingCorrection, WhitelistCorrector
+from .io.sam import iter_raw_records, read_raw_header, z_tags
+from .ops.whitelist import PendingCorrection, WhitelistCorrector, correction_summary
 
 BATCH_SIZE = 1 << 16
 PROGRESS_EVERY = 10_000_000  # the reference's cadence (fastq_common.cpp:340)
-
-
-def _span_len(spans: Spans) -> int:
-    return sum(end - start for start, end in spans)
-
-
-def _z_tags(key: str, values: List[bytes]) -> List[bytes]:
-    prefix = key.encode() + b"Z"
-    return [prefix + value + b"\0" for value in values]
 
 
 class _Batch(NamedTuple):
@@ -86,15 +77,15 @@ def _batches(
         if cb_spans:
             cr = extract_spans(sequences, cb_spans)
             before += [
-                _z_tags(consts.RAW_CELL_BARCODE_TAG_KEY, cr),
-                _z_tags(consts.QUALITY_CELL_BARCODE_TAG_KEY,
+                z_tags(consts.RAW_CELL_BARCODE_TAG_KEY, cr),
+                z_tags(consts.QUALITY_CELL_BARCODE_TAG_KEY,
                         extract_spans(qualities, cb_spans)),
             ]
         if umi_spans:
             after += [
-                _z_tags(consts.RAW_MOLECULE_BARCODE_TAG_KEY,
+                z_tags(consts.RAW_MOLECULE_BARCODE_TAG_KEY,
                         extract_spans(sequences, umi_spans)),
-                _z_tags(consts.QUALITY_MOLECULE_BARCODE_TAG_KEY,
+                z_tags(consts.QUALITY_MOLECULE_BARCODE_TAG_KEY,
                         extract_spans(qualities, umi_spans)),
             ]
         if sample_spans:
@@ -105,9 +96,9 @@ def _batches(
             else:
                 sample_seqs, sample_quals = sequences, qualities
             after += [
-                _z_tags(consts.RAW_SAMPLE_BARCODE_TAG_KEY,
+                z_tags(consts.RAW_SAMPLE_BARCODE_TAG_KEY,
                         extract_spans(sample_seqs, sample_spans)),
-                _z_tags(consts.QUALITY_SAMPLE_BARCODE_TAG_KEY,
+                z_tags(consts.QUALITY_SAMPLE_BARCODE_TAG_KEY,
                         extract_spans(sample_quals, sample_spans)),
             ]
         correction = corrector.submit(cr) if corrector is not None else None
@@ -176,7 +167,7 @@ def attach_barcodes(
     whitelist_bytes = None
     if whitelist is not None:
         corrector = WhitelistCorrector.from_file(whitelist, device=device)
-        cb_len = _span_len(cb_spans)
+        cb_len = span_len(cb_spans)
         if cb_len != corrector.barcode_length:
             raise ValueError(
                 f"whitelist barcode length {corrector.barcode_length} does "
@@ -213,11 +204,6 @@ def attach_barcodes(
             pass
         raise
     if corrector is not None and counts.written:
-        pct = counts.uncorrectable / counts.written * 100.0
-        print(
-            f"Total barcodes:{counts.written}\n correct:{counts.correct}\n"
-            f"corrected:{counts.corrected}\nuncorrectible:{counts.uncorrectable}\n"
-            f"uncorrected:{pct:f}",
-            file=sys.stderr,
-        )
+        print(correction_summary(counts.written, counts.correct, counts.corrected,
+                                 counts.uncorrectable), file=sys.stderr)
     return counts.written

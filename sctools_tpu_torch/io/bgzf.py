@@ -148,6 +148,16 @@ class BgzfWriter:
             self._fh.flush()
         self._closed = True
 
+    def abort(self) -> None:
+        """Close without flushing the buffer or writing the EOF marker: the
+        error path, so that a partial output never reads as complete."""
+        if self._closed:
+            return
+        self._buffer = io.BytesIO()
+        if self._owns_fh:
+            self._fh.close()
+        self._closed = True
+
     def __enter__(self) -> "BgzfWriter":
         return self
 

@@ -605,6 +605,12 @@ class AlignmentWriter:
         self.close()
 
 
+def z_tags(key: str, values: Sequence[Optional[bytes]]) -> List[bytes]:
+    """Each value as the bytes of a ``Z`` tag ``key``; None gives no tag."""
+    prefix = key.encode() + b"Z"
+    return [b"" if value is None else prefix + value + b"\0" for value in values]
+
+
 def read_raw_header(fh: BinaryIO) -> bytes:
     """The BAM header (magic through the reference list) as raw bytes.
 

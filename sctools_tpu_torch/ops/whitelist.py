@@ -241,6 +241,16 @@ def _device_table(whitelist: List[str], length: int, device: torch.device) -> Wh
     return table
 
 
+def correction_summary(total: int, correct: int, corrected: int, uncorrectable: int) -> str:
+    """The reference's summary of a correction run, as the JAX native routes
+    print it to stderr (native/__init__.py:1020-1030): raw barcodes already
+    whitelisted, corrected, and left uncorrectable."""
+    return (
+        f"Total barcodes:{total}\n correct:{correct}\ncorrected:{corrected}\n"
+        f"uncorrectible:{uncorrectable}\nuncorrected:{uncorrectable / total * 100.0:f}"
+    )
+
+
 class PendingCorrection:
     """A batch's correction in flight; ``indices()`` waits for its result."""
 

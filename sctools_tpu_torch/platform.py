@@ -21,6 +21,13 @@ attach loop (``sctools_tpu_torch.attach``), which follows the JAX package's
 native route: tags in the order CR CY [CB] UR UY [SR SY], and no line
 terminator inside the tags of a read shorter than its spans.
 
+``TenXV2.fastq_process`` (``FastqProcess``), ``GenericPlatform.sample_fastq``,
+``fastq_metrics`` and ``check_barcode_partition`` are the ports of
+sctools_tpu/platform.py:792-913, :995-1115, with the same flags, stderr lines
+and exit codes. The first two run the port's FASTQ loops (``fastqprocess``,
+``samplefastq``), which correct barcodes on the whitelist kernel; the other
+two are host code.
+
 Every entry point is a classmethod taking an optional ``args`` list, plus a
 ``device`` keyword: ``cuda`` unless the caller passes ``device="cpu"``.
 Unlike the JAX classes, ``BarcodePlatform`` keeps the geometry of one call
@@ -30,13 +37,20 @@ local to that call instead of storing it on the class.
 from __future__ import annotations
 
 import argparse
-from typing import Iterable, List, Optional, Set, Tuple
+import math
+import os
+import sys
+from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 from . import attach, consts, fastq, gtf
 from .count import DEFAULT_BATCH_RECORDS, CountMatrix
 from .device import DeviceLike
+from .fastq_metrics import compute_fastq_metrics
+from .fastqprocess import fastq_process
+from .io.sam import AlignmentReader
 from .metrics.gatherer import GatherCellMetrics, GatherGeneMetrics
 from .metrics.merge import MergeCellMetrics, MergeGeneMetrics
+from .samplefastq import sample_fastq
 
 
 def _build_parser(*specs, defaults=None) -> argparse.ArgumentParser:
@@ -317,6 +331,91 @@ class GenericPlatform:
         CountMatrix.merge_matrices(args.input_prefixes).save(args.output_stem)
         return 0
 
+    @classmethod
+    def check_barcode_partition(
+        cls, args: Iterable[str] = None, device: DeviceLike = None
+    ) -> int:
+        """Verify that split/scatter outputs hold disjoint cell barcodes
+        (reference fastqpreprocessing/utils/check_barcode_partition.py):
+        fails if a barcode appears in more than one file. Host code, like
+        the merges."""
+        parser = _build_parser(
+            (
+                ("-b", "--bam-files"),
+                dict(nargs="+", required=True, help="the split/scatter output BAMs to validate"),
+            ),
+            (
+                ("-t", "--tag"),
+                dict(
+                    default=consts.CELL_BARCODE_TAG_KEY,
+                    help=f"partition tag (default {consts.CELL_BARCODE_TAG_KEY})",
+                ),
+            ),
+        )
+        args = parser.parse_args(args)
+        owner: Dict[str, str] = {}
+        violations = 0
+        for path in args.bam_files:
+            mode = "r" if path.endswith(".sam") else None
+            with AlignmentReader(path, mode) as reader:
+                seen = set()
+                for record in reader:
+                    value = record.tags.get(args.tag)
+                    if value is not None:
+                        seen.add(value[1])
+            for barcode in seen:
+                if barcode in owner and owner[barcode] != path:
+                    print(f"barcode {barcode} appears in {owner[barcode]} AND {path}", file=sys.stderr)
+                    violations += 1
+                else:
+                    owner[barcode] = path
+        if violations:
+            print(f"partition INVALID: {violations} barcode(s) span files", file=sys.stderr)
+            return 1
+        print(
+            f"partition OK: {len(owner)} barcode(s) disjoint across {len(args.bam_files)} file(s)",
+            file=sys.stderr,
+        )
+        return 0
+
+    @classmethod
+    def fastq_metrics(cls, args: Iterable[str] = None, device: DeviceLike = None) -> int:
+        """FASTQ-level barcode/UMI statistics (reference
+        fastqpreprocessing/src/fastq_metrics.cpp:174-242). Host code."""
+        parser = _build_parser(
+            (("--R1",), dict(nargs="+", required=True, help="R1 fastq file shard(s)")),
+            (
+                ("--read-structure",),
+                dict(required=True, help="read structure of R1, e.g. 16C10M or 8C18X6C9M1X"),
+            ),
+            (("--sample-id",), dict(required=True, help="prefix for the four output files")),
+        )
+        args = parser.parse_args(args)
+        compute_fastq_metrics(args.R1, args.read_structure, args.sample_id)
+        return 0
+
+    @classmethod
+    def sample_fastq(cls, args: Iterable[str] = None, device: DeviceLike = None) -> int:
+        """Downsample fastqs to whitelist-correctable reads (reference
+        fastqpreprocessing/src/samplefastq.cpp:69-104)."""
+        parser = _build_parser(
+            (("--R1",), dict(nargs="+", required=True, help="R1 fastq(s)")),
+            (("--R2",), dict(nargs="+", required=True, help="R2 fastq(s)")),
+            (("--white-list",), dict(required=True, help="cell barcode whitelist file")),
+            (("--read-structure",), dict(required=True, help="read structure of R1")),
+            (
+                ("--output-prefix",),
+                dict(default="sampled_down", help="output prefix (default: sampled_down)"),
+            ),
+        )
+        args = parser.parse_args(args)
+        kept, total = sample_fastq(
+            args.R1, args.R2, args.white_list, args.read_structure, args.output_prefix,
+            device=device,
+        )
+        print(f"kept {kept} of {total} reads")
+        return 0
+
 
 class TenXV2(GenericPlatform):
     """10x Genomics v2 geometry: cell barcode r1[0:16), molecule barcode
@@ -348,6 +447,84 @@ class TenXV2(GenericPlatform):
             [(cell.start, cell.end)], [(molecule.start, molecule.end)],
             [(sample.start, sample.end)] if args.i1 else [],
             i1=args.i1, whitelist=args.whitelist, device=device,
+        )
+        return 0
+
+    @classmethod
+    def fastq_process(cls, args=None, device: DeviceLike = None) -> int:
+        """The fastqprocess scatter: FASTQ triplets -> N disjoint-barcode
+        shards (reference fastqpreprocessing/src/fastqprocess.cpp,
+        fastq_common.cpp:362-414).
+
+        Each read goes to shard hash(corrected-or-raw cell barcode) %
+        n_shards, so a cell never spans files. The shard count is the
+        reference's rule: ceil(total input GiB / --bam-size)
+        (input_options.cpp:53-72).
+        """
+        parser = _build_parser(
+            (
+                ("--r1",),
+                dict(nargs="+", required=True, help="read 1 fastq files (barcode + umi reads)"),
+            ),
+            (("--r2",), dict(nargs="+", required=True, help="read 2 fastq files (cDNA reads)")),
+            (("--i1",), dict(nargs="+", default=None, help="(optional) i7 index fastq files")),
+            (("-w", "--whitelist"), dict(default=None, help="cell barcode whitelist for correction")),
+            (
+                ("--output-format",),
+                dict(default="BAM", choices=["BAM", "FASTQ"], help="shard output type (default BAM)"),
+            ),
+            (
+                ("--bam-size",),
+                dict(type=float, default=1.0, help="target GiB of input per output shard "
+                     "(default 1.0; reference input_options.h:29)"),
+            ),
+            (("--sample-id",), dict(default="", help="@RG SM value for BAM shard headers")),
+            (
+                ("-o", "--output-prefix"),
+                dict(default="subfile", help="shard filename prefix (default subfile)"),
+            ),
+            (("--barcode-length",), dict(type=int, default=16)),
+            (("--umi-length",), dict(type=int, default=10)),
+            (("--sample-length",), dict(type=int, default=8)),
+            (
+                ("--read-structure",),
+                dict(
+                    default=None,
+                    help="R1 layout as a read-structure string, e.g. 8C18X6C9M1X "
+                    "(C=cell, M=umi, S=sample, X=skip); overrides "
+                    "--barcode-length/--umi-length",
+                ),
+            ),
+        )
+        args = parser.parse_args(args)
+        if len(args.r1) != len(args.r2):
+            parser.error("--r1 and --r2 need the same number of files")
+        if args.i1 is not None and len(args.i1) != len(args.r1):
+            parser.error("--i1 must match --r1 in file count")
+        if args.bam_size <= 0:
+            parser.error("--bam-size must be positive")
+        total_bytes = sum(os.path.getsize(f) for f in args.r1 + args.r2 + (args.i1 or []))
+        n_shards = max(1, math.ceil(total_bytes / (args.bam_size * (1 << 30))))
+        if args.read_structure:
+            structure = fastq.ReadStructure(args.read_structure)
+            cb_spans, umi_spans = structure.spans("C"), structure.spans("M")
+            # S segments name I1 positions: without --i1 they give no SR/SY
+            sample_spans = structure.spans("S") or (
+                [(0, args.sample_length)] if args.i1 else None
+            )
+        else:
+            cb_spans = [(0, args.barcode_length)]
+            umi_spans = [(args.barcode_length, args.barcode_length + args.umi_length)]
+            sample_spans = [(0, args.sample_length)] if args.i1 else None
+        stats = fastq_process(
+            args.r1, args.r2, args.output_prefix, cb_spans, umi_spans,
+            sample_spans=sample_spans, i1_files=args.i1, whitelist=args.whitelist,
+            n_shards=n_shards, output_format=args.output_format,
+            sample_id=args.sample_id, device=device,
+        )
+        print(
+            f"wrote {n_shards} {args.output_format} shard(s), {stats['total_reads']} reads",
+            file=sys.stderr,
         )
         return 0
 

@@ -13,21 +13,28 @@ a plain unsorted one, at 5,000 records and at 2^20 (where the scan's stride
 loop runs to 2^19), and one ``GatherCellMetrics`` CSV on the card to the
 same on the CPU. The count pass (plain torch ops too) is held to its CPU
 results at 5,000 records and at 2^19, the count's batch width, and one
-``CreateCountMatrix`` run on the card to the same on the CPU.
+``CreateCountMatrix`` run on the card to the same on the CPU. FastqProcess
+(BAM and FASTQ shards, compared decompressed), SampleFastq and
+CheckBarcodePartition on the card equal the same calls on the CPU, and
+the kernel launches equal the batches.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
-``test_torch_metrics.py`` and ``test_torch_count.py``.
+``test_torch_metrics.py``, ``test_torch_count.py`` and
+``test_torch_fastqprocess.py``.
 """
 
 import gzip
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
+from sctools_tpu_torch import fastqprocess as port_fqp
 from sctools_tpu_torch import kernels
 from sctools_tpu_torch import platform as port_platform
+from sctools_tpu_torch import samplefastq as port_sample
 from sctools_tpu_torch.io.packed import ReadFrame
 from sctools_tpu_torch.io.sam import AlignmentWriter, BamHeader, BamRecord
 from sctools_tpu_torch.metrics import device as port_device
@@ -389,3 +396,85 @@ def test_count_matrix_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         else:
             np.testing.assert_array_equal(card, cpu)
     assert len(files["cpu"][2]) > 100  # data: molecules were counted
+
+
+# -------------------------------------------------------------------- fastq
+
+
+def _write_fastq(path, reads):
+    with open(path, "w") as f:
+        f.writelines(f"@{name}\n{seq}\n+\n{qual}\n" for name, seq, qual in reads)
+    return str(path)
+
+
+@pytest.fixture
+def triplets(tmp_path):
+    """Two 10x v2 triplets of 350 reads, R1 from ``_queries`` (exact, one
+    error, N, random, lowercase, short), R2 with IUPAC and lowercase bases."""
+    rng = np.random.default_rng(9)
+    whitelist = _barcodes(rng, 100, 16)
+    (tmp_path / "wl.txt").write_text("\n".join(whitelist) + "\n")
+    files = {"wl": str(tmp_path / "wl.txt"), "r1": [], "r2": [], "i1": []}
+    for t in range(2):
+        r1, r2, i1 = [], [], []
+        for i, barcode in enumerate(_queries(rng, whitelist, 350)):
+            read = barcode + _barcodes(rng, 1, 12)[0] if len(barcode) == 16 else barcode
+            r1.append((f"t{t}r{i} 1:N", read, "I" * len(read)))
+            seq = _barcodes(rng, 1, 50)[0]
+            seq = seq[:10] + "R" + seq[11:20].lower() + seq[20:]
+            r2.append((f"t{t}r{i}", seq, "".join(chr(35 + int(q)) for q in rng.integers(0, 40, 50))))
+            i1.append((f"t{t}r{i}", _barcodes(rng, 1, 8)[0], "F" * 8))
+        for kind, reads in (("r1", r1), ("r2", r2), ("i1", i1)):
+            files[kind].append(_write_fastq(tmp_path / f"{kind}_{t}.fastq", reads))
+    return files
+
+
+@pytest.mark.parametrize("output_format", ["BAM", "FASTQ"])
+def test_fastq_process_on_the_card_matches_the_cpu(cuda_device, tmp_path, triplets, capsys, output_format):
+    batch_size, n_shards = 128, 3
+    shards, summaries = {}, {}
+    for device in ("cpu", "cuda"):
+        prefix = str(tmp_path / device)
+        before = kernels.launches["whitelist_correct"]
+        capsys.readouterr()
+        stats = port_fqp.fastq_process(
+            triplets["r1"], triplets["r2"], prefix, [(0, 16)], [(16, 26)], [(0, 8)], triplets["i1"],
+            whitelist=triplets["wl"], n_shards=n_shards, output_format=output_format,
+            batch_size=batch_size, device=device)
+        summaries[device] = (stats, capsys.readouterr().err)
+        launched = kernels.launches["whitelist_correct"] - before
+        assert launched == (-(-700 // batch_size) if device == "cuda" else 0)
+        paths = port_fqp.shard_paths(prefix, n_shards, output_format)
+        shards[device] = [gzip.decompress(open(p, "rb").read()) for p in paths]
+    assert summaries["cuda"] == summaries["cpu"] and summaries["cpu"][0]["corrected"] > 100
+    assert shards["cuda"] == shards["cpu"] and all(shards["cpu"])
+    if output_format == "BAM":
+        bams = port_fqp.shard_paths(str(tmp_path / "cuda"), n_shards, "BAM")
+        shutil.copy(bams[0], tmp_path / "copy.bam")
+        for files, want in ((bams, 0), ([bams[0], str(tmp_path / "copy.bam")], 1)):
+            results = []
+            for device in ("cpu", "cuda"):
+                rc = port_platform.GenericPlatform.check_barcode_partition(["-b", *files], device=device)
+                results.append((rc, capsys.readouterr().err))
+            assert results[0] == results[1] and results[0][0] == want
+
+
+def test_sample_fastq_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    rng = np.random.default_rng(10)
+    whitelist = _barcodes(rng, 300, 14)
+    (tmp_path / "wl.txt").write_text("\n".join(whitelist) + "\n")
+    r1, r2 = [], []
+    for i, barcode in enumerate(_queries(rng, whitelist, 600)):
+        read = barcode[:8] + _barcodes(rng, 1, 18)[0] + barcode[8:] + _barcodes(rng, 1, 10)[0]
+        r1.append((f"s{i}", read, "F" * len(read)))
+        r2.append((f"s{i}", _barcodes(rng, 1, 40)[0], "I" * 40))
+    r1_files = [_write_fastq(tmp_path / "r1a.fastq", r1[:250]), _write_fastq(tmp_path / "r1b.fastq", r1[250:])]
+    r2_files = [_write_fastq(tmp_path / "r2.fastq", r2)]
+    outputs = {}
+    for device in ("cpu", "cuda"):
+        before = kernels.launches["whitelist_correct"]
+        kept = port_sample.sample_fastq(r1_files, r2_files, str(tmp_path / "wl.txt"), "8C18X6C9M1X",
+                                        str(tmp_path / device), batch_size=128, device=device)
+        assert kernels.launches["whitelist_correct"] - before == (5 if device == "cuda" else 0)
+        outputs[device] = (kept, [open(tmp_path / f"{device}{s}", "rb").read() for s in (".R1", ".R2")])
+    assert outputs["cuda"] == outputs["cpu"] and 200 < outputs["cpu"][0][0] < 600
