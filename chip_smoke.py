@@ -32,7 +32,8 @@ Phases, in order; any failure exits non-zero before the last line:
               the generator's counts. Prints records/s, the wall split, device
               milliseconds per batch and the profiler's top device ops. The
               metrics path has no hand kernel; the phase checks that none
-              launched. The commands' CSVs stay for phase 6;
+              launched. The commands' CSVs stay for phase 6, the cell CSV
+              and BAM for phase 8;
 6. count   -- ``GenericPlatform.bam_to_count_matrix`` (CreateCountMatrix) on
               the card at the count's 2^19-record batch width: a
               queryname-grouped 10x v2 library of 750,000 queries (~1,180,000
@@ -60,7 +61,23 @@ Phases, in order; any failure exits non-zero before the last line:
               ``fastq_metrics`` on the R1 files against numpy counts. Prints
               reads/s, the wall split and the kernel launches of each
               command, which must equal its batches;
-8. kernels -- one JSON line per the port's kernel contract; its launches are
+8. sort    -- ``GenericPlatform.tag_sort_bam`` (TagSortBam -t CB UB GE
+              --cell-metrics-output -a -o) on the card: phase 5's 1,250,000
+              cell records in a shuffled order, sorted on the host in 3
+              partials of the default 500,000 records, merged and decoded
+              into 2^20-record frames for the metrics pass on the card in
+              one pass that also writes the sorted BAM. The CSV must equal
+              phase 5's CalculateCellMetrics CSV byte for byte (decompressed)
+              and the sorted BAM hold the input's record bodies in phase 5's
+              order; ``verify_bam_sort`` 0 on it, SortError on the shuffled
+              BAM. ``split_bam`` (-t CB CR, 4 chunks, 4 processes) on phase
+              7's BAM shards: every record in exactly one chunk (byte for
+              byte but the bin field, which the writer re-encodes), no scratch
+              directory left, ``check_barcode_partition`` 0 on the chunks.
+              ``group_qc_outputs`` of all five types on small Picard, HISAT2,
+              RSEM and Core inputs, every value read back. Prints records/s,
+              the wall split and the idle share; no hand kernel may launch;
+9. kernels -- one JSON line per the port's kernel contract; its launches are
               those of every main-path run (phases 4 and 7).
 
 The last line of standard output is
@@ -74,7 +91,9 @@ checkout and are removed at the end.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import csv
 import gzip
 import io
 import json
@@ -978,10 +997,9 @@ def phase_metrics(rng, stamp: str, modules) -> None:
     if dict(kernels.launches) != launches_before:
         raise AssertionError(f"a hand kernel launched in the metrics phase: {kernels.launches}")
     log("[metrics] no hand kernel launched (kernels.launches unchanged)")
-    # the commands' CSVs stay for the count phase's merges
-    for path in WORK.iterdir():
-        if not path.name.startswith("cli_"):
-            path.unlink()
+    # the commands' CSVs stay for the count phase's merges, the cell CSV and
+    # the cell BAM for the sort phase
+    clear_work("cli_cell.csv.gz", "cli_gene.csv.gz", "cell_sorted.bam")
     return {axis: WORK / f"cli_{axis}.csv.gz" for axis in ("cell", "gene")}
 
 
@@ -1301,7 +1319,7 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
     if dict(kernels.launches) != launches_before:
         raise AssertionError(f"a hand kernel launched in the count phase: {kernels.launches}")
     log("[count] no hand kernel launched (kernels.launches unchanged)")
-    shutil.rmtree(WORK)
+    clear_work(*KEPT_FOR_SORT)
     log(f"[count] phase 6 took {time.perf_counter() - phase_start:.1f} s")
 
 
@@ -1385,11 +1403,12 @@ def split_line(seconds: float, split: dict) -> str:
             f"write/compress {split['write']:.2f} s, other {other:.2f} s")
 
 
-def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules) -> int:
+def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
     """FastqProcess (BAM and FASTQ shards), SampleFastq, FastqMetrics and
     CheckBarcodePartition through their entry points on the card, against
     the generator and the plain version; returns the kernel launches of
-    the phase's main-path runs."""
+    the phase's main-path runs and the BAM shards, which stay for the sort
+    phase."""
     import torch
 
     kernels, wl_ops, port_platform, port_fqp, port_sample, bgzf, sam = modules
@@ -1467,7 +1486,7 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules) -> int:
         check_start = time.perf_counter()
         seen = np.zeros(n, dtype=np.int64)
         if fmt == "BAM":
-            shards = port_fqp.shard_paths(str(prefix), FASTQ_SHARDS)
+            shards = bam_shards = port_fqp.shard_paths(str(prefix), FASTQ_SHARDS)
             for shard, path in enumerate(shards):
                 for name, packed, phred, tags in read_bam_shard(path, bgzf, sam):
                     i = int(name[1:])
@@ -1593,10 +1612,236 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules) -> int:
             raise AssertionError(f"FastqMetrics {suffix} differs from the generator's counts")
     log(f"[fastq] FastqMetrics (host) on the 2 R1 files: {n} reads in {seconds:.2f} s = {n / seconds:.0f} reads/s; "
         f"the four files equal numpy counts of the generator")
-    shutil.rmtree(WORK)
+    clear_work(*KEPT_FOR_SORT, *(Path(p).name for p in bam_shards))
     log(f"[fastq] phase 7 took {time.perf_counter() - phase_start:.1f} s")
-    return launches_total
+    return launches_total, bam_shards
 
+
+SORT_TAGS = ("CB", "UB", "GE")
+SORT_CHUNK = 500_000  # TagSortBam's default --records-per-chunk, not cut
+# phase 5's outputs that phases 6 and 7 leave for the sort phase
+KEPT_FOR_SORT = ("cli_cell.csv.gz", "cell_sorted.bam")
+
+
+def clear_work(*keep: str) -> None:
+    """Remove the work files but the names in ``keep``, which a later phase reads."""
+    for path in WORK.iterdir():
+        if path.name not in keep:
+            shutil.rmtree(path) if path.is_dir() else path.unlink()
+
+
+def raw_bodies(path, bgzf, sam) -> list:
+    """The record bodies of a BAM, undecoded, in order."""
+    with bgzf.open_bgzf_reader(str(path)) as fh:
+        sam.read_raw_header(fh)
+        return list(sam.iter_raw_records(fh))
+
+
+def write_qc_inputs(directory: Path) -> dict:
+    """Small Picard, HISAT2 and RSEM files for two cells; returns, per
+    GroupQCs type, (files, {(row, column): value written})."""
+    directory.mkdir()
+    cells = {"cellA": (1000, 0.25, 812), "cellB": (500, 0.5, 377)}
+    out = {"Picard": ([], {}), "PicardTable": ([], {}), "HISAT2": ([], {}), "RSEM": ([], {})}
+    for cell, (total, duplication, insert) in cells.items():
+        path = directory / f"{cell}_qc.alignment_summary_metrics.txt"
+        rows = [f"{category}\t{reads}\t{reads}\t" for category, reads in
+                (("FIRST_OF_PAIR", total // 2), ("SECOND_OF_PAIR", total // 2), ("PAIR", total))]
+        path.write_text("## htsjdk.samtools.metrics.StringHeader\n## METRICS CLASS\t"
+                        "picard.analysis.AlignmentSummaryMetrics\nCATEGORY\tTOTAL_READS\tPF_READS\tSAMPLE\n"
+                        + "\n".join(rows) + "\n\n## HISTOGRAM\tjava.lang.Integer\nx\ty\n1\t2\n")
+        out["Picard"][0].append(str(path))
+        out["Picard"][1].update({(cell, "TOTAL_READS.PAIR"): total, (cell, "PF_READS.FIRST_OF_PAIR"): total // 2})
+        path = directory / f"{cell}_qc.duplication_metrics.txt"
+        path.write_text("## METRICS CLASS\tpicard.sam.DuplicationMetrics\nLIBRARY\tREAD_PAIRS_EXAMINED\t"
+                        f"PERCENT_DUPLICATION\nlib1\t{total // 2}\t{duplication}\n")
+        out["Picard"][0].append(str(path))
+        out["Picard"][1][(cell, "PERCENT_DUPLICATION")] = duplication
+        path = directory / f"{cell}_qc.insert_size_metrics.txt"
+        path.write_text("## METRICS CLASS\tpicard.analysis.InsertSizeMetrics\nMEDIAN_INSERT_SIZE\t"
+                        f"PAIR_ORIENTATION\n{insert}\tFR\n{insert + 5}\tRF\n")
+        out["PicardTable"][0].append(str(path))
+        out["PicardTable"][1].update({(cell, "MEDIAN_INSERT_SIZE"): insert, (cell, "PAIR_ORIENTATION"): "FR"})
+        path = directory / f"{cell}_qc.log"
+        path.write_text(f"HISAT2 summary stats:\nTotal reads: {total}\nAligned 0 time: {total // 10} (10.00%)\n"
+                        f"Overall alignment rate: 90.00%\n")
+        out["HISAT2"][0].append(str(path))
+        out["HISAT2"][1].update({(cell, "Total reads"): total, (cell, "Overall alignment rate"): "90.00%"})
+        path = directory / f"{cell}_rsem.cnt"
+        path.write_text(f"{total // 10} {total - total // 10} 0 {total}\n{insert} 7 3\n{total + 9} 0\n")
+        out["RSEM"][0].append(str(path))
+        out["RSEM"][1].update({(cell, "total reads"): total, (cell, "unique aligned"): insert})
+    return out
+
+
+def check_qc_csv(path: Path, written: dict, index_column: str = None) -> int:
+    """Every (row, column) value written reads back from the CSV (numbers
+    as numbers); returns the cells checked."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    header = rows[0]
+    key = header.index(index_column) if index_column else 0
+    table = {}
+    for row in rows[1:]:
+        table.setdefault(row[key], dict(zip(header, row)))
+    for (row, column), value in written.items():
+        got = table[row][column]
+        if (float(got) != value) if isinstance(value, (int, float)) else (got != value):
+            raise AssertionError(f"{path.name}: [{row}, {column}] is {got!r}, {value!r} was written")
+    return len(written)
+
+
+def phase_sort(rng, stamp: str, modules, shards) -> None:
+    """TagSortBam with the fused cell metrics pass on the card, VerifyBamSort,
+    SplitBam and GroupQCs through their entry points."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels, port_platform, port_tagsort, port_bam, bgzf, sam = modules
+    phase_start = start = time.perf_counter()
+    with bgzf.open_bgzf_reader(str(WORK / "cell_sorted.bam")) as fh:
+        header = sam.read_raw_header(fh)
+        phase5 = list(sam.iter_raw_records(fh))
+    shuffled = WORK / "cell_shuffled.bam"
+    with bgzf.BgzfWriter(str(shuffled), level=1) as out:
+        out.write(header)
+        order = rng.permutation(len(phase5))
+        for lo in range(0, len(order), 1 << 16):
+            out.write(b"".join(struct.pack("<I", len(phase5[i])) + phase5[i] for i in order[lo : lo + (1 << 16)]))
+    n = len(phase5)
+    log(f"[sort] inputs: phase 5's {n} cell records in a shuffled order (BGZF level 1, "
+        f"{shuffled.stat().st_size} bytes); made in {time.perf_counter() - start:.1f} s")
+
+    # the fused pass: sort in partials on the host, merge, frames to the card
+    stem, sorted_bam = WORK / "fused_cell", WORK / "fused_sorted.bam"
+    args = ["-i", str(shuffled), "-t", *SORT_TAGS, "--cell-metrics-output", str(stem),
+            "-a", str(WORK / "mito.gtf"), "-o", str(sorted_bam)]
+    write_mito_gtf(WORK / "mito.gtf")
+    streams, gatherers = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()  # the main path's run starts here
+    begin = time.perf_counter()
+    with recording(port_tagsort, "SortedFrameStream", streams), \
+            recording(port_platform, "GatherCellMetrics", gatherers), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rc = port_platform.GenericPlatform.tag_sort_bam(args)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - begin
+    launches = dict(kernels.launches)  # ... and ends here
+    busy_ms = device_busy_ms(prof)
+    if rc != 0 or any(launches.values()):
+        raise AssertionError(f"TagSortBam: rc {rc}; hand kernel launches {launches} (want none)")
+    stream, gatherer = streams[0], gatherers[0]
+    sort_split = stream.seconds
+    gather_split = gatherer.seconds
+    # the gatherer's decode seconds are the time it waited on the stream
+    other = wall - gather_split["decode"] - sum(v for k, v in gather_split.items() if k != "decode")
+    stream_other = gather_split["decode"] - sum(sort_split.values())
+    log(f"[sort] {stamp} | TagSortBam --cell-metrics-output -o on cuda: {n} records in {wall:.2f} s = "
+        f"{n / wall:.0f} records/s; {stream.sort.partials} partials of <= {SORT_CHUNK}, frames of "
+        f"{port_tagsort.FRAME_RECORDS}; read+key {sort_split['read_key']:.2f} s, chunk sort "
+        f"{sort_split['sort']:.2f} s, partial write {sort_split['partial_write']:.2f} s, merge "
+        f"{sort_split['merge']:.2f} s, decode to records {sort_split['decode']:.2f} s, records to frames "
+        f"{sort_split['frame']:.2f} s, BAM tee {sort_split['tee']:.2f} s, rest of the stream "
+        f"{stream_other:.2f} s; pack {gather_split['pack']:.2f} s, upload+enqueue "
+        f"{gather_split['dispatch']:.2f} s, wait {gather_split['wait']:.2f} s, CSV {gather_split['csv']:.2f} s, "
+        f"other {other:.2f} s; {len(gatherer.batches)} device batches; device busy (torch.profiler, kernels "
+        f"and copies) {busy_ms:.1f} ms, idle share {1 - busy_ms / (wall * 1e3):.4f}; no hand kernel launched")
+    if stream.sort.partials != -(-n // SORT_CHUNK) or len(gatherer.batches) < 2:
+        raise AssertionError(f"want {-(-n // SORT_CHUNK)} partials and >= 2 device batches, got "
+                             f"{stream.sort.partials} and {len(gatherer.batches)}")
+    fused = read_csv(stem.with_name(stem.name + ".csv.gz"))[0]
+    want = read_csv(WORK / "cli_cell.csv.gz")[0]
+    if fused != want:
+        raise AssertionError("the fused CSV differs from phase 5's CalculateCellMetrics CSV")
+    out_bodies = raw_bodies(sorted_bam, bgzf, sam)
+    if sorted(out_bodies) != sorted(phase5):
+        raise AssertionError("the sorted BAM's records are not the input's")
+    if out_bodies != phase5:
+        raise AssertionError("the sorted BAM's record order differs from phase 5's (CB, UB, GE) order")
+    del out_bodies, phase5
+    log(f"[sort] the fused CSV equals phase 5's CalculateCellMetrics CSV byte for byte ({len(fused)} bytes); "
+        f"the sorted BAM holds the input's {n} record bodies, in phase 5's order")
+
+    stdout = io.StringIO()
+    begin = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = port_platform.GenericPlatform.verify_bam_sort(["-i", str(sorted_bam), "-t", *SORT_TAGS])
+    verify_seconds = time.perf_counter() - begin
+    if rc != 0 or stdout.getvalue() != f"{sorted_bam} is correctly sorted by {list(SORT_TAGS)} and query name\n":
+        raise AssertionError(f"VerifyBamSort: rc {rc}, {stdout.getvalue()!r}")
+    try:
+        port_platform.GenericPlatform.verify_bam_sort(["-i", str(shuffled), "-t", *SORT_TAGS])
+    except port_bam.SortError as error:
+        refused = str(error).splitlines()[0]
+    else:
+        raise AssertionError("VerifyBamSort passed the shuffled BAM")
+    log(f"[sort] VerifyBamSort: 0 on the sorted BAM ({n} records in {verify_seconds:.2f} s = "
+        f"{n / verify_seconds:.0f} records/s), SortError on the shuffled one ({refused})")
+    for path in (shuffled, sorted_bam):
+        path.unlink()
+
+    # SplitBam on phase 7's four shards, from inside the work directory: the
+    # scratch directories go in the working directory. SplitBam re-encodes
+    # each record, as the JAX package's does, and the BAM writer writes the
+    # bin field (bytes 10-11, an index hint) as 0 where FastqProcess wrote
+    # 4680, so records are compared without it
+    def unbinned(paths):
+        return collections.Counter(b[:10] + b[12:] for path in paths for b in raw_bodies(path, bgzf, sam))
+
+    in_bodies = unbinned(shards)
+    size_mb = sum(Path(p).stat().st_size for p in shards) * 1e-6
+    before = set(WORK.iterdir())
+    stdout = io.StringIO()
+    with contextlib.chdir(WORK), contextlib.redirect_stdout(stdout):
+        begin = time.perf_counter()
+        rc = port_platform.GenericPlatform.split_bam(
+            ["-b", *shards, "-p", "chunk", "-s", repr(size_mb / 3.5), "-t", "CB", "CR", "--num-processes", "4"])
+        split_seconds = time.perf_counter() - begin
+    chunks = stdout.getvalue().split()
+    if rc != 0 or chunks != [str((WORK / f"chunk_{i}.bam").resolve()) for i in range(4)]:
+        raise AssertionError(f"SplitBam: rc {rc}, printed {chunks}")
+    if set(WORK.iterdir()) - before != {Path(c) for c in chunks}:
+        raise AssertionError(f"SplitBam left {sorted(set(WORK.iterdir()) - before)}")
+    out_bodies = unbinned(chunks)
+    if out_bodies != in_bodies or max(out_bodies.values()) != 1:
+        raise AssertionError("SplitBam: the chunks do not hold every input record exactly once "
+                             f"(bin field aside): {sum(in_bodies.values())} in, {sum(out_bodies.values())} out, "
+                             f"{len(in_bodies - out_bodies)} input records missing")
+    partition = io.StringIO()
+    with contextlib.redirect_stderr(partition):
+        ok = port_platform.GenericPlatform.check_barcode_partition(["-b", *chunks])
+    if ok != 0:
+        raise AssertionError(f"CheckBarcodePartition on the SplitBam chunks: {partition.getvalue()[-300:]}")
+    log(f"[sort] SplitBam -t CB CR --num-processes 4: {sum(in_bodies.values())} records of {len(shards)} BAMs "
+        f"into {len(chunks)} chunks in {split_seconds:.2f} s; every record in exactly one chunk (its bytes but "
+        f"the re-encoded bin field), no scratch "
+        f"directory left, CheckBarcodePartition 0 ({partition.getvalue().strip()})")
+
+    # GroupQCs: all five types, on files written here, without pandas
+    qc = write_qc_inputs(WORK / "qc")
+    checked = 0
+    for metrics_type in ("Picard", "HISAT2", "RSEM"):
+        files, written = qc[metrics_type]
+        out = WORK / "qc" / metrics_type
+        port_platform.GenericPlatform.group_qc_outputs(["-f", *files, "-o", str(out), "-t", metrics_type])
+        checked += check_qc_csv(out.with_name(out.name + ".csv"), written)
+    files, written = qc["PicardTable"]
+    for path, cell in zip(files, ("cellA", "cellB")):
+        # one CSV per input file, named by its class; a cell's first row is read
+        out = WORK / "qc" / f"table_{cell}"
+        port_platform.GenericPlatform.group_qc_outputs(["-f", path, "-o", str(out), "-t", "PicardTable"])
+        checked += check_qc_csv(out.with_name(out.name + "_insert_size_metrics.csv"),
+                                {k: v for k, v in written.items() if k[0] == cell}, "Sample")
+    core = WORK / "qc" / "Core"
+    port_platform.GenericPlatform.group_qc_outputs(
+        ["-f", str(WORK / "qc" / "Picard.csv"), str(WORK / "qc" / "HISAT2.csv"), "-o", str(core), "-t", "Core"])
+    checked += check_qc_csv(core.with_name("Core.csv"), {**qc["Picard"][1], **qc["HISAT2"][1]})
+    log(f"[sort] GroupQCs Picard, PicardTable, HISAT2, RSEM and Core: {checked} cells read back as written")
+    if any(kernels.launches.values()):
+        raise AssertionError(f"a hand kernel launched in the sort phase: {kernels.launches}")
+    shutil.rmtree(WORK)
+    log(f"[sort] phase 8 took {time.perf_counter() - phase_start:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1618,7 +1863,9 @@ def main(argv=None) -> int:
     from sctools_tpu_torch import gtf as port_gtf
     from sctools_tpu_torch import kernels
     from sctools_tpu_torch import platform as port_platform
+    from sctools_tpu_torch import bam as port_bam
     from sctools_tpu_torch import samplefastq as port_sample
+    from sctools_tpu_torch import tagsort as port_tagsort
     from sctools_tpu_torch.io import bgzf, sam
     from sctools_tpu_torch.metrics import device as port_device
     from sctools_tpu_torch.metrics import gatherer as port_gatherer
@@ -1643,9 +1890,13 @@ def main(argv=None) -> int:
         np.random.default_rng(args.seed + 2), stamp,
         (kernels, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf), csvs,
     )
-    fastq_launches = phase_fastq(
+    fastq_launches, bam_shards = phase_fastq(
         np.random.default_rng(args.seed + 3), whitelist_ascii, table, stamp,
         (kernels, wl_ops, port_platform, port_fqp, port_sample, bgzf, sam),
+    )
+    phase_sort(
+        np.random.default_rng(args.seed + 4), stamp,
+        (kernels, port_platform, port_tagsort, port_bam, bgzf, sam), bam_shards,
     )
     record = {
         "name": "whitelist_correct",
@@ -1653,12 +1904,12 @@ def main(argv=None) -> int:
         "source": "sctools_tpu_torch/csrc/whitelist_correct.cu",
         "replaces": "sctools_tpu/ops/whitelist.py:125",
         # every main-path run of the smoke: attach, FastqProcess in both
-        # formats, SampleFastq
+        # formats, SampleFastq (the metrics, count and sort paths launch none)
         "launches": launches["whitelist_correct"] + fastq_launches,
         "verdict": "exact",
         **measured,
     }
-    log(f"[smoke] phases 1-7 took {time.perf_counter() - smoke_start:.1f} s")
+    log(f"[smoke] phases 1-8 took {time.perf_counter() - smoke_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

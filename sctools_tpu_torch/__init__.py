@@ -5,7 +5,10 @@ it, imports ``torch`` and never ``jax``, and keeps its own copies of the host
 code it needs. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"`` (``sctools_tpu_torch.device.resolve``).
 
-Ported so far: the barcode-attach path (``platform.TenXV2.attach_barcodes``,
-``platform.BarcodePlatform.attach_barcodes``) with whitelist correction on a
-hand-written CUDA kernel (``csrc/whitelist_correct.cu``).
+Every console entry point of the JAX package has its classmethod of the
+same name in ``platform``; the whitelist correction runs on a hand-written
+CUDA kernel (``csrc/whitelist_correct.cu``), the metrics and count passes
+on PyTorch ops on the device, and the sorts, splits, merges and QC
+aggregation on the host. Multi-device runs (``--devices N > 1``) are not
+ported.
 """

@@ -36,13 +36,14 @@ import itertools
 import operator
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from . import consts, ingest
+from .bam import get_tag_or_default
 from .device import DeviceLike, resolve
 from .io.packed import (
     IRREGULAR_BARCODE_BASE,
@@ -54,7 +55,7 @@ from .io.packed import (
     slice_frame,
     unpack_barcode_u64,
 )
-from .io.sam import AlignmentReader, BamRecord
+from .io.sam import AlignmentReader
 from .ops.counting import count_molecules
 from .ops.segments import bucket_size
 
@@ -72,14 +73,6 @@ DEFAULT_BATCH_RECORDS = 1 << 19
 # pulls back
 UPLOAD_COLUMNS = ("qname", "cell", "umi", "gene", "eligible", "cb_ok", "ub_ok", "valid")
 RESULT_COLUMNS = ("is_molecule", "cell", "umi", "gene", "first_index")
-
-
-def get_tag_or_default(alignment: BamRecord, tag_key: str, default: Optional[str] = None):
-    """The tag's value, or ``default`` when absent."""
-    try:
-        return alignment.get_tag(tag_key)
-    except KeyError:
-        return default
 
 
 class _MoleculeAccumulator:

@@ -13,11 +13,14 @@ back (``ingest.pull``). Up to ``_PIPELINE_DEPTH`` batches are on the device
 before the oldest result is written, so batch k+2 is packed and uploaded
 while batch k's pull is in flight.
 
-Not ported: the host aggregators of ``backend='cpu'``, the mesh-sharded
-gatherer, the prefetch/ingest ring, the guard ladder (a failed batch fails
-the command, and the writer discards its temp file), and the JAX package's
-observability hooks. Each gatherer keeps plain records instead
-(``batches``, ``seconds``, ``run_keyed_batches``).
+``backend='cpu'`` runs the host aggregators (``metrics.aggregator``) over
+the tag groups of ``bam.iter_tag_groups``, one entity at a time in record
+order: the reference-semantics path, which needs no device.
+
+Not ported: the mesh-sharded gatherer, the prefetch/ingest ring, the guard
+ladder (a failed batch fails the command, and the writer discards its temp
+file), and the JAX package's observability hooks. Each gatherer keeps plain
+records instead (``batches``, ``seconds``, ``run_keyed_batches``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import ingest
+from ..bam import iter_cell_barcodes, iter_genes, iter_molecule_barcodes
 from ..device import DeviceLike, resolve
 from ..io.packed import (
     FLAG_RUN_START,
@@ -50,6 +54,7 @@ from ..io.packed import (
 from ..io.sam import AlignmentReader
 from ..ops.segments import bucket_size, entity_bucket
 from . import device as device_engine
+from .aggregator import CellMetrics, GeneMetrics
 from .schema import CELL_COLUMNS, GENE_COLUMNS, INT_COLUMNS
 from .writer import MetricCSVWriter
 
@@ -279,17 +284,23 @@ class MetricGatherer:
         batch_records: int = DEFAULT_BATCH_RECORDS,
         frame_source=None,
         device: DeviceLike = None,
+        backend: str = "device",
     ):
         """``frame_source``: optional zero-arg callable yielding sorted
         ReadFrames in place of decoding ``bam_file``; ``bam_file`` is still
         read for its header. ``device``: ``cuda`` unless the caller asks
-        for ``cpu``."""
+        for ``cpu``. ``backend``: ``device`` (the engine on ``device``) or
+        ``cpu`` (the host aggregators, which take no device and no frame
+        source)."""
+        if backend not in ("device", "cpu"):
+            raise ValueError(f"unknown backend {backend!r}")
         self._bam_file = bam_file
         self._output_stem = output_stem
         self._mitochondrial_gene_ids = mitochondrial_gene_ids
         self._batch_records = batch_records
         self._frame_source = frame_source
-        self._device = resolve(device)
+        self._backend = backend
+        self._device = resolve(device) if backend == "device" else None
         self.run_keyed_batches = 0
         # one entry per dispatched batch: records, padded size, entities,
         # schema decisions, and on CUDA the (start, end) events around its
@@ -314,7 +325,13 @@ class MetricGatherer:
         ]
 
     def extract_metrics(self) -> None:
-        """Streaming device pass: bounded host memory for any file size."""
+        """Stream the BAM through the backend to the CSV, in bounded host
+        memory for any file size."""
+        if self._backend == "cpu":
+            if self._frame_source is not None:
+                raise ValueError("frame_source requires the device backend")
+            self._extract_cpu()
+            return
         self.start_stream()
         if self._frame_source is not None:
             frames = self._frame_source()
@@ -620,12 +637,41 @@ class MetricGatherer:
 
         out.write_block(index.astype(str), [column_values(c) for c in self.columns])
 
+    # ---- cpu backend (the reference's streaming semantics) ---------------
+
+    def _extract_cpu(self) -> None:
+        out = MetricCSVWriter(self._output_stem)
+        try:
+            with AlignmentReader(self._bam_file) as reader:
+                self._aggregate(iter(reader), out)
+        except BaseException:
+            # never publish a partial, valid-looking CSV
+            out.discard()
+            raise
+        else:
+            out.close()
+
+    def _aggregate(self, records, out: MetricCSVWriter) -> None:
+        raise NotImplementedError
+
 
 class GatherCellMetrics(MetricGatherer):
     """Per-cell metrics; input must be sorted by CB, UB, GE (gene fastest)."""
 
     entity_kind = "cell"
     columns = CELL_COLUMNS
+
+    def _aggregate(self, records, out: MetricCSVWriter) -> None:
+        out.write_header(vars(CellMetrics()))
+        for cell_iterator, cell_tag in iter_cell_barcodes(records):
+            aggregator = CellMetrics()
+            for molecule_iterator, molecule_tag in iter_molecule_barcodes(cell_iterator):
+                for gene_iterator, gene_tag in iter_genes(molecule_iterator):
+                    aggregator.parse_molecule(
+                        tags=(cell_tag, molecule_tag, gene_tag), records=gene_iterator
+                    )
+            aggregator.finalize(mitochondrial_genes=self._mitochondrial_gene_ids)
+            out.write(cell_tag, vars(aggregator))
 
 
 class GatherGeneMetrics(MetricGatherer):
@@ -637,3 +683,17 @@ class GatherGeneMetrics(MetricGatherer):
     def _filter_rows(self, names: np.ndarray):
         # multi-gene "a,b" groups are skipped entirely, like the counting stage
         return np.char.find(names.astype(str), ",") < 0
+
+    def _aggregate(self, records, out: MetricCSVWriter) -> None:
+        out.write_header(vars(GeneMetrics()))
+        for gene_iterator, gene_tag in iter_genes(records):
+            if gene_tag and len(gene_tag.split(",")) > 1:
+                continue  # multi-gene groups are skipped, as on the device path
+            aggregator = GeneMetrics()
+            for cell_iterator, cell_tag in iter_cell_barcodes(gene_iterator):
+                for molecule_iterator, molecule_tag in iter_molecule_barcodes(cell_iterator):
+                    aggregator.parse_molecule(
+                        tags=(gene_tag, cell_tag, molecule_tag), records=molecule_iterator
+                    )
+            aggregator.finalize()
+            out.write(gene_tag, vars(aggregator))

@@ -1,18 +1,23 @@
-"""Command-line layer of the port: metrics, count, merge and attach entry points.
+"""Command-line layer of the port: all sixteen entry points of the JAX CLI.
 
 ``GenericPlatform.calculate_cell_metrics`` and ``calculate_gene_metrics`` are
 the ports of the JAX package's (sctools_tpu/platform.py:497-565) with the same
 argparse surface, so Optimus command lines parse unchanged; they run the
-port's streaming gatherer (``sctools_tpu_torch.metrics.gatherer``). Two of
-their options have no port yet and stop at the parser: ``--backend cpu`` (the
-host aggregators) and ``--devices N`` with N > 1 (the mesh).
+port's streaming gatherer (``sctools_tpu_torch.metrics.gatherer``) on the
+device, or with ``--backend cpu`` its host aggregators.
 
 ``GenericPlatform.bam_to_count_matrix`` (``CreateCountMatrix``) and the
 three merges, ``merge_count_matrices``, ``merge_gene_metrics`` and
 ``merge_cell_metrics``, are the ports of sctools_tpu/platform.py:567-750,
-with the same flags. ``--devices N`` with N > 1 stops at the parser there
-too; the count's ``--backend cpu`` is ported (the reference-semantics host
-loop of ``count.py``).
+with the same flags; the count's ``--backend cpu`` is the
+reference-semantics host loop of ``count.py``.
+
+``tag_sort_bam`` (``TagSortBam``), ``verify_bam_sort``, ``split_bam`` and
+``group_qc_outputs`` are the ports of sctools_tpu/platform.py:198-495,
+:752-790, with the same flags, help and parser errors. The sorts run on the
+host (``tagsort``, ``bam``); ``TagSortBam --cell-metrics-output`` /
+``--gene-metrics-output`` feeds the merged stream to the metrics pass on the
+device in one pass. The other three are host code.
 
 ``TenXV2.attach_barcodes`` and ``BarcodePlatform.attach_barcodes`` are the
 ports of sctools_tpu/platform.py:916-993, :1118-1389, with the same
@@ -29,7 +34,9 @@ and exit codes. The first two run the port's FASTQ loops (``fastqprocess``,
 two are host code.
 
 Every entry point is a classmethod taking an optional ``args`` list, plus a
-``device`` keyword: ``cuda`` unless the caller passes ``device="cpu"``.
+``device`` keyword: ``cuda`` unless the caller passes ``device="cpu"``; the
+host-only commands accept it and do not use it. The one option without a
+port is ``--devices N`` with N > 1 (the mesh), which stops at the parser.
 Unlike the JAX classes, ``BarcodePlatform`` keeps the geometry of one call
 local to that call instead of storing it on the class.
 """
@@ -40,22 +47,22 @@ import argparse
 import math
 import os
 import sys
-from typing import Dict, Iterable, List, Optional, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
-from . import attach, consts, fastq, gtf
+from . import attach, bam, consts, fastq, groups, gtf, tagsort
 from .count import DEFAULT_BATCH_RECORDS, CountMatrix
-from .device import DeviceLike
+from .device import DeviceLike, resolve
 from .fastq_metrics import compute_fastq_metrics
 from .fastqprocess import fastq_process
-from .io.sam import AlignmentReader
+from .io.sam import AlignmentReader, AlignmentWriter, aux_fields, aux_value, query_name
 from .metrics.gatherer import GatherCellMetrics, GatherGeneMetrics
 from .metrics.merge import MergeCellMetrics, MergeGeneMetrics
 from .samplefastq import sample_fastq
 
 
-def _build_parser(*specs, defaults=None) -> argparse.ArgumentParser:
+def _build_parser(*specs, description=None, defaults=None) -> argparse.ArgumentParser:
     """An ArgumentParser from compact ``(flags, options)`` pairs."""
-    parser = argparse.ArgumentParser()
+    parser = argparse.ArgumentParser(description=description)
     if defaults:
         parser.set_defaults(**defaults)
     for flags, options in specs:
@@ -117,7 +124,7 @@ _BACKEND_SPEC = (
         choices=["device", "tpu", "cpu"],
         help="compute backend: device/tpu = the torch engine on the device "
         "(cuda unless the caller asks for the cpu); cpu = the host "
-        "aggregators, not ported yet (default: device)",
+        "aggregators, streaming reference-semantics path (default: device)",
     ),
 )
 _DEVICES_SPEC = (
@@ -141,15 +148,15 @@ def _refuse_devices(args, parser) -> None:
 
 
 def _metric_gatherer(kind: str, args, parser):
-    """The gatherer class of a metric command, or a parser error for the
-    options that have no port yet."""
-    if args.backend == "cpu":
-        parser.error(
-            "--backend cpu (the host aggregators) is not ported yet: "
-            "ROADMAP queue 1, item 13; use --backend device"
-        )
+    """(gatherer class, backend) of a metric command, or a parser error for
+    ``--devices N > 1``, which has no port yet. ``--backend cpu`` (the host
+    aggregators) takes ``--devices`` as the JAX parser does: N > 1 needs the
+    device backend."""
+    backend = "cpu" if args.backend == "cpu" else "device"
+    if backend == "cpu" and args.devices and args.devices > 1:
+        parser.error("--devices requires the device backend")
     _refuse_devices(args, parser)
-    return GatherCellMetrics if kind == "cell" else GatherGeneMetrics
+    return (GatherCellMetrics if kind == "cell" else GatherGeneMetrics), backend
 
 
 _MERGE_SPECS = (
@@ -163,6 +170,260 @@ class GenericPlatform:
     """Entry points shared by all sequencing platforms."""
 
     @classmethod
+    def get_tags(cls, raw_tags: Optional[Sequence[str]]) -> Iterable[str]:
+        # flatten a potentially nested list (argparse nargs='+' + action='append')
+        flattened: List[str] = []
+        for tag in raw_tags or []:
+            flattened.extend(tag if isinstance(tag, list) else [tag])
+        return flattened
+
+    @classmethod
+    def tag_sort_bam(cls, args: Iterable = None, device: DeviceLike = None) -> int:
+        """Sort a bam by zero or more tags, then query name (reference
+        platform.py:55-97).
+
+        With ``--cell-metrics-output`` / ``--gene-metrics-output`` the merged
+        sorted stream feeds the metrics engine on ``device`` directly: one
+        pass, and when ``-o`` is omitted no sorted BAM is written at all.
+        Without a metrics output the sort is host code and ``device`` is not
+        used.
+        """
+        parser = _build_parser(
+            (("-i", "--input_bam"), dict(required=True, help="the bam to sort")),
+            (
+                ("-o", "--output_bam"),
+                dict(
+                    default=None,
+                    help="where the sorted bam goes (optional when a "
+                    "metrics output is requested)",
+                ),
+            ),
+            (
+                ("-t", "--tags"),
+                dict(
+                    nargs="+",
+                    action="append",
+                    help="sort keys in priority order (space separated), "
+                    "e.g. -t CB GE UB; query name always breaks ties",
+                ),
+            ),
+            (
+                ("--records-per-chunk",),
+                dict(
+                    type=int,
+                    default=None,
+                    help="bound memory by spilling sorted chunks of this many "
+                    "records and k-way merging them (out-of-core; default: "
+                    "all in memory when unset)",
+                ),
+            ),
+            (
+                ("--cell-metrics-output",),
+                dict(
+                    default=None,
+                    help="compute per-cell metrics from the merged stream "
+                    "(one pass; requires -t CB UB GE) and write this csv "
+                    "stem",
+                ),
+            ),
+            (
+                ("--gene-metrics-output",),
+                dict(
+                    default=None,
+                    help="compute per-gene metrics from the merged stream "
+                    "(one pass; requires -t GE CB UB) and write this csv "
+                    "stem",
+                ),
+            ),
+            (
+                ("-a", "--gtf-annotation-file"),
+                dict(
+                    default=None,
+                    help="annotation for the mitochondrial metrics "
+                    "(cell metrics only)",
+                ),
+            ),
+            _DEVICES_SPEC,
+            description="Sort a bam by a list of zero or more tags, then query name",
+        )
+        args = parser.parse_args(args)
+
+        tags = cls.get_tags(args.tags)
+        fused = cls._fused_metrics_request(parser, args, tags)
+        if fused is not None:
+            return cls._tag_sort_with_metrics(args, tags, *fused, parser=parser, device=device)
+        if args.devices and args.devices > 1:
+            parser.error(
+                "--devices applies to the fused metrics outputs "
+                "(--cell-metrics-output/--gene-metrics-output)"
+            )
+        if args.output_bam is None:
+            parser.error("-o/--output_bam is required without a metrics output")
+        if args.records_per_chunk is not None:
+            tagsort.tag_sort_bam_out_of_core(
+                args.input_bam, args.output_bam, tags, records_per_chunk=args.records_per_chunk
+            )
+            return 0
+        with AlignmentReader(args.input_bam, "rb") as f:
+            header = f.header.copy()
+            sorted_records = bam.sort_by_tags_and_queryname(iter(f), tags)
+        with AlignmentWriter(args.output_bam, header, "wb") as f:
+            for record in sorted_records:
+                f.write(record)
+        return 0
+
+    @classmethod
+    def _fused_metrics_request(cls, parser, args, tags):
+        """Validate the fused-metrics flags; None when not requested.
+
+        Tag order is the metric type's contract: cell metrics need (CB, UB,
+        GE), gene metrics (GE, CB, UB).
+        """
+        if args.cell_metrics_output and args.gene_metrics_output:
+            parser.error("pass either --cell-metrics-output or --gene-metrics-output")
+        if args.cell_metrics_output:
+            if list(tags) != ["CB", "UB", "GE"]:
+                parser.error("--cell-metrics-output requires -t CB UB GE")
+            return ("cell", args.cell_metrics_output)
+        if args.gene_metrics_output:
+            if list(tags) != ["GE", "CB", "UB"]:
+                parser.error("--gene-metrics-output requires -t GE CB UB")
+            return ("gene", args.gene_metrics_output)
+        return None
+
+    @classmethod
+    def _tag_sort_with_metrics(
+        cls, args, tags, kind, metrics_stem, parser=None, device: DeviceLike = None
+    ) -> int:
+        """One merge pass: sorted stream -> metrics on ``device`` (+ an
+        optional sorted bam).
+
+        The fused keys are always three string tags, so every input takes
+        the raw route (``tagsort.SortedFrameStream``): the JAX package's
+        two-pass fallback, for a BAM named ``.sam``, gives the same outputs.
+        A SAM text input fails with gzip's error, as it does in JAX. A
+        failure publishes no CSV and leaves no partials.
+        """
+        mitochondrial_gene_ids: Set[str] = set()
+        if args.gtf_annotation_file:
+            mitochondrial_gene_ids = gtf.get_mitochondrial_gene_names(args.gtf_annotation_file)
+        _refuse_devices(args, parser)
+        device = resolve(device)  # no GPU: raise before any sorting
+        gatherer_cls = GatherCellMetrics if kind == "cell" else GatherGeneMetrics
+        stream = tagsort.SortedFrameStream(
+            args.input_bam, tags,
+            records_per_chunk=args.records_per_chunk or tagsort.DEFAULT_RECORDS_PER_CHUNK,
+            bam_output=args.output_bam,
+            scratch_dir=os.path.dirname(os.path.abspath(args.output_bam or metrics_stem)),
+        )
+        try:
+            gatherer_cls(
+                args.input_bam, metrics_stem, mitochondrial_gene_ids,
+                frame_source=stream.frames, device=device,
+            ).extract_metrics()
+        finally:
+            stream.close()
+        return 0
+
+    @classmethod
+    def verify_bam_sort(cls, args: Iterable = None, device: DeviceLike = None) -> int:
+        """Verify a bam is sorted by tags then query name (reference
+        platform.py:99-143). Host code: each record's key is read from its
+        raw bytes (``io.sam.aux_fields``) with the values the decoded record
+        would give, so the check and its ``SortError`` are the JAX
+        command's."""
+        parser = _build_parser(
+            (("-i", "--input_bam"), dict(required=True, help="the bam to check")),
+            (
+                ("-t", "--tags"),
+                dict(
+                    nargs="+",
+                    action="append",
+                    help="the expected sort keys (space separated), e.g. -t CB GE UB",
+                ),
+            ),
+            description="Check that a bam is sorted by the given tags, then query name",
+        )
+        args = parser.parse_args(args)
+
+        tags = cls.get_tags(args.tags)
+        wanted = [tag.encode() for tag in tags]
+
+        def sortable(body: bytes) -> bam.TagSortableRecord:
+            fields = aux_fields(body)
+            values = [aux_value(body, fields[t]) if t in fields else "" for t in wanted]
+            return bam.TagSortableRecord(tags, values, query_name(body).decode())
+
+        with AlignmentReader(args.input_bam, "rb") as reader:
+            bam.verify_sort((sortable(body) for body in reader.raw_records()), tags)
+        print(f"{args.input_bam} is correctly sorted by {tags} and query name")
+        return 0
+
+    @classmethod
+    def split_bam(cls, args: Iterable = None, device: DeviceLike = None) -> int:
+        """Split bamfiles into disjoint-barcode chunks of approximately equal
+        size (reference platform.py:152-223); prints chunk filenames. Host
+        code, with worker pools."""
+        parser = _build_parser(
+            (
+                ("-b", "--bamfile"),
+                dict(nargs="+", required=True, help="the bam(s) to partition"),
+            ),
+            (
+                ("-p", "--output-prefix"),
+                dict(required=True, help="filename stem for the chunks"),
+            ),
+            (
+                ("-s", "--subfile-size"),
+                dict(
+                    required=False,
+                    default=1000,
+                    type=float,
+                    help="per-chunk size target in MB (default 1000)",
+                ),
+            ),
+            (
+                ("--num-processes",),
+                dict(
+                    required=False,
+                    default=None,
+                    type=int,
+                    help="worker process count for the scan and write pools",
+                ),
+            ),
+            (
+                ("-t", "--tags"),
+                dict(
+                    nargs="+",
+                    help="partition tag(s), tried in order per record: a "
+                    "later tag is consulted only when every earlier one is "
+                    "absent",
+                ),
+            ),
+            (
+                ("--drop-missing",),
+                dict(
+                    dest="raise_missing",
+                    action="store_false",
+                    help="silently skip records carrying none of the tags "
+                    "(default: raise)",
+                ),
+            ),
+        )
+        args = parser.parse_args(args)
+
+        chunk_names = bam.split(
+            args.bamfile,
+            args.output_prefix,
+            args.tags,
+            approx_mb_per_split=args.subfile_size,
+            raise_missing=args.raise_missing,
+            num_processes=args.num_processes,
+        )
+        print(" ".join(chunk_names))
+        return 0
+
+    @classmethod
     def calculate_gene_metrics(
         cls, args: Iterable[str] = None, device: DeviceLike = None
     ) -> int:
@@ -170,8 +431,10 @@ class GenericPlatform:
         (reference platform.py:225-261)."""
         parser = _build_parser(_INPUT_BAM_SPEC, _FILESTEM_SPEC, _BACKEND_SPEC, _DEVICES_SPEC)
         args = parser.parse_args(args)
-        gatherer_cls = _metric_gatherer("gene", args, parser)
-        gatherer_cls(args.input_bam, args.output_filestem, device=device).extract_metrics()
+        gatherer_cls, backend = _metric_gatherer("gene", args, parser)
+        gatherer_cls(
+            args.input_bam, args.output_filestem, device=device, backend=backend
+        ).extract_metrics()
         return 0
 
     @classmethod
@@ -196,12 +459,13 @@ class GenericPlatform:
             _DEVICES_SPEC,
         )
         args = parser.parse_args(args)
-        gatherer_cls = _metric_gatherer("cell", args, parser)
         mitochondrial_gene_ids: Set[str] = set()
         if args.gtf_annotation_file:
             mitochondrial_gene_ids = gtf.get_mitochondrial_gene_names(args.gtf_annotation_file)
+        gatherer_cls, backend = _metric_gatherer("cell", args, parser)
         gatherer_cls(
-            args.input_bam, args.output_filestem, mitochondrial_gene_ids, device=device
+            args.input_bam, args.output_filestem, mitochondrial_gene_ids, device=device,
+            backend=backend,
         ).extract_metrics()
         return 0
 
@@ -329,6 +593,46 @@ class GenericPlatform:
         )
         args = parser.parse_args(args)
         CountMatrix.merge_matrices(args.input_prefixes).save(args.output_stem)
+        return 0
+
+    @classmethod
+    def group_qc_outputs(cls, args: Iterable[str] = None, device: DeviceLike = None) -> int:
+        """Aggregate Picard / HISAT2 / RSEM QC files (reference
+        platform.py:518-576). Host code, without pandas."""
+        parser = _build_parser(
+            (
+                ("-f", "--file_names"),
+                dict(
+                    dest="file_names",
+                    nargs="+",
+                    required=True,
+                    help="the QC files to aggregate",
+                ),
+            ),
+            (
+                ("-o", "--output_name"),
+                dict(dest="output_name", required=True, help="the csv to write"),
+            ),
+            (
+                ("-t", "--metrics_type"),
+                dict(
+                    dest="metrics_type",
+                    choices=["Picard", "PicardTable", "Core", "HISAT2", "RSEM"],
+                    required=True,
+                    help="which parser/aggregation to apply",
+                ),
+            ),
+        )
+        args = parser.parse_args(args)
+
+        dispatch = {
+            "Picard": groups.write_aggregated_picard_metrics_by_row,
+            "PicardTable": groups.write_aggregated_picard_metrics_by_table,
+            "Core": groups.write_aggregated_qc_metrics,
+            "HISAT2": groups.parse_hisat2_log,
+            "RSEM": groups.parse_rsem_cnt,
+        }
+        dispatch[args.metrics_type](args.file_names, args.output_name)
         return 0
 
     @classmethod

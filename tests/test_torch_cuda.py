@@ -16,7 +16,9 @@ results at 5,000 records and at 2^19, the count's batch width, and one
 ``CreateCountMatrix`` run on the card to the same on the CPU. FastqProcess
 (BAM and FASTQ shards, compared decompressed), SampleFastq and
 CheckBarcodePartition on the card equal the same calls on the CPU, and
-the kernel launches equal the batches.
+the kernel launches equal the batches. A fused TagSortBam (the sort on the
+host, the metrics pass on the card) gives the CSV and the sorted BAM it
+gives on the CPU, for both tag orders, and launches no hand kernel.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
@@ -278,9 +280,9 @@ def test_metrics_engine_on_the_card_matches_the_cpu(cuda_device, schema, n):
     )
 
 
-def test_cell_metrics_csv_on_the_card_matches_the_cpu(cuda_device, tmp_path):
-    """> 4,096 records with ~3 reads a molecule: the run-keyed wire engages."""
-    rng = np.random.default_rng(6)
+def _cell_library(rng):
+    """(header, records) of 300 cells x 7 molecules x 3 reads, sorted by
+    (CB, UB), ~5% unmapped."""
     header = BamHeader.from_text(
         "@HD\tVN:1.6\tSO:unsorted\n" + "".join(f"@SQ\tSN:chr{i}\tLN:1000000\n" for i in range(3))
     )
@@ -301,6 +303,12 @@ def test_cell_metrics_csv_on_the_card_matches_the_cpu(cuda_device, tmp_path):
                     cigar=[] if unmapped else [(0, 50)], sequence="A" * 50,
                     quality=[int(q) for q in rng.integers(2, 41, 50)], tags=tags,
                 ))
+    return header, records
+
+
+def test_cell_metrics_csv_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """> 4,096 records with ~3 reads a molecule: the run-keyed wire engages."""
+    header, records = _cell_library(np.random.default_rng(6))
     bam = str(tmp_path / "cells.bam")
     with AlignmentWriter(bam, header) as out:
         for record in records:
@@ -315,6 +323,30 @@ def test_cell_metrics_csv_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         with gzip.open(tmp_path / f"{device}.csv.gz", "rb") as f:
             csv[device] = f.read()
     assert csv["cuda"] == csv["cpu"] and csv["cpu"].count(b"\n") == 301
+
+
+@pytest.mark.parametrize("tags,flag", [(["CB", "UB", "GE"], "--cell-metrics-output"),
+                                       (["GE", "CB", "UB"], "--gene-metrics-output")], ids=["cell", "gene"])
+def test_fused_tag_sort_on_the_card_matches_the_cpu(cuda_device, tmp_path, tags, flag):
+    """TagSortBam with a metrics output, on a shuffled library in 3 partials:
+    the CSV and the sorted BAM on the card equal those on the CPU, and no
+    hand kernel launches."""
+    rng = np.random.default_rng(7)
+    header, records = _cell_library(rng)
+    bam = str(tmp_path / "shuffled.bam")
+    with AlignmentWriter(bam, header) as out:
+        for i in rng.permutation(len(records)):
+            out.write(records[i])
+    outputs = {}
+    for device in ("cpu", "cuda"):
+        before = dict(kernels.launches)
+        assert port_platform.GenericPlatform.tag_sort_bam(
+            ["-i", bam, "-t", *tags, flag, str(tmp_path / device), "-o", str(tmp_path / f"{device}.bam"),
+             "--records-per-chunk", "2500"], device=device) == 0
+        assert dict(kernels.launches) == before
+        with gzip.open(tmp_path / f"{device}.csv.gz", "rb") as f, gzip.open(tmp_path / f"{device}.bam", "rb") as g:
+            outputs[device] = (f.read(), g.read())
+    assert outputs["cuda"] == outputs["cpu"] and outputs["cpu"][0].count(b"\n") > 30
 
 
 # -------------------------------------------------------------------- count

@@ -523,7 +523,7 @@ def test_mitochondrial_gene_names_need_gene_name(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["calculate_cell_metrics", "calculate_gene_metrics"])
-@pytest.mark.parametrize("option", [["--backend", "cpu"], ["--devices", "2"]])
+@pytest.mark.parametrize("option", [["--devices", "2"]])
 def test_unported_options_stop_at_the_parser(tmp_path, capsys, entry, option):
     with pytest.raises(SystemExit) as stop:
         getattr(port_platform.GenericPlatform, entry)(
@@ -531,6 +531,36 @@ def test_unported_options_stop_at_the_parser(tmp_path, capsys, entry, option):
     assert stop.value.code == 2
     assert "ROADMAP queue 1" in capsys.readouterr().err
     assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("kind,seed", [("cell", 0), ("cell", 1), ("cell", 2), ("gene", 0), ("gene", 3)])
+def test_cpu_backend_csv_matches_jax(tmp_path, mito_gtf, kind, seed):
+    """``--backend cpu``: the host aggregators of both packages, in Python
+    floats in one order, give the same CSV bytes, the variances included.
+    The port takes no device for it: none is passed."""
+    records, header = random_tagged_records(seed=seed)
+    bam = _sorted_bam(tmp_path, "in", records, header, CELL_TAGS if kind == "cell" else GENE_TAGS)
+    extra = ["-a", mito_gtf] if kind == "cell" else []
+    entry = f"calculate_{kind}_metrics"
+    for side, module in (("port", port_platform), ("jax", jax_platform)):
+        args = ["-i", bam, "-o", str(tmp_path / side), "--backend", "cpu"] + extra
+        assert getattr(module.GenericPlatform, entry)(args) == 0
+    port_csv, jax_csv = _csv(tmp_path / "port.csv.gz"), _csv(tmp_path / "jax.csv.gz")
+    assert port_csv == jax_csv and port_csv.count(b"\n") > 3
+    if kind == "cell":
+        assert any(float(line.split(b",")[-1]) > 0 for line in port_csv.splitlines()[1:])
+
+
+@pytest.mark.parametrize("entry", ["calculate_cell_metrics", "calculate_gene_metrics"])
+def test_cpu_backend_refuses_devices_like_jax(tmp_path, capsys, entry):
+    errors = []
+    for module in (port_platform, jax_platform):
+        with pytest.raises(SystemExit) as stop:
+            getattr(module.GenericPlatform, entry)(
+                ["-i", "missing.bam", "-o", str(tmp_path / "o"), "--backend", "cpu", "--devices", "2"])
+        assert stop.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errors[0] == errors[1] and "--devices requires the device backend" in errors[0]
 
 
 def test_default_device_needs_a_gpu(tmp_path):

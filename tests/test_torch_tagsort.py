@@ -1,0 +1,363 @@
+"""The port's TagSortBam and VerifyBamSort against the JAX package, on the CPU.
+
+The same BAMs, made from a ``random`` seed through ``tests/helpers.py``, go
+through ``sctools_tpu.platform`` and ``sctools_tpu_torch.platform``. The
+sorted outputs are compared as decompressed record bodies, in order (the two
+packages' BGZF writers differ, and JAX's own routes write at different
+levels); every input holds ties on the whole key (paired mates, duplicates
+and multi-mappers under one name and one tag triple), so stable order is
+checked on every route. Each test names the JAX route it follows:
+
+- in memory: ``bam.sort_by_tags_and_queryname`` over decoded records;
+- the native route: three string tags on a BGZF input, sorted by
+  ``native.tagsort_native`` (``--records-per-chunk``) or streamed into the
+  metrics gatherer by ``native.tagsort_stream_frames`` (the fused pass);
+  the port's raw route, whose partial count follows
+  ``--records-per-chunk`` (the native sort floors it at 1,000 records);
+- the Python route: ``tagsort.tag_sort_bam_out_of_core``'s chunked sort and
+  heap merge over decoded records (other tags, a file named ``.sam``), and
+  the fused pass's two-pass fallback through it, which the port's single
+  raw pass matches.
+
+The fused CSVs are compared as ``test_torch_metrics.py`` compares the
+metrics CSVs: byte for byte but for the six ``*_variance`` columns, held to
+rtol 1e-6.
+"""
+
+from __future__ import annotations
+
+import gzip
+import random
+
+import pytest
+
+from sctools_tpu import bam as jax_bam
+from sctools_tpu import platform as jax_platform
+from sctools_tpu_torch import bam as port_bam
+from sctools_tpu_torch import platform as port_platform
+from sctools_tpu_torch import tagsort as port_tagsort
+from sctools_tpu_torch.io import bgzf
+from sctools_tpu_torch.io.sam import iter_raw_records, read_raw_header
+
+from helpers import make_header, make_record, write_bam, write_gtf
+from test_torch_metrics import assert_csv_match
+
+CELL, GENE = ["CB", "UB", "GE"], ["GE", "CB", "UB"]
+
+
+def _messy_records(n: int, seed: int):
+    """``n`` tagged records in random order: missing CB / UB / GE, unmapped
+    reads without XF and NH, and every tenth record followed by 1-3 copies
+    under its name and tags (mates, duplicates, multi-mappers) at other
+    positions and flags."""
+    rng = random.Random(seed)
+    header = make_header()
+    cells = ["".join(rng.choice("ACGT") for _ in range(8)) for _ in range(12)]
+    records = []
+    while len(records) < n:
+        unmapped = rng.random() < 0.1
+        fields = dict(
+            name=f"q{rng.randrange(5000):05d}",
+            cb=rng.choice(cells + [None]), cr=rng.choice(cells), cy="IIIIIIII",
+            ub=rng.choice(["".join(rng.choice("ACGT") for _ in range(6)), None, "AAAAAA"]),
+            ur="ACGTAC", uy="IIIIII",
+            ge=rng.choice(["G1", "G2", "mt-X", None]),
+            xf=None if unmapped else rng.choice(["CODING", "INTRONIC", "UTR", "INTERGENIC"]),
+            nh=None if unmapped else rng.choice([1, 2]),
+            unmapped=unmapped, header=header,
+        )
+        copies = 1 + (rng.randrange(1, 4) if len(records) % 10 == 0 else 0)
+        for _ in range(copies):
+            records.append(make_record(
+                pos=rng.randrange(100000), duplicate=rng.random() < 0.2,
+                spliced=rng.random() < 0.3, reverse=rng.random() < 0.5, **fields))
+    return records[:n], header
+
+
+@pytest.fixture(scope="module")
+def messy_bam(tmp_path_factory):
+    records, header = _messy_records(600, seed=7)
+    return write_bam(tmp_path_factory.mktemp("tagsort") / "messy.bam", records, header)
+
+
+@pytest.fixture(scope="module")
+def mito_gtf(tmp_path_factory):
+    path = tmp_path_factory.mktemp("tagsort_gtf") / "mito.gtf"
+    return write_gtf(str(path), [dict(gene_id="G1", gene_name="G1"),
+                                 dict(gene_id="mt-X", gene_name="mt-X")])
+
+
+def _bodies(path):
+    """(raw header, record bodies in order) of a BAM, decompressed."""
+    with bgzf.open_bgzf_reader(str(path)) as fh:
+        return read_raw_header(fh), list(iter_raw_records(fh))
+
+
+def _sort_both(tmp_path, bam, tags, extra=()):
+    """Run TagSortBam on both packages; returns the port's (header, bodies)
+    after asserting they equal JAX's."""
+    out = {}
+    for side, entry in (("jax", jax_platform), ("port", port_platform)):
+        path = str(tmp_path / f"{side}_sorted.bam")
+        assert entry.GenericPlatform.tag_sort_bam(["-i", bam, "-o", path, "-t", *tags, *extra]) == 0
+        out[side] = _bodies(path)
+    assert out["port"] == out["jax"]
+    return out["port"]
+
+
+def test_in_memory_matches_jax(tmp_path, messy_bam):
+    """JAX route: in memory (no --records-per-chunk); missing tags first."""
+    header, bodies = _sort_both(tmp_path, messy_bam, CELL)
+    assert len(bodies) == 600 and header == _bodies(messy_bam)[0]
+    assert port_tagsort.sort_key(bodies[0], [b"CB", b"UB", b"GE"])[0] == b""
+
+
+@pytest.mark.parametrize("chunk,partials", [(1000, 0), (600, 0), (599, 2), (250, 3), (37, 17)])
+def test_out_of_core_matches_jax(tmp_path, messy_bam, chunk, partials, monkeypatch):
+    """JAX route: native (``tagsort_native``); the port's raw route with
+    1 chunk (no partials), a full chunk at EOF, 2, 3 and 17 partials."""
+    made = []
+    real = port_tagsort.RawTagSort.sorted_bodies
+
+    def recorded(self):
+        made.append(self)
+        return real(self)
+
+    monkeypatch.setattr(port_tagsort.RawTagSort, "sorted_bodies", recorded)
+    _sort_both(tmp_path, messy_bam, CELL, ["--records-per-chunk", str(chunk)])
+    assert [sort.partials for sort in made] == [partials]
+    assert [p.name for p in tmp_path.iterdir() if p.name.startswith("tagsort_")] == []
+
+
+def test_gene_order_matches_jax(tmp_path, messy_bam):
+    """JAX route: native, GE CB UB (and CR UR SR, all string tags)."""
+    _sort_both(tmp_path, messy_bam, GENE, ["--records-per-chunk", "100"])
+    _sort_both(tmp_path, messy_bam, ["CR", "UR", "SR"], ["--records-per-chunk", "100"])
+
+
+def test_nh_key_orders_numerically(tmp_path):
+    """JAX route: Python (``-t NH``, an integer tag): 2 < 10 numerically."""
+    header = make_header()
+    records = [make_record(name=f"r{i}", cb="AAAA", nh=nh, header=header)
+               for i, nh in enumerate([10, 2, 1, 2, 10, 3])]
+    bam = write_bam(tmp_path / "nh.bam", records, header)
+    for extra in ([], ["--records-per-chunk", "2"]):
+        _, bodies = _sort_both(tmp_path, bam, ["NH"], extra)
+        names = [body[32:34] for body in bodies]
+        assert names == [b"r2", b"r1", b"r3", b"r5", b"r0", b"r4"]
+
+
+def test_nh_key_with_a_missing_tag_fails_like_jax(tmp_path):
+    """JAX route: Python; a missing NH sorts as "" against ints: TypeError."""
+    header = make_header()
+    records = [make_record(name="a", nh=1, header=header), make_record(name="b", header=header)]
+    bam = write_bam(tmp_path / "nh.bam", records, header)
+    for entry in (jax_platform, port_platform):
+        with pytest.raises(TypeError):
+            entry.GenericPlatform.tag_sort_bam(["-i", bam, "-o", str(tmp_path / "o.bam"), "-t", "NH"])
+
+
+def test_bam_named_sam_takes_the_python_route(tmp_path, messy_bam):
+    """JAX route: Python (a BGZF BAM whose name ends in ``.sam`` is kept off
+    the native route by its name)."""
+    named_sam = tmp_path / "renamed.sam"
+    named_sam.write_bytes(open(messy_bam, "rb").read())
+    assert not port_tagsort.raw_route(str(named_sam), CELL)
+    _sort_both(tmp_path, str(named_sam), CELL, ["--records-per-chunk", "150"])
+
+
+@pytest.mark.parametrize(
+    "extra", [[], ["--records-per-chunk", "5"], ["--cell-metrics-output", "m"]],
+    ids=["in-memory", "python", "fused"])
+def test_sam_text_fails_like_jax(tmp_path, extra, monkeypatch):
+    """JAX routes: in memory, Python, and the fused pass's two-pass
+    fallback; all read the input as BAM, so a SAM text input raises gzip's
+    error, and the fused pass leaves nothing behind."""
+    monkeypatch.chdir(tmp_path)
+    header = make_header()
+    sam = write_bam(tmp_path / "x.sam", [make_record(name="a", cb="AC", header=header)], header, mode="w")
+    for entry in (jax_platform, port_platform):
+        kwargs = {"device": "cpu"} if entry is port_platform else {}
+        with pytest.raises(gzip.BadGzipFile):
+            entry.GenericPlatform.tag_sort_bam(
+                ["-i", sam, "-o", str(tmp_path / "o.bam"), "-t", *CELL, *extra], **kwargs)
+        assert sorted(p.name for p in tmp_path.iterdir()) == ["x.sam"]
+
+
+def test_sort_key_skips_every_aux_type():
+    """The raw key walks past A c C s S i I f H B fields; an integer value
+    keys as its decimal digits, as the native walker renders it."""
+    from sctools_tpu_torch.io.sam import BamRecord
+
+    record = BamRecord(query_name="q1", sequence="ACGT", quality=[30] * 4, tags={
+        "XA": ("A", "x"), "Xc": ("c", -3), "XC": ("C", 200), "Xs": ("s", -300), "XS": ("S", 60000),
+        "Xi": ("i", -70000), "XI": ("I", 3000000000), "Xf": ("f", 1.5), "XH": ("H", "BEEF"),
+        "XB": ("B", ("s", [1, -2, 3])), "Xb": ("B", ("f", [0.5])), "CB": ("Z", "ACGT"), "GE": ("i", 42),
+    })
+    body = record.to_bam_bytes()[4:]
+    assert port_tagsort.sort_key(body, [b"CB", b"GE", b"UB"]) == (b"ACGT", b"42", b"", b"q1")
+    with pytest.raises(ValueError):
+        port_tagsort.sort_key(body[:-3], [b"CB", b"GE", b"UB"])
+
+
+def test_raw_header_parses_as_the_reader_does(messy_bam):
+    """The fused pass parses the header once, from the raw bytes the sort
+    keeps: the same text and references as the JAX package's reader."""
+    from sctools_tpu.io.sam import AlignmentReader as JaxReader
+    from sctools_tpu_torch.io.sam import BamHeader
+
+    header = BamHeader.from_raw(_bodies(messy_bam)[0])
+    with JaxReader(messy_bam, "rb") as reader:
+        assert (header.text, header.references) == (reader.header.text, reader.header.references)
+    assert header.references and header.text.startswith("@HD")
+
+
+def test_cli_errors_match_jax(tmp_path, messy_bam, capsys):
+    cases = [
+        ["-i", messy_bam, "-t", *CELL],  # no -o without a metrics output
+        ["-i", messy_bam, "-o", str(tmp_path / "o.bam"), "-t", *CELL, "--devices", "2"],
+        ["-i", messy_bam, "-t", *GENE, "--cell-metrics-output", str(tmp_path / "m")],
+        ["-i", messy_bam, "-t", *CELL, "--gene-metrics-output", str(tmp_path / "m")],
+        ["-i", messy_bam, "-t", *CELL, "--cell-metrics-output", "a", "--gene-metrics-output", "b"],
+    ]
+    for args in cases:
+        errors = []
+        for entry in (jax_platform, port_platform):
+            with pytest.raises(SystemExit) as stop:
+                entry.GenericPlatform.tag_sort_bam(args, **({"device": "cpu"} if entry is port_platform else {}))
+            assert stop.value.code == 2
+            errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+        assert errors[1] == errors[0]
+    assert not list(tmp_path.iterdir())
+
+
+def test_fused_devices_stop_at_item_5(tmp_path, messy_bam, capsys):
+    with pytest.raises(SystemExit):
+        port_platform.GenericPlatform.tag_sort_bam(
+            ["-i", messy_bam, "-t", *CELL, "--cell-metrics-output", str(tmp_path / "m"),
+             "--devices", "2"], device="cpu")
+    assert "ROADMAP queue 1, item 5" in capsys.readouterr().err
+
+
+# ------------------------------------------------------------- fused pass
+
+
+@pytest.mark.parametrize("tags,flag", [(CELL, "--cell-metrics-output"), (GENE, "--gene-metrics-output")],
+                         ids=["cell", "gene"])
+@pytest.mark.parametrize("with_bam", [True, False], ids=["with-o", "without-o"])
+def test_fused_matches_jax(tmp_path, messy_bam, mito_gtf, tags, flag, with_bam):
+    """JAX route: native (``tagsort_stream_frames`` into the device
+    gatherer); the port's raw route in 3 partials into its gatherer."""
+    sorted_bodies = {}
+    for side, entry in (("jax", jax_platform), ("port", port_platform)):
+        args = ["-i", messy_bam, "-t", *tags, flag, str(tmp_path / side), "-a", mito_gtf,
+                "--records-per-chunk", "250"]
+        if with_bam:
+            args += ["-o", str(tmp_path / f"{side}.bam")]
+        kwargs = {"device": "cpu"} if entry is port_platform else {}
+        assert entry.GenericPlatform.tag_sort_bam(args, **kwargs) == 0
+        if with_bam:
+            sorted_bodies[side] = _bodies(tmp_path / f"{side}.bam")
+    assert_csv_match(str(tmp_path / "port.csv.gz"), str(tmp_path / "jax.csv.gz"))
+    assert sorted_bodies.get("port") == sorted_bodies.get("jax")
+    left = sorted(p.name for p in tmp_path.iterdir())
+    assert left == sorted(["jax.csv.gz", "port.csv.gz"] + (["jax.bam", "port.bam"] if with_bam else []))
+
+
+def test_fused_bam_named_sam_takes_one_pass(tmp_path, messy_bam, monkeypatch):
+    """JAX route: the two-pass fallback (a Python sort to a temporary BAM,
+    then the gatherer), on a BGZF BAM named ``.sam``; the port sorts it in
+    its single raw pass, with the same CSV and sorted records."""
+    named_sam = tmp_path / "renamed.sam"
+    named_sam.write_bytes(open(messy_bam, "rb").read())
+    for side, entry in (("jax", jax_platform), ("port", port_platform)):
+        kwargs = {"device": "cpu"} if entry is port_platform else {}
+        if entry is port_platform:
+            monkeypatch.setattr(port_tagsort, "tag_sort_bam_out_of_core", None)  # no second pass
+        entry.GenericPlatform.tag_sort_bam(
+            ["-i", str(named_sam), "-t", *CELL, "--cell-metrics-output", str(tmp_path / side),
+             "-o", str(tmp_path / f"{side}.bam"), "--records-per-chunk", "250"], **kwargs)
+    assert_csv_match(str(tmp_path / "port.csv.gz"), str(tmp_path / "jax.csv.gz"))
+    assert _bodies(tmp_path / "port.bam") == _bodies(tmp_path / "jax.bam")
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "jax.bam", "jax.csv.gz", "port.bam", "port.csv.gz", "renamed.sam"]
+
+
+@pytest.mark.parametrize("cut", ["truncated", "bad-aux"])
+def test_fused_failure_leaves_nothing(tmp_path, messy_bam, cut):
+    """A truncated input or a malformed aux field fails the pass with
+    RuntimeError, as the JAX native route does, and leaves no CSV, no
+    sorted BAM and no partials."""
+    bad = tmp_path / "in" / "bad.bam"
+    bad.parent.mkdir()
+    if cut == "truncated":
+        data = open(messy_bam, "rb").read()
+        bad.write_bytes(data[: len(data) // 2])
+    else:
+        header, bodies = _bodies(messy_bam)
+        i = next(i for i in range(450, 600) if bodies[i][-7:-5] == b"NH")
+        body = bytearray(bodies[i])
+        body[-5] = ord("Q")  # the type byte of its last field, NH: no such type
+        bodies[i] = bytes(body)
+        with bgzf.BgzfWriter(str(bad)) as out:
+            out.write(header + b"".join(len(b).to_bytes(4, "little") + b for b in bodies))
+    out_dir = tmp_path / "out"
+    out_dir.mkdir()
+    for entry in (jax_platform, port_platform):
+        kwargs = {"device": "cpu"} if entry is port_platform else {}
+        with pytest.raises(RuntimeError):
+            entry.GenericPlatform.tag_sort_bam(
+                ["-i", str(bad), "-t", *CELL, "--cell-metrics-output", str(out_dir / "broken"),
+                 "-o", str(out_dir / "sorted.bam"), "--records-per-chunk", "100"], **kwargs)
+        assert not list(out_dir.iterdir())
+
+
+def test_fused_default_device_needs_a_gpu(tmp_path, messy_bam):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the failure without a GPU")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_platform.GenericPlatform.tag_sort_bam(
+            ["-i", messy_bam, "-t", *CELL, "--cell-metrics-output", str(tmp_path / "m")])
+    assert not list(tmp_path.iterdir())
+
+
+# ------------------------------------------------------------ VerifyBamSort
+
+
+def _verify_inputs(tmp_path, tags):
+    """An unsorted BAM and its JAX in-memory sort, every record with NH."""
+    records, header = _messy_records(200, seed=3)
+    for record in records:
+        record.set_tag("NH", record.tags.get("NH", ("i", 0))[1], "i")
+    bam = write_bam(tmp_path / "in.bam", records, header)
+    sorted_bam = str(tmp_path / "sorted.bam")
+    jax_platform.GenericPlatform.tag_sort_bam(["-i", bam, "-o", sorted_bam, "-t", *tags])
+    return bam, sorted_bam
+
+
+@pytest.mark.parametrize("tags", [CELL, GENE], ids=["cell", "gene"])
+def test_verify_matches_jax(tmp_path, capsys, tags):
+    bam, sorted_bam = _verify_inputs(tmp_path, tags)
+    outputs = []
+    for entry in (jax_platform, port_platform):
+        assert entry.GenericPlatform.verify_bam_sort(["-i", sorted_bam, "-t", *tags]) == 0
+        outputs.append(capsys.readouterr().out)
+    assert outputs[1] == outputs[0] and "is correctly sorted" in outputs[0]
+    messages = []
+    for entry, error in ((jax_platform, jax_bam.SortError), (port_platform, port_bam.SortError)):
+        with pytest.raises(error) as raised:
+            entry.GenericPlatform.verify_bam_sort(["-i", bam, "-t", *tags])
+        messages.append(str(raised.value))
+    assert messages[1] == messages[0] and "TagSortableRecord(tags:" in messages[0]
+
+
+def test_verify_integer_tag_fails_like_jax(tmp_path):
+    """The check starts from an all-"" sentinel, so an integer tag (NH)
+    cannot be compared with it: TypeError in both, as typed values reach
+    the comparison the same way."""
+    _, sorted_bam = _verify_inputs(tmp_path, ["NH"])
+    for entry in (jax_platform, port_platform):
+        with pytest.raises(TypeError):
+            entry.GenericPlatform.verify_bam_sort(["-i", sorted_bam, "-t", "NH"])
