@@ -10,7 +10,11 @@ Phases, in order; any failure exits non-zero before the last line:
 1. device  -- requires ``torch.cuda.is_available()``; prints the card's name
               and power limit as nvidia-smi gives them, and the versions;
 2. build   -- compiles every kernel of ``sctools_tpu_torch/csrc`` with nvcc
-              and prints the seconds;
+              and, at the same time, the native host layer
+              (``sctools_tpu_torch/native``) with g++ against zlib; prints the
+              toolchain (g++, which of zlib.h and libdeflate.h it finds, the
+              libz it links, the cores), the native layer's thread count and
+              the seconds;
 3. kernel  -- the whitelist kernel against its plain torch version, exactly,
               at the 10x v2 shape (65,536 queries x a 737,280-barcode
               synthetic whitelist) and on edge cases; times the kernel, the
@@ -29,11 +33,15 @@ Phases, in order; any failure exits non-zero before the last line:
               same frames on the card and of the same frames on the CPU must
               be equal byte for byte (decompressed), and per cell n_reads,
               n_molecules, n_genes and n_mitochondrial_molecules must equal
-              the generator's counts. Prints records/s, the wall split, device
-              milliseconds per batch and the profiler's top device ops. The
-              metrics path has no hand kernel; the phase checks that none
-              launched. The commands' CSVs stay for phase 6, the cell CSV
-              and BAM for phase 8;
+              the generator's counts. Each command must decode through the
+              native layer (``native.calls``). Prints records/s, the wall
+              split, device milliseconds per batch and the profiler's top
+              device ops, and the decode alone: the port's Python decoder
+              against the native stream over the first 2^18 records of the
+              cell BAM, in turns, with equal frames. The metrics path has no
+              hand kernel; the phase checks that none launched. The
+              commands' CSVs stay for phase 6, the cell CSV and BAM for
+              phase 8;
 6. count   -- ``GenericPlatform.bam_to_count_matrix`` (CreateCountMatrix) on
               the card at the count's 2^19-record batch width: a
               queryname-grouped 10x v2 library of 750,000 queries (~1,180,000
@@ -45,6 +53,7 @@ Phases, in order; any failure exits non-zero before the last line:
               split in two must merge back (MergeCountMatrices), and phase 5's
               CSVs must merge as they should (MergeCellMetrics of the cell CSV
               in two files, MergeGeneMetrics of the gene CSV with itself).
+              The command must decode through the native layer.
               Prints records/s, the wall split, the idle share, and the count
               pass alone on one staged full batch with its top device ops. No
               hand kernel may launch;
@@ -63,10 +72,12 @@ Phases, in order; any failure exits non-zero before the last line:
               command, which must equal its batches;
 8. sort    -- ``GenericPlatform.tag_sort_bam`` (TagSortBam -t CB UB GE
               --cell-metrics-output -a -o) on the card: phase 5's 1,250,000
-              cell records in a shuffled order, sorted on the host in 3
-              partials of the default 500,000 records, merged and decoded
-              into 2^20-record frames for the metrics pass on the card in
-              one pass that also writes the sorted BAM. The CSV must equal
+              cell records in a shuffled order, sorted on the host by the
+              native sort in 3 partials of the default 500,000 records,
+              merged through a pipe into the native decoder's 2^20-record
+              frames for the metrics pass on the card in one pass that also
+              writes the sorted BAM (``native.calls`` must show that route).
+              The CSV must equal
               phase 5's CalculateCellMetrics CSV byte for byte (decompressed)
               and the sorted BAM hold the input's record bodies in phase 5's
               order; ``verify_bam_sort`` 0 on it, SortError on the shuffled
@@ -76,7 +87,9 @@ Phases, in order; any failure exits non-zero before the last line:
               directory left, ``check_barcode_partition`` 0 on the chunks.
               ``group_qc_outputs`` of all five types on small Picard, HISAT2,
               RSEM and Core inputs, every value read back. Prints records/s,
-              the wall split and the idle share; no hand kernel may launch;
+              the sort's split by phase (read, chunk sort, partial writes,
+              merge), the metrics pass's split and the idle share; no hand
+              kernel may launch;
 9. kernels -- one JSON line per the port's kernel contract; its launches are
               those of every main-path run (phases 4 and 7).
 
@@ -466,16 +479,53 @@ def phase_device():
     return props.multi_processor_count, clock_mhz * 1e6
 
 
-def phase_build(kernels):
+def toolchain_probe() -> str:
+    """The host toolchain the native layer builds with: g++'s version, which
+    of zlib.h and libdeflate.h its preprocessor finds, the libz and
+    libdeflate the linker's cache lists, and the cores."""
+    def run(*command, stdin=""):
+        result = subprocess.run(command, input=stdin, capture_output=True, text=True)
+        return result.returncode, result.stdout
+
+    found = [header for header in ("zlib.h", "libdeflate.h")
+             if run("g++", "-E", "-x", "c++", "-", stdin=f"#include <{header}>\n")[0] == 0]
+    libraries = [line.split()[0] for line in run("ldconfig", "-p")[1].splitlines()
+                 if line.strip().startswith(("libz.so", "libdeflate"))]
+    return (f"{run('g++', '--version')[1].splitlines()[0]}; headers found: {', '.join(found) or 'none'}; "
+            f"libraries: {', '.join(libraries) or 'none'}; nproc {run('nproc')[1].strip()}")
+
+
+def phase_build(kernels, native):
+    """nvcc for each kernel and g++ for the native layer, all at once."""
+    import threading
+
+    log(f"[build] toolchain: {toolchain_probe()}")
     start = time.perf_counter()
+    native_seconds, native_error = [], []
+
+    def build_native():
+        try:
+            native.library()
+            native_seconds.append(time.perf_counter() - start)
+        except BaseException as error:  # re-raised below, on the main thread
+            native_error.append(error)
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     for name in kernels.launches:
         kernels.library(name)
     seconds = time.perf_counter() - start
+    native_thread.join()
+    if native_error:
+        raise native_error[0]
     for name, output in kernels.build_output.items():
         for line in output.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    log(f"[build] {len(kernels.launches)} kernel(s) built and loaded in {seconds:.2f} s")
+    log(f"[build] {len(kernels.launches)} kernel(s) built and loaded in {seconds:.2f} s; the native "
+        f"layer ({', '.join(native.SOURCES)}, {' '.join(native.CXX_FLAGS + native.LINK_FLAGS)}) in "
+        f"{native_seconds[0]:.2f} s as {native.library_path().name}; native threads "
+        f"{native.default_threads()}")
 
 
 def kernel_bound_ms(n_q: int, n_w: int, length: int):
@@ -744,15 +794,40 @@ def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, modules):
     return launches
 
 
-def decode_frames(path: str) -> list:
-    """The port's decode of ``path`` into frames of METRICS_BATCH records.
+DECODE_AB_RECORDS = 1 << 18
 
-    Runs in a spawned worker process once the timed commands are done: it
-    imports the port's host I/O only (no torch, no CUDA)."""
-    sys.path.insert(0, str(REPO))
-    from sctools_tpu_torch.io.packed import iter_frames_from_bam
 
-    return list(iter_frames_from_bam(path, METRICS_BATCH))
+def same_frames(a, b, packed) -> bool:
+    """Every column, dtype and vocabulary of two ReadFrames equal."""
+    return all(
+        getattr(a, f).dtype == getattr(b, f).dtype and np.array_equal(getattr(a, f), getattr(b, f))
+        for f in packed._PER_RECORD_FIELDS
+    ) and all(getattr(a, f"{f}_names") == getattr(b, f"{f}_names") for f in packed._CODED_FIELDS)
+
+
+def decode_ab(path: Path, packed, native, stamp: str) -> None:
+    """The first DECODE_AB_RECORDS records of ``path`` decoded by the port's
+    Python decoder and by the native stream (query names included, as the
+    Python decoder always reads them), in the order Python, native, native,
+    Python; every run's frame must be the same."""
+    runs = []
+    for arm in ("python", "native", "native", "python"):
+        begin = time.perf_counter()
+        if arm == "python":
+            frames = packed._python_frames(str(path), DECODE_AB_RECORDS, packed.DEFAULT_TAG_KEYS)
+        else:
+            frames = native.stream_frames(str(path), DECODE_AB_RECORDS, want_qname=True)
+        frame = next(frames)
+        frames.close()
+        runs.append((arm, time.perf_counter() - begin, frame))
+    if any(f.n_records != DECODE_AB_RECORDS or not same_frames(f, runs[0][2], packed) for _, _, f in runs):
+        raise AssertionError("decode A/B: the Python and native frames differ")
+    rates = {arm: [DECODE_AB_RECORDS / sec for a, sec, _ in runs if a == arm] for arm in ("python", "native")}
+    log(f"[metrics] {stamp} | decode A/B over the first {DECODE_AB_RECORDS} records of the cell BAM "
+        f"(Python, native, native, Python; equal frames): Python decoder "
+        f"{' / '.join(f'{r:.0f}' for r in rates['python'])} records/s, native stream "
+        f"({native.default_threads()} threads) {' / '.join(f'{r:.0f}' for r in rates['native'])} records/s; "
+        f"native/Python {statistics.median(rates['native']) / statistics.median(rates['python']):.1f}x")
 
 
 @contextlib.contextmanager
@@ -856,13 +931,10 @@ def phase_metrics(rng, stamp: str, modules) -> None:
     """CalculateCellMetrics and CalculateGeneMetrics on the card at the
     2^20-record batch width; the CSVs against the same port on the CPU and
     against the generator's counts."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    kernels, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf = modules
+    kernels, native, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf, packed = modules
     if port_gatherer.DEFAULT_BATCH_RECORDS != METRICS_BATCH:
         raise AssertionError("the smoke's batch width is not the gatherer's default")
     WORK.mkdir(exist_ok=True)
@@ -901,6 +973,7 @@ def phase_metrics(rng, stamp: str, modules) -> None:
         args = ["-i", str(paths[axis]), "-o", str(out)] + (["-a", str(gtf_path)] if axis == "cell" else [])
         made = []
         torch.cuda.synchronize()
+        native.reset_calls()
         begin = time.perf_counter()
         # the device-side profile (no host ops) gives the command's busy time
         with recording(port_platform, cls_name[axis], made), profile(
@@ -909,6 +982,8 @@ def phase_metrics(rng, stamp: str, modules) -> None:
             getattr(port_platform.GenericPlatform, entry[axis])(args)
             torch.cuda.synchronize()
         wall = time.perf_counter() - begin
+        if native.calls != {**dict.fromkeys(native.calls, 0), "stream_frames": 1}:
+            raise AssertionError(f"{entry[axis]} did not decode through the native stream: {native.calls}")
         busy_ms = device_busy_ms(prof)
         gatherer = made[0]
         device_ms = gatherer.device_ms()
@@ -916,7 +991,7 @@ def phase_metrics(rng, stamp: str, modules) -> None:
         other = wall - sum(split.values())
         n = len(axes[axis]["cell"])
         log(f"[metrics] {stamp} | {entry[axis]} on cuda: {n} records in {wall:.2f} s = "
-            f"{n / wall:.0f} records/s; decode {split['decode']:.2f} s, pack "
+            f"{n / wall:.0f} records/s; decode (native stream) {split['decode']:.2f} s, pack "
             f"{split['pack']:.2f} s, upload+enqueue {split['dispatch']:.2f} s, waiting on "
             f"pulls {split['wait']:.2f} s, CSV {split['csv']:.2f} s, other {other:.2f} s; "
             f"per batch, upload to pull on the stream (CUDA events, host gaps included) "
@@ -934,11 +1009,10 @@ def phase_metrics(rng, stamp: str, modules) -> None:
                                  f"remainder and a tail")
         cli_csv[axis] = read_csv(out.with_name(out.name + ".csv.gz"))
 
-    # the frames for the cuda/cpu comparison, both axes decoded at once in
-    # two worker processes
-    with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
-        decoded = {axis: pool.submit(decode_frames, str(path)) for axis, path in paths.items()}
-        frames = {axis: future.result() for axis, future in decoded.items()}
+    decode_ab(paths["cell"], packed, native, stamp)
+    # the frames for the cuda/cpu comparison, decoded as the commands decode
+    frames = {axis: list(packed.iter_frames_from_bam(str(path), METRICS_BATCH, want_qname=False))
+              for axis, path in paths.items()}
 
     mito = port_gtf.get_mitochondrial_gene_names(str(gtf_path))
     if len(mito) != N_MITO_GENES:
@@ -1218,7 +1292,7 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    kernels, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf = modules
+    kernels, native, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf = modules
     if port_count.DEFAULT_BATCH_RECORDS != COUNT_BATCH:
         raise AssertionError("the smoke's batch width is not the count's default")
     phase_start = start = time.perf_counter()
@@ -1246,6 +1320,7 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
     port_count.iter_frames_from_bam = keeping
     try:
         torch.cuda.synchronize()
+        native.reset_calls()
         begin = time.perf_counter()
         with recording(port_platform, "CountMatrix", made), profile(activities=[ProfilerActivity.CUDA]) as prof:
             port_platform.GenericPlatform.bam_to_count_matrix(
@@ -1254,12 +1329,14 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
         wall = time.perf_counter() - begin
     finally:
         port_count.iter_frames_from_bam = decode
+    if native.calls != {**dict.fromkeys(native.calls, 0), "stream_frames": 1}:
+        raise AssertionError(f"bam_to_count_matrix did not decode through the native stream: {native.calls}")
     busy_ms = device_busy_ms(prof)
     command = made[0]
     split = command.seconds
     other = wall - sum(split.values())
     log(f"[count] {stamp} | bam_to_count_matrix on cuda: {n} records in {wall:.2f} s = "
-        f"{n / wall:.0f} records/s; decode {split['decode']:.2f} s, carried tails (concat, "
+        f"{n / wall:.0f} records/s; decode (native stream) {split['decode']:.2f} s, carried tails (concat, "
         f"compact, copy) {split['carry']:.2f} s, pack {split['pack']:.2f} s, "
         f"upload+enqueue {split['dispatch']:.2f} s, waiting on pulls {split['wait']:.2f} s, "
         f"accumulate {split['accumulate']:.2f} s, assemble {split['assemble']:.2f} s, save "
@@ -1697,7 +1774,7 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    kernels, port_platform, port_tagsort, port_bam, bgzf, sam = modules
+    kernels, native, port_platform, port_bam, bgzf, sam = modules
     phase_start = start = time.perf_counter()
     with bgzf.open_bgzf_reader(str(WORK / "cell_sorted.bam")) as fh:
         header = sam.read_raw_header(fh)
@@ -1712,17 +1789,18 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
     log(f"[sort] inputs: phase 5's {n} cell records in a shuffled order (BGZF level 1, "
         f"{shuffled.stat().st_size} bytes); made in {time.perf_counter() - start:.1f} s")
 
-    # the fused pass: sort in partials on the host, merge, frames to the card
+    # the fused pass: the native sort in partials on the host, its merge
+    # through a pipe into the native decoder, frames to the card
     stem, sorted_bam = WORK / "fused_cell", WORK / "fused_sorted.bam"
     args = ["-i", str(shuffled), "-t", *SORT_TAGS, "--cell-metrics-output", str(stem),
             "-a", str(WORK / "mito.gtf"), "-o", str(sorted_bam)]
     write_mito_gtf(WORK / "mito.gtf")
-    streams, gatherers = [], []
+    gatherers = []
     torch.cuda.synchronize()
+    native.reset_calls()
     kernels.reset_launches()  # the main path's run starts here
     begin = time.perf_counter()
-    with recording(port_tagsort, "SortedFrameStream", streams), \
-            recording(port_platform, "GatherCellMetrics", gatherers), \
+    with recording(port_platform, "GatherCellMetrics", gatherers), \
             profile(activities=[ProfilerActivity.CUDA]) as prof:
         rc = port_platform.GenericPlatform.tag_sort_bam(args)
         torch.cuda.synchronize()
@@ -1731,25 +1809,25 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
     busy_ms = device_busy_ms(prof)
     if rc != 0 or any(launches.values()):
         raise AssertionError(f"TagSortBam: rc {rc}; hand kernel launches {launches} (want none)")
-    stream, gatherer = streams[0], gatherers[0]
-    sort_split = stream.seconds
-    gather_split = gatherer.seconds
-    # the gatherer's decode seconds are the time it waited on the stream
-    other = wall - gather_split["decode"] - sum(v for k, v in gather_split.items() if k != "decode")
-    stream_other = gather_split["decode"] - sum(sort_split.values())
+    if native.calls != {**dict.fromkeys(native.calls, 0), "tagsort_stream_frames": 1}:
+        raise AssertionError(f"TagSortBam did not stream through the native sort: {native.calls}")
+    gatherer = gatherers[0]
+    gather_split, sort_split = gatherer.seconds, gatherer.source_stats
+    # the gatherer's decode seconds are the time it waited on the pipe's
+    # decoder; the sort's phases run on its own thread meanwhile
+    other = wall - sum(gather_split.values())
     log(f"[sort] {stamp} | TagSortBam --cell-metrics-output -o on cuda: {n} records in {wall:.2f} s = "
-        f"{n / wall:.0f} records/s; {stream.sort.partials} partials of <= {SORT_CHUNK}, frames of "
-        f"{port_tagsort.FRAME_RECORDS}; read+key {sort_split['read_key']:.2f} s, chunk sort "
-        f"{sort_split['sort']:.2f} s, partial write {sort_split['partial_write']:.2f} s, merge "
-        f"{sort_split['merge']:.2f} s, decode to records {sort_split['decode']:.2f} s, records to frames "
-        f"{sort_split['frame']:.2f} s, BAM tee {sort_split['tee']:.2f} s, rest of the stream "
-        f"{stream_other:.2f} s; pack {gather_split['pack']:.2f} s, upload+enqueue "
-        f"{gather_split['dispatch']:.2f} s, wait {gather_split['wait']:.2f} s, CSV {gather_split['csv']:.2f} s, "
-        f"other {other:.2f} s; {len(gatherer.batches)} device batches; device busy (torch.profiler, kernels "
-        f"and copies) {busy_ms:.1f} ms, idle share {1 - busy_ms / (wall * 1e3):.4f}; no hand kernel launched")
-    if stream.sort.partials != -(-n // SORT_CHUNK) or len(gatherer.batches) < 2:
-        raise AssertionError(f"want {-(-n // SORT_CHUNK)} partials and >= 2 device batches, got "
-                             f"{stream.sort.partials} and {len(gatherer.batches)}")
+        f"{n / wall:.0f} records/s; native sort ({native.default_threads()} threads, chunks of "
+        f"{SORT_CHUNK}) on its thread: read {sort_split['read']:.2f} s, chunk sort {sort_split['sort']:.2f} s, "
+        f"{sort_split['partial_files']} partial writes {sort_split['partials']:.2f} s, merge and BAM tee {sort_split['merge']:.2f} s; "
+        f"metrics pass: waiting on the decoded stream {gather_split['decode']:.2f} s, pack "
+        f"{gather_split['pack']:.2f} s, upload+enqueue {gather_split['dispatch']:.2f} s, wait "
+        f"{gather_split['wait']:.2f} s, CSV {gather_split['csv']:.2f} s, other {other:.2f} s; "
+        f"{len(gatherer.batches)} device batches; device busy (torch.profiler, kernels and copies) "
+        f"{busy_ms:.1f} ms, idle share {1 - busy_ms / (wall * 1e3):.4f}; no hand kernel launched")
+    if sort_split["partial_files"] != -(-n // SORT_CHUNK) or len(gatherer.batches) < 2:
+        raise AssertionError(f"want {-(-n // SORT_CHUNK)} partials ({n} records in chunks of {SORT_CHUNK}) "
+                             f"and >= 2 device batches, got {sort_split} and {len(gatherer.batches)}")
     fused = read_csv(stem.with_name(stem.name + ".csv.gz"))[0]
     want = read_csv(WORK / "cli_cell.csv.gz")[0]
     if fused != want:
@@ -1861,12 +1939,11 @@ def main(argv=None) -> int:
     from sctools_tpu_torch import count as port_count
     from sctools_tpu_torch import fastqprocess as port_fqp
     from sctools_tpu_torch import gtf as port_gtf
-    from sctools_tpu_torch import kernels
+    from sctools_tpu_torch import kernels, native
     from sctools_tpu_torch import platform as port_platform
     from sctools_tpu_torch import bam as port_bam
     from sctools_tpu_torch import samplefastq as port_sample
-    from sctools_tpu_torch import tagsort as port_tagsort
-    from sctools_tpu_torch.io import bgzf, sam
+    from sctools_tpu_torch.io import bgzf, packed, sam
     from sctools_tpu_torch.metrics import device as port_device
     from sctools_tpu_torch.metrics import gatherer as port_gatherer
     from sctools_tpu_torch.metrics import merge as port_merge
@@ -1874,7 +1951,7 @@ def main(argv=None) -> int:
     from sctools_tpu_torch.ops import segments as port_seg
     from sctools_tpu_torch.ops import whitelist as wl_ops
 
-    phase_build(kernels)
+    phase_build(kernels, native)
     rng = np.random.default_rng(args.seed)
     whitelist_ascii = make_whitelist(rng, WHITELIST_SIZE, CB_LEN)
     table, measured = phase_kernel(rng, whitelist_ascii, sms, clock_hz, wl_ops)
@@ -1884,11 +1961,11 @@ def main(argv=None) -> int:
     )
     csvs = phase_metrics(
         np.random.default_rng(args.seed + 1), stamp,
-        (kernels, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf),
+        (kernels, native, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf, packed),
     )
     phase_count(
         np.random.default_rng(args.seed + 2), stamp,
-        (kernels, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf), csvs,
+        (kernels, native, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf), csvs,
     )
     fastq_launches, bam_shards = phase_fastq(
         np.random.default_rng(args.seed + 3), whitelist_ascii, table, stamp,
@@ -1896,7 +1973,7 @@ def main(argv=None) -> int:
     )
     phase_sort(
         np.random.default_rng(args.seed + 4), stamp,
-        (kernels, port_platform, port_tagsort, port_bam, bgzf, sam), bam_shards,
+        (kernels, native, port_platform, port_bam, bgzf, sam), bam_shards,
     )
     record = {
         "name": "whitelist_correct",

@@ -4,13 +4,14 @@ The port of ``sctools_tpu.count`` on its single-device path, with two
 backends:
 
 - ``device``: the BAM streams in batches of at most ``batch_records``
-  alignments, each cut at its last query-name boundary (the incomplete
-  tail group carries into the next batch). Per batch the host builds the
-  padded count columns (``device_count_columns``), makes one
-  ``ingest.upload`` of them as one int32 block, runs
-  ``ops.counting.count_molecules`` on the device and makes one
-  ``ingest.pull`` of the five result columns as one block, read only after
-  its event. The batch's unique triples accumulate as packed integers
+  alignments (decoded by the native layer, query names included, for a
+  BGZF input with the default tag keys), each cut at its last query-name
+  boundary (the incomplete tail group carries into the next batch). Per
+  batch the host builds the padded count columns
+  (``device_count_columns``), makes one ``ingest.upload`` of them as one
+  int32 block, runs ``ops.counting.count_molecules`` on the device and
+  makes one ``ingest.pull`` of the five result columns as one block, read
+  only after its event. The batch's unique triples accumulate as packed integers
   (``_MoleculeAccumulator``) that one vectorized pass deduplicates across
   batches and orders by first observation. One batch's pull is waited on
   only after the next batch is queued.
@@ -24,10 +25,10 @@ chunked matrices whose cell rows are disjoint.
 Not ported: the mesh path (``_add_batch_sharded``, ``--devices N``), the
 accumulator's one-batch ``add_batch`` (the streaming loop queues and
 finishes each batch itself through ``dispatch`` and ``finish``), the
-guard ladder (a failed batch fails the command), the ingest ring and the
-native decoder, and the JAX package's heartbeats, dispatch records and
-audit counters. A matrix built by the device backend keeps plain records
-instead: ``batches`` and ``seconds``.
+guard ladder (a failed batch fails the command), the ingest ring, and the
+JAX package's heartbeats, dispatch records and audit counters. A matrix
+built by the device backend keeps plain records instead: ``batches`` and
+``seconds``.
 """
 
 from __future__ import annotations
@@ -392,7 +393,7 @@ class CountMatrix:
         if frame_source is not None:
             frames = frame_source()
         else:
-            frames = iter_frames_from_bam(bam_file, batch_records, tuple(tag_keys))
+            frames = iter_frames_from_bam(bam_file, batch_records, tuple(tag_keys), want_qname=True)
         carry = None
         offset = 0
         multi_batch = False

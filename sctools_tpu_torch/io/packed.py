@@ -11,10 +11,13 @@ Missing tags encode as vocabulary entry "" (which sorts first) and flag
 columns record true absence where semantics require it (XF missingness feeds
 reads_unmapped).
 
-Decoding runs the pure-Python record path (``io.sam.AlignmentReader``); the
-JAX package's native decoder and its per-record side columns (``extras``)
-have no counterpart here, so every frame derives its packed flags and sort
-operands from the columns below.
+A BGZF BAM decodes through the native layer (``sctools_tpu_torch.native``:
+thread-pooled inflate, records parsed straight into these columns), as the
+JAX package's does; custom tag keys and inputs that are not gzip (SAM text)
+take the pure-Python record path (``io.sam.AlignmentReader``). The JAX
+package's per-record side columns (``extras``) have no counterpart here, so
+every frame derives its packed flags and sort operands from the columns
+below.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Iterable, List, Optional, Sequence
 import numpy as np
 
 from .. import consts
+from . import bgzf
 from .sam import AlignmentReader, BamRecord
 
 _QUAL_THRESHOLD = 30
@@ -492,22 +496,50 @@ def iter_frames_from_bam(
     path: str,
     batch_records: int,
     tag_keys: tuple = DEFAULT_TAG_KEYS,
+    want_qname: bool = True,
 ):
     """Yield ReadFrames of <= batch_records alignments in file order.
 
-    The bounded-memory decode path over ``AlignmentReader``. Each frame has
-    its own (sorted) vocabularies.
+    The bounded-memory decode path. Each frame has its own (sorted)
+    vocabularies. A gzip input with the default tag keys streams through
+    the native decoder (``native.stream_frames``; ``want_qname=False``
+    leaves the qname column empty there, for callers that never read it);
+    custom ``tag_keys`` (the native parser reads the fixed 10x tag set) and
+    inputs that are not gzip take the Python decoder, as in the JAX
+    package.
     """
     if batch_records < 1:
         # 0 would otherwise read as clean EOF and yield an empty-but-valid
         # result for what is always a caller bug
         raise ValueError(f"batch_records must be >= 1, got {batch_records}")
+    if tuple(tag_keys) == DEFAULT_TAG_KEYS and bgzf.is_gzip(path):
+        from .. import native
+
+        native.library()  # a failed build or load raises here, never caught below
+        stream = native.stream_frames(path, batch_records, want_qname=want_qname)
+        try:
+            first = next(stream, None)
+        except RuntimeError:
+            # the native decoder refused the input before its first batch (a
+            # malformed BGZF container, or gzip that is not BGZF): decode it
+            # with the Python reader, as the JAX package's route does, so the
+            # caller gets that reader's records or its own exception
+            stream = None
+        if stream is not None:
+            if first is not None:
+                yield first
+                yield from stream
+            return
+    yield from _python_frames(path, batch_records, tuple(tag_keys))
+
+
+def _python_frames(path: str, batch_records: int, tag_keys: tuple):
     with AlignmentReader(path) as reader:
         records = iter(reader)
         while True:
             with _cyclic_gc_paused():
                 chunk = list(itertools.islice(records, batch_records))
-                frame = frame_from_records(chunk, tag_keys=tuple(tag_keys)) if chunk else None
+                frame = frame_from_records(chunk, tag_keys=tag_keys) if chunk else None
                 del chunk  # the records go before the caller takes the frame
             if frame is None:
                 break
@@ -534,6 +566,19 @@ def _cyclic_gc_paused():
 
 
 def frame_from_bam(path: str) -> ReadFrame:
-    """Decode a whole BAM/SAM file into one ReadFrame."""
+    """Decode a whole BAM/SAM file into one ReadFrame.
+
+    A gzip input decodes through the native layer (``native.frame_from_bam``);
+    SAM text, and an input the native decoder refuses, take the Python
+    record path, as in the JAX package.
+    """
+    if bgzf.is_gzip(path):
+        from .. import native
+
+        native.library()  # a failed build or load raises here, never caught below
+        try:
+            return native.frame_from_bam(path)
+        except RuntimeError:
+            pass  # the Python reader gives the records, or its own exception
     with AlignmentReader(path) as reader:
         return frame_from_records(reader)

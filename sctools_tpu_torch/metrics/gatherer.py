@@ -1,7 +1,8 @@
 """Metric gatherers: stream a sorted BAM through the device engine to a CSV.
 
 The port of ``sctools_tpu.metrics.gatherer`` on its device backend. Batches
-of at most ``batch_records`` alignments decode on the main thread; each batch
+of at most ``batch_records`` alignments decode on the main thread (through
+the native layer for a BGZF input, without query names); each batch
 is cut at its last entity boundary and the incomplete tail entity carries
 into the next batch, so an entity never spans two processed batches and
 per-batch results need no merging. Per batch the host makes the same schema
@@ -310,6 +311,10 @@ class MetricGatherer:
         # decisions and padded columns), dispatch (upload and enqueue of
         # the device pass and its pull), wait (on pulls), csv
         self.seconds = {"decode": 0.0, "pack": 0.0, "dispatch": 0.0, "wait": 0.0, "csv": 0.0}
+        # what the frame source reports of its own work, off this thread:
+        # the fused TagSortBam's native sort fills its phase seconds and
+        # the partials it wrote (``native.tagsort_stream_frames``)
+        self.source_stats: Dict[str, float] = {}
 
     @property
     def bam_file(self) -> str:
@@ -336,7 +341,7 @@ class MetricGatherer:
         if self._frame_source is not None:
             frames = self._frame_source()
         else:
-            frames = iter_frames_from_bam(self._bam_file, self._batch_records)
+            frames = iter_frames_from_bam(self._bam_file, self._batch_records, want_qname=False)
         out = MetricCSVWriter(self._output_stem)
         try:
             out.write_header({c: None for c in self.columns})
@@ -347,6 +352,10 @@ class MetricGatherer:
             raise
         else:
             out.close()
+        finally:
+            # a source left open on a failure holds its files (the fused
+            # sort's worker, partials and tee) until garbage collection
+            getattr(frames, "close", lambda: None)()
 
     def start_stream(self) -> None:
         """Reset the wire-schema state that must not flip mid-stream: the u8

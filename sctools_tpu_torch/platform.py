@@ -15,9 +15,9 @@ reference-semantics host loop of ``count.py``.
 ``tag_sort_bam`` (``TagSortBam``), ``verify_bam_sort``, ``split_bam`` and
 ``group_qc_outputs`` are the ports of sctools_tpu/platform.py:198-495,
 :752-790, with the same flags, help and parser errors. The sorts run on the
-host (``tagsort``, ``bam``); ``TagSortBam --cell-metrics-output`` /
-``--gene-metrics-output`` feeds the merged stream to the metrics pass on the
-device in one pass. The other three are host code.
+host (``tagsort``, ``native``, ``bam``); ``TagSortBam --cell-metrics-output``
+/ ``--gene-metrics-output`` feeds the native sort's merged stream to the
+metrics pass on the device in one pass. The other three are host code.
 
 ``TenXV2.attach_barcodes`` and ``BarcodePlatform.attach_barcodes`` are the
 ports of sctools_tpu/platform.py:916-993, :1118-1389, with the same
@@ -47,13 +47,15 @@ import argparse
 import math
 import os
 import sys
+import tempfile
 from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
-from . import attach, bam, consts, fastq, groups, gtf, tagsort
+from . import attach, bam, consts, fastq, groups, gtf, native, tagsort
 from .count import DEFAULT_BATCH_RECORDS, CountMatrix
 from .device import DeviceLike, resolve
 from .fastq_metrics import compute_fastq_metrics
 from .fastqprocess import fastq_process
+from .io import bgzf
 from .io.sam import AlignmentReader, AlignmentWriter, aux_fields, aux_value, query_name
 from .metrics.gatherer import GatherCellMetrics, GatherGeneMetrics
 from .metrics.merge import MergeCellMetrics, MergeGeneMetrics
@@ -296,33 +298,37 @@ class GenericPlatform:
         cls, args, tags, kind, metrics_stem, parser=None, device: DeviceLike = None
     ) -> int:
         """One merge pass: sorted stream -> metrics on ``device`` (+ an
-        optional sorted bam).
+        optional sorted bam, teed at BGZF level 1).
 
-        The fused keys are always three string tags, so every input takes
-        the raw route (``tagsort.SortedFrameStream``): the JAX package's
-        two-pass fallback, for a BAM named ``.sam``, gives the same outputs.
-        A SAM text input fails with gzip's error, as it does in JAX. A
-        failure publishes no CSV and leaves no partials.
+        The native sort's merge streams into the gatherer
+        (``native.tagsort_stream_frames``), as in the JAX package, for every
+        gzip input: the JAX package's two-pass fallback, for a BAM named
+        ``.sam``, gives the same outputs. An input that is not gzip fails as
+        that fallback fails, opening it as a BAM (SAM text: gzip's error).
+        A failure publishes no CSV and leaves no sorted BAM and no partials.
         """
         mitochondrial_gene_ids: Set[str] = set()
         if args.gtf_annotation_file:
             mitochondrial_gene_ids = gtf.get_mitochondrial_gene_names(args.gtf_annotation_file)
         _refuse_devices(args, parser)
         device = resolve(device)  # no GPU: raise before any sorting
+        if not bgzf.is_gzip(args.input_bam):
+            AlignmentReader(args.input_bam, "rb").close()  # raises, as that fallback does
         gatherer_cls = GatherCellMetrics if kind == "cell" else GatherGeneMetrics
-        stream = tagsort.SortedFrameStream(
-            args.input_bam, tags,
-            records_per_chunk=args.records_per_chunk or tagsort.DEFAULT_RECORDS_PER_CHUNK,
-            bam_output=args.output_bam,
-            scratch_dir=os.path.dirname(os.path.abspath(args.output_bam or metrics_stem)),
-        )
-        try:
-            gatherer_cls(
+        scratch_dir = os.path.dirname(os.path.abspath(args.output_bam or metrics_stem))
+        with tempfile.TemporaryDirectory(prefix="tagsort_", dir=scratch_dir) as scratch:
+            # the source runs inside extract_metrics, after ``gatherer`` is
+            # bound, and reports the sort's own work to it
+            gatherer = gatherer_cls(
                 args.input_bam, metrics_stem, mitochondrial_gene_ids,
-                frame_source=stream.frames, device=device,
-            ).extract_metrics()
-        finally:
-            stream.close()
+                frame_source=lambda: native.tagsort_stream_frames(
+                    args.input_bam, tags, os.path.join(scratch, "partial"), gatherer.source_stats,
+                    sort_batch_records=args.records_per_chunk or tagsort.DEFAULT_RECORDS_PER_CHUNK,
+                    bam_output=args.output_bam,
+                ),
+                device=device,
+            )
+            gatherer.extract_metrics()
         return 0
 
     @classmethod

@@ -18,7 +18,9 @@ results at 5,000 records and at 2^19, the count's batch width, and one
 CheckBarcodePartition on the card equal the same calls on the CPU, and
 the kernel launches equal the batches. A fused TagSortBam (the sort on the
 host, the metrics pass on the card) gives the CSV and the sorted BAM it
-gives on the CPU, for both tag orders, and launches no hand kernel.
+gives on the CPU, for both tag orders, and launches no hand kernel. The
+native host layer builds on the machine and decodes a small library to the
+frames the port's Python decoder gives.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
@@ -34,9 +36,10 @@ import pytest
 import torch
 
 from sctools_tpu_torch import fastqprocess as port_fqp
-from sctools_tpu_torch import kernels
+from sctools_tpu_torch import kernels, native
 from sctools_tpu_torch import platform as port_platform
 from sctools_tpu_torch import samplefastq as port_sample
+from sctools_tpu_torch.io import packed as port_packed
 from sctools_tpu_torch.io.packed import ReadFrame
 from sctools_tpu_torch.io.sam import AlignmentWriter, BamHeader, BamRecord
 from sctools_tpu_torch.metrics import device as port_device
@@ -347,6 +350,29 @@ def test_fused_tag_sort_on_the_card_matches_the_cpu(cuda_device, tmp_path, tags,
         with gzip.open(tmp_path / f"{device}.csv.gz", "rb") as f, gzip.open(tmp_path / f"{device}.bam", "rb") as g:
             outputs[device] = (f.read(), g.read())
     assert outputs["cuda"] == outputs["cpu"] and outputs["cpu"][0].count(b"\n") > 30
+
+
+def test_native_layer_builds_here_and_matches_the_python_decoder(cuda_device, tmp_path):
+    """The native layer builds with this machine's g++ and zlib, and its
+    frames (query names included) equal the port's Python decoder's on a
+    small library, batch by batch."""
+    rng = np.random.default_rng(11)
+    header, records = _cell_library(rng)
+    bam = str(tmp_path / "library.bam")
+    with AlignmentWriter(bam, header) as out:
+        for record in records:
+            out.write(record)
+    native.reset_calls()
+    frames = list(port_packed.iter_frames_from_bam(bam, 1000))
+    python = list(port_packed._python_frames(bam, 1000, port_packed.DEFAULT_TAG_KEYS))
+    assert native.calls["stream_frames"] == 1 and native.library_path().exists()
+    assert [f.n_records for f in frames] == [f.n_records for f in python] and len(frames) == 7
+    for a, b in zip(frames, python):
+        for name in port_packed._PER_RECORD_FIELDS:
+            assert getattr(a, name).dtype == getattr(b, name).dtype, name
+            assert np.array_equal(getattr(a, name), getattr(b, name)), name
+        for name in port_packed._CODED_FIELDS:
+            assert getattr(a, f"{name}_names") == getattr(b, f"{name}_names"), name
 
 
 # -------------------------------------------------------------------- count

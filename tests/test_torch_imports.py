@@ -1,5 +1,7 @@
 """The port stands alone: no module of ``sctools_tpu_torch``, and not
-``chip_smoke.py``, imports JAX, the JAX package or pandas.
+``chip_smoke.py``, imports JAX, the JAX package or pandas, and every
+``#include "..."`` of its C++ and CUDA sources names a file inside the
+package.
 
 The card's machine has no JAX and no pandas, and the port keeps its own
 copies of whatever it needs from the JAX package. The check reads each
@@ -11,13 +13,20 @@ importing proves nothing where JAX is already loaded.
 from __future__ import annotations
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "sctools_tpu", "pandas")
-SOURCES = sorted((REPO / "sctools_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PACKAGE = REPO / "sctools_tpu_torch"
+SOURCES = sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+NATIVE_SOURCES = sorted(
+    p for suffix in ("*.cpp", "*.h", "*.cu", "*.cuh") for p in PACKAGE.rglob(suffix)
+    if "_build" not in p.parts
+)
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def imported_modules(path: Path):
@@ -40,3 +49,22 @@ def test_the_walk_sees_deferred_imports(tmp_path):
 def test_no_forbidden_import(path):
     bad = [(line, name) for line, name in imported_modules(path) if name in FORBIDDEN]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def quoted_includes(path: Path):
+    """Each ``#include "..."`` of ``path`` with the file it resolves to
+    (quoted includes resolve beside the including file)."""
+    for name in _QUOTED_INCLUDE.findall(path.read_text()):
+        yield name, (path.parent / name).resolve()
+
+
+def test_the_include_scan_sees_quoted_includes(tmp_path):
+    probe = tmp_path / "probe.cpp"
+    probe.write_text('#include <zlib.h>\n  # include "a.h"\n#include "../b/c.h"\n')
+    assert [name for name, _ in quoted_includes(probe)] == ["a.h", "../b/c.h"]
+
+
+@pytest.mark.parametrize("path", NATIVE_SOURCES, ids=[str(p.relative_to(REPO)) for p in NATIVE_SOURCES])
+def test_includes_resolve_inside_the_package(path):
+    for name, target in quoted_includes(path):
+        assert target.is_file() and PACKAGE in target.parents, f"{path.relative_to(REPO)} includes {name}"

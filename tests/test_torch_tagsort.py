@@ -12,8 +12,8 @@ checked on every route. Each test names the JAX route it follows:
 - the native route: three string tags on a BGZF input, sorted by
   ``native.tagsort_native`` (``--records-per-chunk``) or streamed into the
   metrics gatherer by ``native.tagsort_stream_frames`` (the fused pass);
-  the port's raw route, whose partial count follows
-  ``--records-per-chunk`` (the native sort floors it at 1,000 records);
+  the port's copy of that sort (``sctools_tpu_torch.native``), whose
+  partial count follows ``--records-per-chunk`` floored at 1,000 records;
 - the Python route: ``tagsort.tag_sort_bam_out_of_core``'s chunked sort and
   heap merge over decoded records (other tags, a file named ``.sam``), and
   the fused pass's two-pass fallback through it, which the port's single
@@ -34,10 +34,11 @@ import pytest
 from sctools_tpu import bam as jax_bam
 from sctools_tpu import platform as jax_platform
 from sctools_tpu_torch import bam as port_bam
+from sctools_tpu_torch import native
 from sctools_tpu_torch import platform as port_platform
 from sctools_tpu_torch import tagsort as port_tagsort
 from sctools_tpu_torch.io import bgzf
-from sctools_tpu_torch.io.sam import iter_raw_records, read_raw_header
+from sctools_tpu_torch.io.sam import aux_fields, iter_raw_records, read_raw_header
 
 from helpers import make_header, make_record, write_bam, write_gtf
 from test_torch_metrics import assert_csv_match
@@ -81,6 +82,14 @@ def messy_bam(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def large_messy_bam(tmp_path_factory):
+    """Large enough for the native sort's 1,000-record chunk floor to make
+    partials."""
+    records, header = _messy_records(2600, seed=11)
+    return write_bam(tmp_path_factory.mktemp("tagsort_large") / "messy.bam", records, header)
+
+
+@pytest.fixture(scope="module")
 def mito_gtf(tmp_path_factory):
     path = tmp_path_factory.mktemp("tagsort_gtf") / "mito.gtf"
     return write_gtf(str(path), [dict(gene_id="G1", gene_name="G1"),
@@ -109,24 +118,29 @@ def test_in_memory_matches_jax(tmp_path, messy_bam):
     """JAX route: in memory (no --records-per-chunk); missing tags first."""
     header, bodies = _sort_both(tmp_path, messy_bam, CELL)
     assert len(bodies) == 600 and header == _bodies(messy_bam)[0]
-    assert port_tagsort.sort_key(bodies[0], [b"CB", b"UB", b"GE"])[0] == b""
+    assert b"CB" not in aux_fields(bodies[0])
 
 
-@pytest.mark.parametrize("chunk,partials", [(1000, 0), (600, 0), (599, 2), (250, 3), (37, 17)])
-def test_out_of_core_matches_jax(tmp_path, messy_bam, chunk, partials, monkeypatch):
-    """JAX route: native (``tagsort_native``); the port's raw route with
-    1 chunk (no partials), a full chunk at EOF, 2, 3 and 17 partials."""
-    made = []
-    real = port_tagsort.RawTagSort.sorted_bodies
-
-    def recorded(self):
-        made.append(self)
-        return real(self)
-
-    monkeypatch.setattr(port_tagsort.RawTagSort, "sorted_bodies", recorded)
-    _sort_both(tmp_path, messy_bam, CELL, ["--records-per-chunk", str(chunk)])
-    assert [sort.partials for sort in made] == [partials]
-    assert [p.name for p in tmp_path.iterdir() if p.name.startswith("tagsort_")] == []
+@pytest.mark.parametrize("chunk,partials", [(5000, 0), (2600, 0), (2599, 2), (1000, 3), (37, 3)])
+def test_out_of_core_matches_jax(tmp_path, large_messy_bam, chunk, partials):
+    """JAX route: native (``tagsort_native``); the port's native sort with
+    1 chunk (no partials), a full chunk at EOF, 2 and 3 partials, and a
+    chunk below the 1,000-record floor. A sort that makes partials fails,
+    and leaves nothing, when its first partial's path is taken."""
+    native.reset_calls()
+    _sort_both(tmp_path, large_messy_bam, CELL, ["--records-per-chunk", str(chunk)])
+    assert native.calls["tagsort"] == 1
+    assert [p.name for p in tmp_path.iterdir() if "partial" in p.name] == []
+    out = tmp_path / "blocked.bam"
+    (tmp_path / "blocked.bam.tagsort_partial_0").mkdir()
+    args = ["-i", large_messy_bam, "-o", str(out), "-t", *CELL, "--records-per-chunk", str(chunk)]
+    if partials:
+        with pytest.raises(RuntimeError, match="cannot open"):
+            port_platform.GenericPlatform.tag_sort_bam(args)
+        assert not out.exists()
+    else:
+        assert port_platform.GenericPlatform.tag_sort_bam(args) == 0
+        assert _bodies(out) == _bodies(tmp_path / "port_sorted.bam")
 
 
 def test_gene_order_matches_jax(tmp_path, messy_bam):
@@ -184,32 +198,61 @@ def test_sam_text_fails_like_jax(tmp_path, extra, monkeypatch):
         assert sorted(p.name for p in tmp_path.iterdir()) == ["x.sam"]
 
 
-def test_sort_key_skips_every_aux_type():
-    """The raw key walks past A c C s S i I f H B fields; an integer value
-    keys as its decimal digits, as the native walker renders it."""
+def test_sort_key_skips_every_aux_type(tmp_path):
+    """The native key walks past A c C s S i I f H B fields, and an integer
+    value keys as its decimal digits: the port's sort of such records equals
+    JAX's native sort. A record cut inside its last field fails both."""
+    from sctools_tpu.native import tagsort_native as jax_tagsort
     from sctools_tpu_torch.io.sam import BamRecord
 
-    record = BamRecord(query_name="q1", sequence="ACGT", quality=[30] * 4, tags={
-        "XA": ("A", "x"), "Xc": ("c", -3), "XC": ("C", 200), "Xs": ("s", -300), "XS": ("S", 60000),
-        "Xi": ("i", -70000), "XI": ("I", 3000000000), "Xf": ("f", 1.5), "XH": ("H", "BEEF"),
-        "XB": ("B", ("s", [1, -2, 3])), "Xb": ("B", ("f", [0.5])), "CB": ("Z", "ACGT"), "GE": ("i", 42),
-    })
-    body = record.to_bam_bytes()[4:]
-    assert port_tagsort.sort_key(body, [b"CB", b"GE", b"UB"]) == (b"ACGT", b"42", b"", b"q1")
-    with pytest.raises(ValueError):
-        port_tagsort.sort_key(body[:-3], [b"CB", b"GE", b"UB"])
+    header = make_header()
+    bodies = []
+    for i, (cb, ge) in enumerate([("ACGT", 42), ("ACGT", 7), ("AAXA", 100), ("", -5), ("ACGT", 42)]):
+        tags = {
+            "XA": ("A", "x"), "Xc": ("c", -3), "XC": ("C", 200), "Xs": ("s", -300),
+            "XS": ("S", 60000), "Xi": ("i", -70000), "XI": ("I", 3000000000), "Xf": ("f", 1.5),
+            "XH": ("H", "BEEF"), "XB": ("B", ("s", [1, -2, 3])), "Xb": ("B", ("f", [0.5])),
+            "GE": ("i", ge),
+        }
+        if cb:
+            tags["CB"] = ("Z", cb)
+        record = BamRecord(query_name=f"q{4 - i}", sequence="ACGT", quality=[30] * 4, tags=tags)
+        bodies.append(record.to_bam_bytes()[4:])
+    raw_header = _bodies(write_bam(tmp_path / "h.bam", [], header))[0]
+
+    def write(path, records):
+        with bgzf.BgzfWriter(str(path)) as out:
+            out.write(raw_header + b"".join(len(b).to_bytes(4, "little") + b for b in records))
+        return str(path)
+
+    good = write(tmp_path / "types.bam", bodies)
+    sorted_sides = []
+    for sort in (jax_tagsort, native.tagsort):
+        out = str(tmp_path / f"{len(sorted_sides)}.bam")
+        assert sort(good, out, ["CB", "GE", "UB"]) == 5
+        sorted_sides.append(_bodies(out)[1])
+    assert sorted_sides[1] == sorted_sides[0]
+    # "" < "AAXA" < "ACGT", then "42" < "7" as digits, then the query name
+    assert [b[32:34] for b in sorted_sides[1]] == [b"q1", b"q2", b"q0", b"q4", b"q3"]
+    cut = write(tmp_path / "cut.bam", bodies[:-1] + [bodies[-1][:-3]])
+    for sort in (jax_tagsort, native.tagsort):
+        with pytest.raises(RuntimeError, match="malformed aux tags"):
+            sort(cut, str(tmp_path / "cut_sorted.bam"), ["CB", "GE", "UB"])
+        assert not (tmp_path / "cut_sorted.bam").exists()
 
 
-def test_raw_header_parses_as_the_reader_does(messy_bam):
-    """The fused pass parses the header once, from the raw bytes the sort
-    keeps: the same text and references as the JAX package's reader."""
+def test_raw_header_parses_as_the_reader_does(tmp_path, messy_bam):
+    """The native sort keeps the input's raw header bytes: the sorted BAM
+    reads back with the same text and references as the JAX package's
+    reader gives for the input."""
     from sctools_tpu.io.sam import AlignmentReader as JaxReader
-    from sctools_tpu_torch.io.sam import BamHeader
+    from sctools_tpu_torch.io.sam import AlignmentReader
 
-    header = BamHeader.from_raw(_bodies(messy_bam)[0])
-    with JaxReader(messy_bam, "rb") as reader:
-        assert (header.text, header.references) == (reader.header.text, reader.header.references)
-    assert header.references and header.text.startswith("@HD")
+    out = str(tmp_path / "sorted.bam")
+    native.tagsort(messy_bam, out, CELL, compress_level=1)
+    with AlignmentReader(out) as port, JaxReader(messy_bam, "rb") as jax:
+        assert (port.header.text, port.header.references) == (jax.header.text, jax.header.references)
+        assert port.header.references and port.header.text.startswith("@HD")
 
 
 def test_cli_errors_match_jax(tmp_path, messy_bam, capsys):
@@ -247,7 +290,7 @@ def test_fused_devices_stop_at_item_5(tmp_path, messy_bam, capsys):
 @pytest.mark.parametrize("with_bam", [True, False], ids=["with-o", "without-o"])
 def test_fused_matches_jax(tmp_path, messy_bam, mito_gtf, tags, flag, with_bam):
     """JAX route: native (``tagsort_stream_frames`` into the device
-    gatherer); the port's raw route in 3 partials into its gatherer."""
+    gatherer); the port's copy of it into its gatherer."""
     sorted_bodies = {}
     for side, entry in (("jax", jax_platform), ("port", port_platform)):
         args = ["-i", messy_bam, "-t", *tags, flag, str(tmp_path / side), "-a", mito_gtf,
