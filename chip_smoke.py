@@ -23,7 +23,8 @@ Phases, in order; any failure exits non-zero before the last line:
 4. attach  -- ``TenXV2.attach_barcodes`` through the port's argparse entry
               on 262,144 synthetic reads (4 batches of 65,536) with the
               737,280-barcode whitelist; every record's tags are re-read and
-              checked, CB against the plain version's answer for its CR;
+              checked, CB against the plain version's answer for its CR; the
+              run must take the native loop (``native.calls``);
 5. metrics -- ``GenericPlatform.calculate_cell_metrics`` and
               ``calculate_gene_metrics`` on the card at the gatherer's
               2^20-record batch width: a synthetic 10x v2 library on GRCh38's
@@ -34,7 +35,8 @@ Phases, in order; any failure exits non-zero before the last line:
               be equal byte for byte (decompressed), and per cell n_reads,
               n_molecules, n_genes and n_mitochondrial_molecules must equal
               the generator's counts. Each command must decode through the
-              native layer (``native.calls``). Prints records/s, the wall
+              native layer and render its CSV through the native block
+              formatter (``native.calls``). Prints records/s, the wall
               split, device milliseconds per batch and the profiler's top
               device ops, and the decode alone: the port's Python decoder
               against the native stream over the first 2^18 records of the
@@ -67,9 +69,10 @@ Phases, in order; any failure exits non-zero before the last line:
               shard beside its copy; ``GenericPlatform.sample_fastq`` on
               131,072 slide-seq pairs (8C18X6C9M1X) with a 100,000 x 14 bp
               whitelist, every kept read's R1 rewrite and R2 exact;
-              ``fastq_metrics`` on the R1 files against numpy counts. Prints
-              reads/s, the wall split and the kernel launches of each
-              command, which must equal its batches;
+              ``fastq_metrics`` on the R1 files against numpy counts. Each
+              command must take its native loop (``native.calls``). Prints
+              reads/s, the wall split, the BGZF pool's threads and the
+              kernel launches of each command, which must equal its batches;
 8. sort    -- ``GenericPlatform.tag_sort_bam`` (TagSortBam -t CB UB GE
               --cell-metrics-output -a -o) on the card: phase 5's 1,250,000
               cell records in a shuffled order, sorted on the host by the
@@ -525,7 +528,7 @@ def phase_build(kernels, native):
     log(f"[build] {len(kernels.launches)} kernel(s) built and loaded in {seconds:.2f} s; the native "
         f"layer ({', '.join(native.SOURCES)}, {' '.join(native.CXX_FLAGS + native.LINK_FLAGS)}) in "
         f"{native_seconds[0]:.2f} s as {native.library_path().name}; native threads "
-        f"{native.default_threads()}")
+        f"{native.default_threads()} (decoder), {native.pool_threads()} (FASTQ loops' BGZF pool)")
 
 
 def kernel_bound_ms(n_q: int, n_w: int, length: int):
@@ -685,10 +688,22 @@ def parse_z_tags(tail: bytes):
     return tags
 
 
-def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, modules):
+def check_calls(native, what: str, **want) -> None:
+    """``native.calls`` must hold ``want`` (a count, or None for at least
+    one call) and 0 for every other route."""
+    got = dict(native.calls)
+    for name, count in want.items():
+        calls = got.pop(name)
+        if calls < 1 if count is None else calls != count:
+            raise AssertionError(f"{what} did not take the native route: {native.calls}")
+    if any(got.values()):
+        raise AssertionError(f"{what} took another native route too: {native.calls}")
+
+
+def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, stamp: str, modules):
     import torch
 
-    kernels, wl_ops, port_platform, bgzf, sam = modules
+    kernels, native, wl_ops, port_platform, bgzf, sam = modules
     if WORK.exists():
         shutil.rmtree(WORK)
     WORK.mkdir()
@@ -717,6 +732,7 @@ def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, modules):
             "--i1", str(WORK / "i1.fastq.gz"), "-o", str(output), "-w", str(wl_path)]
     stderr = io.StringIO()
     torch.cuda.synchronize()
+    native.reset_calls()
     kernels.reset_launches()  # the main path's run starts here
     start = time.perf_counter()
     with contextlib.redirect_stderr(stderr):
@@ -726,12 +742,14 @@ def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, modules):
     launches = dict(kernels.launches)  # ... and ends here
     if rc != 0:
         raise AssertionError(f"attach returned {rc}")
+    check_calls(native, "attach", attach=1)
     batches = -(-n_reads // BATCH)
     if launches["whitelist_correct"] != batches:
         raise AssertionError(f"{launches['whitelist_correct']} kernel launches, want {batches}")
     summary = stderr.getvalue()
-    log(f"[attach] {n_reads} reads in {seconds:.2f} s = {n_reads / seconds:.0f} reads/s, "
-        f"{batches} batches, {launches['whitelist_correct']} kernel launches")
+    log(f"[attach] {stamp} | {n_reads} reads in {seconds:.2f} s = {n_reads / seconds:.0f} reads/s "
+        f"(native loop, BGZF pool of {native.pool_threads()} threads), {batches} batches, "
+        f"{launches['whitelist_correct']} kernel launches")
     for line in summary.strip().splitlines():
         log(f"[attach] {line.strip()}")
 
@@ -782,10 +800,12 @@ def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, modules):
 
     # the same run without -w (no whitelist load, no kernel, no CB): what
     # correction adds to the command's time
+    native.reset_calls()
     start = time.perf_counter()
     with contextlib.redirect_stderr(io.StringIO()):
         port_platform.TenXV2.attach_barcodes(args[:-2])
     plain_seconds = time.perf_counter() - start
+    check_calls(native, "attach without -w", attach=1)
     log(f"[attach] without -w: {n_reads} reads in {plain_seconds:.2f} s = "
         f"{n_reads / plain_seconds:.0f} reads/s; correction adds "
         f"{seconds - plain_seconds:.2f} s, of which the kernel "
@@ -982,8 +1002,7 @@ def phase_metrics(rng, stamp: str, modules) -> None:
             getattr(port_platform.GenericPlatform, entry[axis])(args)
             torch.cuda.synchronize()
         wall = time.perf_counter() - begin
-        if native.calls != {**dict.fromkeys(native.calls, 0), "stream_frames": 1}:
-            raise AssertionError(f"{entry[axis]} did not decode through the native stream: {native.calls}")
+        check_calls(native, entry[axis], stream_frames=1, format_csv_block=None)
         busy_ms = device_busy_ms(prof)
         gatherer = made[0]
         device_ms = gatherer.device_ms()
@@ -1329,8 +1348,7 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
         wall = time.perf_counter() - begin
     finally:
         port_count.iter_frames_from_bam = decode
-    if native.calls != {**dict.fromkeys(native.calls, 0), "stream_frames": 1}:
-        raise AssertionError(f"bam_to_count_matrix did not decode through the native stream: {native.calls}")
+    check_calls(native, "bam_to_count_matrix", stream_frames=1)
     busy_ms = device_busy_ms(prof)
     command = made[0]
     split = command.seconds
@@ -1488,7 +1506,7 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
     phase."""
     import torch
 
-    kernels, wl_ops, port_platform, port_fqp, port_sample, bgzf, sam = modules
+    kernels, native, wl_ops, port_platform, port_fqp, port_sample, bgzf, sam = modules
     phase_start = start = time.perf_counter()
     WORK.mkdir(exist_ok=True)
     wl_path = WORK / "whitelist.txt"
@@ -1539,12 +1557,14 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
     for fmt in ("BAM", "FASTQ"):
         prefix = WORK / f"shard_{fmt.lower()}"
         stderr = io.StringIO()
+        native.reset_calls()
         with contextlib.redirect_stderr(stderr):
             rc, seconds, launches, command = timed_command(
                 kernels, port_fqp, "FastqProcess",
                 lambda: port_platform.TenXV2.fastq_process(base + ["--output-format", fmt, "-o", str(prefix)]))
         if rc != 0:
             raise AssertionError(f"FastqProcess {fmt} returned {rc}")
+        check_calls(native, f"FastqProcess {fmt}", fastqprocess=1)
         batches = -(-n // BATCH)
         launches_total += launches["whitelist_correct"]
         if launches["whitelist_correct"] != batches:
@@ -1557,7 +1577,8 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
         if lines != want_lines:
             raise AssertionError(f"FastqProcess {fmt} stderr {lines} != {want_lines}")
         log(f"[fastq] {stamp} | FastqProcess -w {fmt} on cuda: {n} reads in {seconds:.2f} s = "
-            f"{n / seconds:.0f} reads/s; {split_line(seconds, command.seconds)}; {batches} batches, "
+            f"{n / seconds:.0f} reads/s (native loop, BGZF pool of {native.pool_threads()} threads); "
+            f"{split_line(seconds, command.seconds)}; {batches} batches, "
             f"{launches['whitelist_correct']} kernel launches; counters {want_counts}")
 
         check_start = time.perf_counter()
@@ -1640,6 +1661,7 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
         f"{time.perf_counter() - start:.1f} s")
     out = WORK / "sampled"
     stdout = io.StringIO()
+    native.reset_calls()
     with contextlib.redirect_stdout(stdout):
         rc, seconds, launches, command = timed_command(
             kernels, port_sample, "SampleFastq",
@@ -1652,6 +1674,7 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
         raise AssertionError(f"SampleFastq: rc {rc}, {stdout.getvalue()!r}, want {kept_rows.size} kept of {m}")
     if launches["whitelist_correct"] != batches:
         raise AssertionError(f"SampleFastq: {launches['whitelist_correct']} launches, want {batches}")
+    check_calls(native, "SampleFastq", sample_fastq=1)
     want_r1 = b"".join(
         b"@s%07d\n%s%s%s%sT\n+\n%s%s%s%sF\n" % (
             i, s1_seq[i][:8], b"CTTCAGCGTTCCCGAGAG", s1_seq[i][26:32], s1_seq[i][32:41],
@@ -1660,17 +1683,20 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
     want_r2 = b"".join(b"@s%07d\n%s\n+\n%s\n" % (i, s2_seq[i], s2_qual[i]) for i in kept_rows.tolist())
     if Path(f"{out}.R1").read_bytes() != want_r1 or Path(f"{out}.R2").read_bytes() != want_r2:
         raise AssertionError("SampleFastq: the kept reads' R1 rewrite or R2 differs from the generator's")
-    log(f"[fastq] {stamp} | SampleFastq on cuda: {m} pairs in {seconds:.2f} s = {m / seconds:.0f} reads/s; "
+    log(f"[fastq] {stamp} | SampleFastq on cuda: {m} pairs in {seconds:.2f} s = {m / seconds:.0f} reads/s "
+        f"(native loop); "
         f"{split_line(seconds, command.seconds)}; {batches} batches, {launches['whitelist_correct']} kernel "
         f"launches; kept {kept_rows.size} (the plain version's count on the card), every rewritten R1 "
         f"(barcode[:8] + linker + barcode[8:] + UMI + T) and R2 exact")
 
     # FastqMetrics on FastqProcess's R1 files
     prefix = WORK / "fastq_metrics"
+    native.reset_calls()
     begin = time.perf_counter()
     port_platform.GenericPlatform.fastq_metrics(["--R1", *paths["r1"], "--read-structure", "16C10M",
                                                  "--sample-id", str(prefix)])
     seconds = time.perf_counter() - begin
+    check_calls(native, "FastqMetrics", fastq_metrics=1)
     for suffix, rows in ((".numReads_perCell_XC.txt", r1_ascii[:, :CB_LEN]),
                          (".numReads_perCell_XM.txt", r1_ascii[:, CB_LEN : CB_LEN + UMI_LEN])):
         values, first, counts = np.unique(np.ascontiguousarray(rows).view(f"S{rows.shape[1]}").ravel(),
@@ -1687,8 +1713,9 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
             b"%d\t%d\t%d\t%d\t%d\t%d\n" % (k + 1, *row) for k, row in enumerate(table_rows.tolist()))
         if Path(f"{prefix}{suffix}").read_bytes() != want:
             raise AssertionError(f"FastqMetrics {suffix} differs from the generator's counts")
-    log(f"[fastq] FastqMetrics (host) on the 2 R1 files: {n} reads in {seconds:.2f} s = {n / seconds:.0f} reads/s; "
-        f"the four files equal numpy counts of the generator")
+    log(f"[fastq] {stamp} | FastqMetrics (host, native scan, {min(2, native.pool_threads())} threads) on the 2 R1 "
+        f"files: {n} reads in {seconds:.2f} s = {n / seconds:.0f} reads/s; the four files equal numpy counts "
+        f"of the generator")
     clear_work(*KEPT_FOR_SORT, *(Path(p).name for p in bam_shards))
     log(f"[fastq] phase 7 took {time.perf_counter() - phase_start:.1f} s")
     return launches_total, bam_shards
@@ -1809,8 +1836,7 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
     busy_ms = device_busy_ms(prof)
     if rc != 0 or any(launches.values()):
         raise AssertionError(f"TagSortBam: rc {rc}; hand kernel launches {launches} (want none)")
-    if native.calls != {**dict.fromkeys(native.calls, 0), "tagsort_stream_frames": 1}:
-        raise AssertionError(f"TagSortBam did not stream through the native sort: {native.calls}")
+    check_calls(native, "TagSortBam", tagsort_stream_frames=1, format_csv_block=None)
     gatherer = gatherers[0]
     gather_split, sort_split = gatherer.seconds, gatherer.source_stats
     # the gatherer's decode seconds are the time it waited on the pipe's
@@ -1956,8 +1982,8 @@ def main(argv=None) -> int:
     whitelist_ascii = make_whitelist(rng, WHITELIST_SIZE, CB_LEN)
     table, measured = phase_kernel(rng, whitelist_ascii, sms, clock_hz, wl_ops)
     launches = phase_attach(
-        rng, whitelist_ascii, args.reads, table, measured["ms"],
-        (kernels, wl_ops, port_platform, bgzf, sam),
+        rng, whitelist_ascii, args.reads, table, measured["ms"], stamp,
+        (kernels, native, wl_ops, port_platform, bgzf, sam),
     )
     csvs = phase_metrics(
         np.random.default_rng(args.seed + 1), stamp,
@@ -1969,7 +1995,7 @@ def main(argv=None) -> int:
     )
     fastq_launches, bam_shards = phase_fastq(
         np.random.default_rng(args.seed + 3), whitelist_ascii, table, stamp,
-        (kernels, wl_ops, port_platform, port_fqp, port_sample, bgzf, sam),
+        (kernels, native, wl_ops, port_platform, port_fqp, port_sample, bgzf, sam),
     )
     phase_sort(
         np.random.default_rng(args.seed + 4), stamp,

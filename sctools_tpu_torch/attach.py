@@ -1,25 +1,31 @@
 """The batched barcode-attach loop: FASTQ barcodes -> tags on an unaligned BAM.
 
-The port of the JAX package's native route, ``attach_barcodes_native``
-(sctools_tpu/native/__init__.py:1097-1219) with ``_correct_batch``
-(:869-889) and the C++ record loop (native/attach.cpp:155-282), in Python
-over the port's own FASTQ/BGZF/BAM code:
+The port of the JAX package's two attach routes, routed as its
+``_attach_with_native`` gate routes them (sctools_tpu/platform.py:160-194):
 
-- r1 (+ i1) and u2 stream in lockstep with zip semantics: the run stops when
-  either runs out (__init__.py:1194-1195);
-- the stream is cut into batches of 65,536 reads; each batch uploads one
-  uint8 code block, makes one kernel launch and pulls its indices back;
-- the host reads and slices batch k+1 while batch k is on the device, and
-  waits for batch k's result (a CUDA event, not a device-wide sync) only when
-  it writes batch k's records;
-- each u2 record's bytes pass through unchanged, with CR CY [CB] UR UY
-  [SR SY] appended as Z tags in the native route's order; a read shorter
-  than a span gives a truncated value without the line terminator;
-- stderr gets the native route's summary (:1198-1208) and its progress line
-  every 10M reads (:1186-1193).
+- one r1 file and a gzip u2, with no sample spans read from r1, take the
+  native layer's ``attach`` (``native/attach.cpp``, the port's copy of the
+  JAX package's C++ loop, ``attach_barcodes_native``,
+  sctools_tpu/native/__init__.py:1097-1219). A native failure raises and
+  leaves no output: there is no fallback to Python;
+- a list of r1 files, a u2 that is not gzip, or sample spans without i1
+  (a read structure's S segments) take the Python loop below, which
+  follows the native route's output:
 
-Sample spans index i1 when it is given, else r1 (a read structure's S
-segments).
+  - r1 (+ i1) and u2 stream in lockstep with zip semantics: the run stops
+    when either runs out (__init__.py:1194-1195);
+  - the stream is cut into batches of 65,536 reads; each batch uploads one
+    uint8 code block, makes one kernel launch and pulls its indices back;
+  - the host reads and slices batch k+1 while batch k is on the device, and
+    waits for batch k's result (a CUDA event, not a device-wide sync) only
+    when it writes batch k's records;
+  - each u2 record's bytes pass through unchanged, with CR CY [CB] UR UY
+    [SR SY] appended as Z tags in the native route's order; a read shorter
+    than a span gives a truncated value without the line terminator.
+
+Both routes print the native route's summary (:1198-1208) and its progress
+line every 10M reads (:1186-1193) to stderr. Sample spans index i1 when it
+is given, else r1.
 """
 
 from __future__ import annotations
@@ -27,9 +33,9 @@ from __future__ import annotations
 import os
 import struct
 import sys
-from typing import Iterator, List, NamedTuple, Optional, Sequence
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Union
 
-from . import consts
+from . import consts, native
 from .device import DeviceLike, resolve
 from .fastq import Spans, extract_spans, iter_batches, span_len
 from .io import bgzf
@@ -142,7 +148,7 @@ def _write_batch(
 
 
 def attach_barcodes(
-    r1: str,
+    r1: Union[str, Sequence[str]],
     u2: str,
     output_bam: str,
     cb_spans: Spans,
@@ -155,16 +161,16 @@ def attach_barcodes(
 ) -> int:
     """Attach barcode tags from r1 (+ i1) to the records of u2.
 
-    Spans are ``[start, end)`` slices; several spans of one kind
-    concatenate. Returns the number of records written. On an error the
-    partial output is removed.
+    ``r1`` is one FASTQ file, or a list of them read as one stream. Spans
+    are ``[start, end)`` slices; several spans of one kind concatenate.
+    Returns the number of records written. On an error the partial output
+    is removed.
     """
     device = resolve(device)
     cb_spans, umi_spans, sample_spans = (
         list(cb_spans or []), list(umi_spans or []), list(sample_spans or []),
     )
     corrector = None
-    whitelist_bytes = None
     if whitelist is not None:
         corrector = WhitelistCorrector.from_file(whitelist, device=device)
         cb_len = span_len(cb_spans)
@@ -173,10 +179,18 @@ def attach_barcodes(
                 f"whitelist barcode length {corrector.barcode_length} does "
                 f"not match the cell barcode span length {cb_len}"
             )
-        whitelist_bytes = [b.encode("latin-1") for b in corrector.whitelist]
+    if isinstance(r1, str) and bgzf.is_gzip(u2) and not (sample_spans and i1 is None):
+        written, correct, corrected, uncorrectable = native.attach(
+            r1, u2, output_bam, cb_spans, umi_spans, sample_spans, i1, corrector, batch_size)
+        if corrector is not None and written:
+            print(correction_summary(written, correct, corrected, uncorrectable), file=sys.stderr)
+        return written
     if not bgzf.is_gzip(u2):
         raise ValueError(f"{u2} is not a BAM file")
 
+    whitelist_bytes = None
+    if corrector is not None:
+        whitelist_bytes = [b.encode("latin-1") for b in corrector.whitelist]
     counts = _Counts()
     try:
         with bgzf.open_bgzf_reader(u2) as source, bgzf.BgzfWriter(output_bam) as out:

@@ -1,10 +1,8 @@
-"""The port's native host layer: a streaming BAM decoder and an out-of-core
-tag sort in C++, bound with ``ctypes``.
+"""The port's native host layer: C++ bound with ``ctypes``.
 
-The port's copy of the BAM half of the JAX package's native layer
-(``bamdecode.cpp``, ``tagsort.cpp`` and the parts of ``native_io.h`` they
-use), over zlib where that copy uses libdeflate. It is the route of every
-BAM command, as in the JAX package:
+The port's copy of the JAX package's native layer, over zlib where that
+copy uses libdeflate. It is the route of every BAM command and of the FASTQ
+commands, as in the JAX package:
 
 - ``stream_frames`` yields ``ReadFrame``s of a BGZF (or plain ``"BAM\\1"``)
   BAM, decoded on a thread pool (``io.packed.iter_frames_from_bam``);
@@ -14,9 +12,18 @@ BAM command, as in the JAX package:
   file (``tagsort.tag_sort_bam_out_of_core``);
 - ``tagsort_stream_frames`` streams the sort's merge through a pipe into
   the decoder, and may tee the sorted BAM to a file in the same pass (the
-  fused ``TagSortBam --cell-metrics-output``).
+  fused ``TagSortBam --cell-metrics-output``);
+- ``fastqprocess``, ``attach`` and ``sample_fastq`` run the FASTQ loops of
+  FastqProcess, the attach commands and SampleFastq (``fastqprocess.cpp``,
+  ``attach.cpp``, ``fastqtools.cpp``): C++ reads, slices and writes, and
+  each batch's cell barcodes go to the whitelist kernel in between, as one
+  fixed-width block: one upload, one launch, one pull;
+- ``fastq_metrics`` is FastqMetrics' scan, one thread per R1 shard;
+- ``format_csv_block`` renders a block of metric rows as Python's ``str()``
+  would (``metrics.writer.MetricCSVWriter.write_block``).
 
-The library is compiled with ``g++`` at first use, never at import, into
+The library is compiled with ``g++`` at first use, never at import (one
+compiler process per source, all at once, then the link), into
 ``_build/`` beside the package (a directory git ignores), under a name that
 carries the hash of the sources and the flags. The compiler writes to a
 temporary name that ``os.replace`` publishes, under an ``fcntl`` lock, so
@@ -24,9 +31,10 @@ that processes sharing the directory build once. A failed build raises
 with the compiler's output. The flags name no ``-march``: a library built
 on one host runs on any x86-64 host.
 
-``SCTOOLS_TPU_THREADS`` (1..1024) sets the worker threads of the decoder
-and of the sort's writer overlap, as in the JAX package; the default is
-the CPU count, at most 16.
+``SCTOOLS_TPU_THREADS`` (1..1024) sets the worker threads of the decoder,
+of the sort's writer overlap, of the FASTQ loops' BGZF compression pool
+and of FastqMetrics' scan, as in the JAX package; the default is the CPU
+count, at most 16.
 
 ``calls`` counts, per function above, the calls that reached the library.
 """
@@ -39,9 +47,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -49,14 +59,19 @@ from ..io.packed import ReadFrame
 
 _SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _SOURCE_DIR.parent / "_build"
-SOURCES = ("bamdecode.cpp", "tagsort.cpp")
+SOURCES = ("bamdecode.cpp", "tagsort.cpp", "fastqprocess.cpp", "attach.cpp", "fastqtools.cpp",
+           "csvformat.cpp")
 HEADERS = ("native_io.h",)
 CXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared", "-Wall", "-Wextra"]
 LINK_FLAGS = ["-lz", "-lpthread"]
 
 calls: Dict[str, int] = {
     "stream_frames": 0, "frame_from_bam": 0, "tagsort": 0, "tagsort_stream_frames": 0,
+    "format_csv_block": 0, "fastqprocess": 0, "attach": 0, "sample_fastq": 0, "fastq_metrics": 0,
 }
+
+COMPRESS_LEVEL = 6  # the FASTQ loops' BGZF level, the JAX package's
+PROGRESS_EVERY = 10_000_000  # the reference's cadence (fastq_common.cpp:340)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -77,19 +92,33 @@ def library_path() -> Path:
 
 
 def _build(target: Path) -> None:
+    """Compile each source on its own g++ process, all at once, then link."""
     compiler = shutil.which("g++")
     if compiler is None:
         raise RuntimeError("g++ not found on PATH: it builds the port's native layer")
-    partial = target.with_suffix(f".{os.getpid()}.tmp")
-    result = subprocess.run(
-        [compiler, *CXX_FLAGS, *(str(_SOURCE_DIR / name) for name in SOURCES),
-         *LINK_FLAGS, "-o", str(partial)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if result.returncode != 0:
-        partial.unlink(missing_ok=True)
-        raise RuntimeError(f"building the native layer failed:\n{result.stdout}")
-    os.replace(partial, target)  # atomic: a concurrent loader sees all or nothing
+    stem = target.with_suffix(f".{os.getpid()}")
+    objects = [Path(f"{stem}.{name}.o") for name in SOURCES]
+    partial = Path(f"{stem}.tmp")
+    try:
+        jobs = [
+            subprocess.Popen([compiler, *CXX_FLAGS, "-c", str(_SOURCE_DIR / name), "-o", str(obj)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(SOURCES, objects)
+        ]
+        outputs = [job.communicate()[0] for job in jobs]
+        failed = [out for job, out in zip(jobs, outputs) if job.returncode != 0]
+        if not failed:
+            link = subprocess.run([compiler, *CXX_FLAGS, *map(str, objects), *LINK_FLAGS, "-o",
+                                   str(partial)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            if link.returncode != 0:
+                failed = [link.stdout]
+        if failed:
+            raise RuntimeError("building the native layer failed:\n" + "".join(failed))
+        os.replace(partial, target)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for path in (*objects, partial):
+            path.unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:
@@ -134,6 +163,37 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "scx_tagsort_pipe_stats": (None, [p, ctypes.POINTER(ctypes.c_double)]),
         "scx_tagsort_pipe_error": (c_char_p, [p]),
         "scx_tagsort_pipe_free": (None, [p, c_int]),
+        "scx_format_csv_block": (c_long, [c_char_p, p, c_long, p, ctypes.c_int32, p,
+                                          ctypes.c_int32, p, p, ctypes.c_int32, p, c_long]),
+        "scx_fqm": (c_long, [c_char_p, p, c_int, p, c_int, c_int, c_char_p, c_char_p, c_int]),
+        "scx_sfq_open": (p, [c_char_p, c_char_p, p, c_int, p, c_int, c_char_p, c_char_p, c_int]),
+        "scx_sfq_next": (c_long, [p, c_long]),
+        "scx_sfq_buf": (p, [p, c_char_p]),
+        "scx_sfq_len": (c_int, [p, c_char_p]),
+        "scx_sfq_write": (c_long, [p, c_long, p]),
+        "scx_sfq_close": (c_int, [p]),
+        "scx_sfq_error": (c_char_p, [p]),
+        "scx_sfq_free": (None, [p]),
+        "scx_fqp_open": (p, [c_char_p, c_char_p, c_char_p, c_char_p, c_int, c_int, c_char_p,
+                             p, c_int, p, c_int, p, c_int, c_int, c_char_p, c_int]),
+        "scx_fqp_next": (c_long, [p, c_long]),
+        "scx_fqp_buf": (p, [p, c_char_p]),
+        "scx_fqp_len": (c_int, [p, c_char_p]),
+        "scx_fqp_write": (c_long, [p, c_long, p, p]),
+        "scx_fqp_stats": (None, [p, ctypes.POINTER(c_long)]),
+        "scx_fqp_close": (c_int, [p]),
+        "scx_fqp_error": (c_char_p, [p]),
+        "scx_fqp_free": (None, [p]),
+        "scx_pool_threads": (c_int, []),
+        "scx_attach_open": (p, [c_char_p, c_char_p, c_char_p, c_char_p, p, c_int, p, c_int,
+                                p, c_int, c_char_p, c_int]),
+        "scx_attach_next": (c_long, [p, c_long]),
+        "scx_attach_buf": (p, [p, c_char_p]),
+        "scx_attach_len": (c_int, [p, c_char_p]),
+        "scx_attach_write": (c_long, [p, c_long, p, p]),
+        "scx_attach_close": (c_int, [p]),
+        "scx_attach_error": (c_char_p, [p]),
+        "scx_attach_free": (None, [p]),
     }
     for name, (restype, argtypes) in signatures.items():
         function = getattr(lib, name)
@@ -369,3 +429,350 @@ def tagsort_stream_frames(
         if stream is not None:
             lib.scx_stream_close(stream)
         lib.scx_tagsort_pipe_free(handle, int(complete))
+
+
+def pool_threads() -> int:
+    """The threads of the FASTQ loops' BGZF pools and of FastqMetrics' scan:
+    ``default_threads()``'s rule, as the C++ side reads it."""
+    return library().scx_pool_threads()
+
+
+def format_csv_block(index: Sequence[str], columns: Sequence[np.ndarray]) -> bytes:
+    """One block of metric rows as CSV bytes: ``index[i],col0[i],col1[i]...``
+    and a newline per row.
+
+    ``columns`` are equal-length 1-D arrays in header order; a floating
+    column renders as float64, any other as int64, each value exactly as
+    Python's ``str()`` renders it (shortest round-trip floats, ``nan``,
+    ``inf``, ``1e-05``, a trailing ``.0`` on integral floats). Callers that
+    want the ``str()`` of another dtype cast first, as
+    ``MetricCSVWriter.write_block`` does.
+    """
+    n = len(index)
+    if n == 0:
+        return b""
+    encoded = [str(name).encode() for name in index]
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum([len(e) for e in encoded], out=offsets[1:])
+    blob = b"".join(encoded)
+    columns = [np.asarray(column) for column in columns]
+    is_float = np.array([np.issubdtype(c.dtype, np.floating) for c in columns], dtype=np.int8)
+    col_src = np.zeros(len(columns), np.int32)
+    int_cols: List[np.ndarray] = []
+    float_cols: List[np.ndarray] = []
+    for i, column in enumerate(columns):
+        if column.shape != (n,):
+            # a mismatch would read out of bounds in C
+            raise ValueError(f"column {i} has shape {column.shape}, index has {n} rows")
+        group = float_cols if is_float[i] else int_cols
+        col_src[i] = len(group)
+        group.append(column)
+    ints = np.ascontiguousarray(np.column_stack(int_cols) if int_cols else np.zeros((n, 0)), np.int64)
+    floats = np.ascontiguousarray(
+        np.column_stack(float_cols) if float_cols else np.zeros((n, 0)), np.float64)
+    capacity = len(blob) + n * (33 * len(columns) + 1) + 64
+    out = ctypes.create_string_buffer(capacity)
+    lib = library()
+    calls["format_csv_block"] += 1
+    written = lib.scx_format_csv_block(
+        blob, offsets.ctypes.data, n, ints.ctypes.data, ints.shape[1], floats.ctypes.data,
+        floats.shape[1], is_float.ctypes.data, col_src.ctypes.data, len(columns), out, capacity)
+    if written < 0:
+        raise RuntimeError("csv block formatting overflowed its buffer")
+    return ctypes.string_at(out, written)
+
+
+def _spans(spans) -> Tuple[np.ndarray, int]:
+    """``[start, end)`` pairs as the flat int32 array the C side reads."""
+    flat = np.array([bound for span in spans or [] for bound in span], dtype=np.int32)
+    return flat, len(flat) // 2
+
+
+def _pointer(array: Optional[np.ndarray]) -> Optional[int]:
+    return None if array is None else array.ctypes.data
+
+
+def _barcodes(pointer: int, n: int, width: int) -> np.ndarray:
+    """A handle's fixed-width barcode buffer as an ``[n, width]`` uint8 view;
+    valid until the handle's next batch."""
+    return np.ctypeslib.as_array(ctypes.cast(pointer, ctypes.POINTER(ctypes.c_uint8)), shape=(n, width))
+
+
+def _correct(corrector, raw: np.ndarray, seconds: Dict[str, float]) -> Tuple[np.ndarray, np.ndarray]:
+    """Whitelist correction of one fixed-width barcode block: the corrected
+    barcodes as a fixed-width block and the uint8 mask of the rows that
+    corrected, for the C side's write.
+
+    A barcode's length is the index of its first NUL byte (the C side pads
+    a short read's barcode with NULs), so a short one never corrects.
+    """
+    start = time.perf_counter()
+    nul = raw == 0
+    lengths = np.where(nul.any(axis=1), nul.argmax(axis=1), raw.shape[1])
+    indices = corrector.submit_block(raw, lengths).indices()
+    hit = indices >= 0
+    block = np.zeros_like(raw)
+    block[hit] = corrector.rows[indices[hit]]
+    seconds["correct"] += time.perf_counter() - start
+    return block, hit.astype(np.uint8)
+
+
+def _check_length(corrector, cb_len: int) -> None:
+    if corrector is not None and cb_len != corrector.barcode_length:
+        raise RuntimeError(
+            f"whitelist barcode length {corrector.barcode_length} does "
+            f"not match the cell barcode span length {cb_len}"
+        )
+
+
+def _remove(paths: Sequence[str]) -> None:
+    for path in paths:
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+
+
+def shard_paths(prefix: str, n_shards: int, output_format: str = "BAM") -> List[str]:
+    """The shard files ``fastqprocess`` writes: ``<prefix>_<i>.bam``, or per
+    shard ``<prefix>_R1_<i>.fastq.gz`` then ``<prefix>_R2_<i>.fastq.gz``."""
+    if output_format.upper() == "FASTQ":
+        return [f"{prefix}_{r}_{i}.fastq.gz" for i in range(n_shards) for r in ("R1", "R2")]
+    return [f"{prefix}_{i}.bam" for i in range(n_shards)]
+
+
+def fastqprocess(
+    r1_files: Sequence[str],
+    r2_files: Sequence[str],
+    output_prefix: str,
+    cb_spans,
+    umi_spans,
+    sample_spans,
+    i1_files: Optional[Sequence[str]],
+    corrector,
+    n_shards: int,
+    output_format: str,
+    sample_id: str,
+    batch_size: int,
+    seconds: Dict[str, float],
+) -> Dict[str, int]:
+    """FASTQ triplets -> ``n_shards`` disjoint-barcode shards (``shard_paths``).
+
+    ``corrector`` is a ``WhitelistCorrector`` or None. Returns the counters
+    {total_reads, correct, corrected, uncorrectable}; prints the progress
+    line every 10M reads and, with a whitelist, the reference's summary to
+    stderr. Adds the seconds of reading (``read``), correction (``correct``)
+    and writing (``write``) into ``seconds``. On any failure the shards of
+    this run are removed.
+    """
+    fmt = {"BAM": 0, "FASTQ": 1}.get(output_format.upper())
+    if fmt is None:
+        raise ValueError("output_format must be BAM or FASTQ")
+    cb, n_cb = _spans(cb_spans)
+    umi, n_umi = _spans(umi_spans)
+    sample, n_sample = _spans(sample_spans)
+    lib = library()
+    calls["fastqprocess"] += 1
+    errbuf = _errbuf()
+    handle = lib.scx_fqp_open(
+        "\n".join(r1_files).encode(), "\n".join(i1_files or []).encode(),
+        "\n".join(r2_files).encode(), output_prefix.encode(), n_shards, fmt, sample_id.encode(),
+        cb.ctypes.data, n_cb, umi.ctypes.data, n_umi, sample.ctypes.data, n_sample,
+        COMPRESS_LEVEL, errbuf, ctypes.sizeof(errbuf))
+    if not handle:
+        raise RuntimeError(f"fastqprocess open failed: {_message(errbuf)}")
+    complete = False
+    try:
+        cb_len = lib.scx_fqp_len(handle, b"cb")
+        _check_length(corrector, cb_len)
+        total = 0
+        while True:
+            start = time.perf_counter()
+            n = lib.scx_fqp_next(handle, batch_size)
+            seconds["read"] += time.perf_counter() - start
+            if n < 0:
+                raise RuntimeError(f"fastqprocess read failed: {lib.scx_fqp_error(handle).decode()}")
+            if n == 0:
+                break
+            block = mask = None
+            if corrector is not None and cb_len > 0:
+                block, mask = _correct(corrector, _barcodes(lib.scx_fqp_buf(handle, b"cr"), n, cb_len),
+                                       seconds)
+            start = time.perf_counter()
+            if lib.scx_fqp_write(handle, n, _pointer(block), _pointer(mask)) < 0:
+                raise RuntimeError(f"fastqprocess write failed: {lib.scx_fqp_error(handle).decode()}")
+            seconds["write"] += time.perf_counter() - start
+            for count in range(total // PROGRESS_EVERY + 1, (total + n) // PROGRESS_EVERY + 1):
+                print(f"[fastqprocess] {count * PROGRESS_EVERY} reads processed", file=sys.stderr)
+            total += n
+        start = time.perf_counter()
+        if lib.scx_fqp_close(handle) != 0:
+            raise RuntimeError("fastqprocess close failed")
+        seconds["write"] += time.perf_counter() - start
+        values = (ctypes.c_long * 4)()
+        lib.scx_fqp_stats(handle, values)
+        complete = True
+    finally:
+        lib.scx_fqp_free(handle)
+        if not complete:
+            # never leave partial shards that could read as complete; only
+            # the files this run creates (a glob could take others)
+            _remove(shard_paths(output_prefix, n_shards, output_format))
+    return dict(zip(("total_reads", "correct", "corrected", "uncorrectable"), values))
+
+
+def attach(
+    r1: str,
+    u2: str,
+    output_bam: str,
+    cb_spans,
+    umi_spans,
+    sample_spans,
+    i1: Optional[str],
+    corrector,
+    batch_size: int,
+) -> Tuple[int, int, int, int]:
+    """Tag the records of the BGZF BAM ``u2`` with the barcodes of ``r1``
+    (sample spans from ``i1``) into ``output_bam``.
+
+    The run stops when either input runs out (zip semantics). ``corrector``
+    is a ``WhitelistCorrector`` or None. Returns (records written, correct,
+    corrected, uncorrectable), the last three counted over the written
+    records; prints the progress line every 10M reads to stderr. On any
+    failure the output is removed.
+    """
+    cb, n_cb = _spans(cb_spans)
+    umi, n_umi = _spans(umi_spans)
+    sample, n_sample = _spans(sample_spans)
+    lib = library()
+    calls["attach"] += 1
+    errbuf = _errbuf()
+    handle = lib.scx_attach_open(
+        r1.encode(), (i1 or "").encode(), u2.encode(), output_bam.encode(), cb.ctypes.data, n_cb,
+        umi.ctypes.data, n_umi, sample.ctypes.data, n_sample, errbuf, ctypes.sizeof(errbuf))
+    if not handle:
+        raise RuntimeError(f"attach open failed: {_message(errbuf)}")
+    written = correct = corrected = 0
+    next_progress = PROGRESS_EVERY
+    complete = False
+    try:
+        cb_len = lib.scx_attach_len(handle, b"cb")
+        _check_length(corrector, cb_len)
+        seconds = {"correct": 0.0}
+        while True:
+            n = lib.scx_attach_next(handle, batch_size)
+            if n < 0:
+                raise RuntimeError(f"attach read failed: {lib.scx_attach_error(handle).decode()}")
+            if n == 0:
+                break
+            block = mask = None
+            if corrector is not None and cb_len > 0:
+                raw = _barcodes(lib.scx_attach_buf(handle, b"cr"), n, cb_len)
+                block, mask = _correct(corrector, raw, seconds)
+            done = lib.scx_attach_write(handle, n, _pointer(block), _pointer(mask))
+            if done < 0:
+                raise RuntimeError(f"attach write failed: {lib.scx_attach_error(handle).decode()}")
+            if mask is not None:
+                # only the records written: the last batch stops short when
+                # u2 runs out first, and the summary counts what was written
+                hit = mask[:done].astype(bool)
+                same = int((block[:done][hit] == raw[:done][hit]).all(axis=1).sum())
+                correct += same
+                corrected += int(hit.sum()) - same
+            written += done
+            if written >= next_progress:
+                print(f"[attach] {written} reads processed", file=sys.stderr)
+                next_progress += PROGRESS_EVERY
+            if done < n:
+                break  # u2 ran out before the fastq (zip semantics)
+        if lib.scx_attach_close(handle) != 0:
+            raise RuntimeError("attach close failed")
+        complete = True
+    finally:
+        lib.scx_attach_free(handle)
+        if not complete:
+            _remove([output_bam])  # never leave an output that could read as complete
+    uncorrectable = written - correct - corrected if corrector is not None else 0
+    return written, correct, corrected, uncorrectable
+
+
+def sample_fastq(
+    r1_files: Sequence[str],
+    r2_files: Sequence[str],
+    corrector,
+    cb_spans,
+    umi_spans,
+    output_prefix: str,
+    batch_size: int,
+    seconds: Dict[str, float],
+) -> Tuple[int, int]:
+    """Write ``<output_prefix>.R1`` / ``.R2`` with the read pairs whose cell
+    barcode corrects to ``corrector``'s whitelist; returns (kept, total).
+
+    R1 and R2 are each the concatenation of their files, zipped record by
+    record: a count mismatch is a ``ValueError``. Adds the seconds of
+    reading (``read``), correction (``correct``) and writing (``write``)
+    into ``seconds``. On any failure both outputs are removed.
+    """
+    cb, n_cb = _spans(cb_spans)
+    umi, n_umi = _spans(umi_spans)
+    lib = library()
+    calls["sample_fastq"] += 1
+    errbuf = _errbuf()
+    handle = lib.scx_sfq_open(
+        "\n".join(r1_files).encode(), "\n".join(r2_files).encode(), cb.ctypes.data, n_cb,
+        umi.ctypes.data, n_umi, output_prefix.encode(), errbuf, ctypes.sizeof(errbuf))
+    if not handle:
+        raise RuntimeError(f"samplefastq open failed: {_message(errbuf)}")
+    kept = total = 0
+    complete = False
+    try:
+        cb_len = lib.scx_sfq_len(handle, b"cr")
+        _check_length(corrector, cb_len)
+        while True:
+            start = time.perf_counter()
+            n = lib.scx_sfq_next(handle, batch_size)
+            seconds["read"] += time.perf_counter() - start
+            if n == -2:  # the strict zip: R1 and R2 ended apart
+                raise ValueError(lib.scx_sfq_error(handle).decode())
+            if n < 0:
+                raise RuntimeError(f"samplefastq read failed: {lib.scx_sfq_error(handle).decode()}")
+            if n == 0:
+                break
+            total += n
+            _, keep = _correct(corrector, _barcodes(lib.scx_sfq_buf(handle, b"cr"), n, cb_len), seconds)
+            start = time.perf_counter()
+            done = lib.scx_sfq_write(handle, n, keep.ctypes.data)
+            if done < 0:
+                raise RuntimeError(f"samplefastq write failed: {lib.scx_sfq_error(handle).decode()}")
+            seconds["write"] += time.perf_counter() - start
+            kept += done
+        start = time.perf_counter()
+        if lib.scx_sfq_close(handle) != 0:
+            raise RuntimeError("samplefastq close failed")
+        seconds["write"] += time.perf_counter() - start
+        complete = True
+    finally:
+        lib.scx_sfq_free(handle)
+        if not complete:
+            _remove([output_prefix + ".R1", output_prefix + ".R2"])
+    return kept, total
+
+
+def fastq_metrics(fastq_files: Sequence[str], cb_spans, umi_spans, min_length: int,
+                  output_prefix: str) -> int:
+    """FastqMetrics' scan of the R1 shards into its four files; returns the
+    reads scanned. A read shorter than ``min_length`` is a ``ValueError``,
+    an unreadable shard a ``RuntimeError``."""
+    cb, n_cb = _spans(cb_spans)
+    umi, n_umi = _spans(umi_spans)
+    lib = library()
+    calls["fastq_metrics"] += 1
+    errbuf = _errbuf()
+    n = lib.scx_fqm("\n".join(fastq_files).encode(), cb.ctypes.data, n_cb, umi.ctypes.data, n_umi,
+                    min_length, output_prefix.encode(), errbuf, ctypes.sizeof(errbuf))
+    if n == -2:  # a read shorter than the read structure
+        raise ValueError(_message(errbuf))
+    if n < 0:
+        raise RuntimeError(f"fastq metrics failed: {_message(errbuf)}")
+    return n

@@ -224,16 +224,14 @@ _table_lock = threading.Lock()
 _table_cache: dict = {}
 
 
-def _device_table(whitelist: List[str], length: int, device: torch.device) -> WhitelistTable:
-    digest = hashlib.sha256(
-        "\n".join(whitelist).encode("utf-8", "surrogateescape")
-    ).hexdigest()
-    key = (digest, length, str(device))
+def _device_table(rows: np.ndarray, device: torch.device) -> WhitelistTable:
+    """The table of a whitelist given as its ``[n_w, L]`` uint8 bytes."""
+    key = (hashlib.sha256(rows.tobytes()).hexdigest(), rows.shape, str(device))
     with _table_lock:
         cached = _table_cache.get(key)
     if cached is not None:
         return cached
-    table = make_table(ingest.upload(barcode_codes(whitelist, length), device))
+    table = make_table(ingest.upload(_COL_LUT[rows], device))
     with _table_lock:
         if len(_table_cache) >= _TABLE_CACHE_MAX:
             _table_cache.pop(next(iter(_table_cache)))
@@ -278,16 +276,21 @@ class WhitelistCorrector:
         if not whitelist:
             raise ValueError("whitelist must not be empty")
         self._length = len(whitelist[0])
-        if any(len(b) != self._length for b in whitelist):
+        if set(map(len, whitelist)) != {self._length}:
             raise ValueError("whitelist barcodes must share one length")
         self._whitelist = whitelist
+        # one join for the whole list: a per-barcode encode was most of
+        # the load of a 737,280-barcode whitelist
+        self._rows = np.frombuffer(
+            "".join(whitelist).encode("latin-1"), dtype=np.uint8
+        ).reshape(-1, self._length)
         self._device = resolve(device)
-        self._table = _device_table(whitelist, self._length, self._device)
+        self._table = _device_table(self._rows, self._device)
 
     @classmethod
     def from_file(cls, whitelist_file: str, **kwargs) -> "WhitelistCorrector":
         with open(whitelist_file) as fileobj:
-            return cls([line.strip() for line in fileobj if line.strip()], **kwargs)
+            return cls([line for line in map(str.strip, fileobj) if line], **kwargs)
 
     @property
     def barcode_length(self) -> int:
@@ -297,6 +300,12 @@ class WhitelistCorrector:
     def whitelist(self) -> List[str]:
         return self._whitelist
 
+    @property
+    def rows(self) -> np.ndarray:
+        """The whitelist as an ``[n_w, L]`` uint8 block of its bytes, row i
+        barcode i: what a corrected index reads."""
+        return self._rows
+
     def submit(self, barcodes: Barcodes) -> PendingCorrection:
         """Queue one batch: one upload, one kernel launch, one pull.
 
@@ -304,6 +313,17 @@ class WhitelistCorrector:
         while this one runs.
         """
         codes, lengths = _codes_and_lengths(barcodes, self._length)
+        return self._submit_codes(codes, lengths)
+
+    def submit_block(self, block: np.ndarray, lengths: np.ndarray) -> PendingCorrection:
+        """``submit`` of a fixed-width batch: ``block`` is ``[n, L]`` uint8
+        barcode bytes (padding past a barcode's length never matches),
+        ``lengths`` each barcode's length."""
+        if block.dtype != np.uint8 or block.ndim != 2 or block.shape[1] != self._length:
+            raise ValueError(f"barcodes must be a uint8 [n, {self._length}] block")
+        return self._submit_codes(_COL_LUT[block], np.asarray(lengths))
+
+    def _submit_codes(self, codes: np.ndarray, lengths: np.ndarray) -> PendingCorrection:
         queries = ingest.upload(codes, self._device)
         result = correct_codes(queries, self._table)
         return PendingCorrection(ingest.pull(result), lengths == self._length)

@@ -21,17 +21,20 @@ metrics pass on the device in one pass. The other three are host code.
 
 ``TenXV2.attach_barcodes`` and ``BarcodePlatform.attach_barcodes`` are the
 ports of sctools_tpu/platform.py:916-993, :1118-1389, with the same
-geometry validation and ``--read-structure``. Both run the port's batched
-attach loop (``sctools_tpu_torch.attach``), which follows the JAX package's
-native route: tags in the order CR CY [CB] UR UY [SR SY], and no line
-terminator inside the tags of a read shorter than its spans.
+geometry validation and ``--read-structure``. Both run
+``sctools_tpu_torch.attach``, routed as the JAX package routes: one r1 file
+and a BGZF u2 take the native layer's attach loop, anything else the
+Python loop, which writes the same records (tags in the order CR CY [CB]
+UR UY [SR SY], and no line terminator inside the tags of a read shorter
+than its spans).
 
 ``TenXV2.fastq_process`` (``FastqProcess``), ``GenericPlatform.sample_fastq``,
 ``fastq_metrics`` and ``check_barcode_partition`` are the ports of
 sctools_tpu/platform.py:792-913, :995-1115, with the same flags, stderr lines
-and exit codes. The first two run the port's FASTQ loops (``fastqprocess``,
-``samplefastq``), which correct barcodes on the whitelist kernel; the other
-two are host code.
+and exit codes. The first three run the native layer's FASTQ loops
+(``fastqprocess``, ``samplefastq``, ``fastq_metrics``), the first two with
+each batch's barcodes corrected on the whitelist kernel;
+``check_barcode_partition`` is host code.
 
 Every entry point is a classmethod taking an optional ``args`` list, plus a
 ``device`` keyword: ``cuda`` unless the caller passes ``device="cpu"``; the

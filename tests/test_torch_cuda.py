@@ -16,7 +16,9 @@ results at 5,000 records and at 2^19, the count's batch width, and one
 ``CreateCountMatrix`` run on the card to the same on the CPU. FastqProcess
 (BAM and FASTQ shards, compared decompressed), SampleFastq and
 CheckBarcodePartition on the card equal the same calls on the CPU, and
-the kernel launches equal the batches. A fused TagSortBam (the sort on the
+the kernel launches equal the batches; FastqProcess and attach take the
+native loops there, with compressed shards that do not depend on the BGZF
+pool's threads. A fused TagSortBam (the sort on the
 host, the metrics pass on the card) gives the CSV and the sorted BAM it
 gives on the CPU, for both tag orders, and launches no hand kernel. The
 native host layer builds on the machine and decodes a small library to the
@@ -35,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from sctools_tpu_torch import attach as port_attach
 from sctools_tpu_torch import fastqprocess as port_fqp
 from sctools_tpu_torch import kernels, native
 from sctools_tpu_torch import platform as port_platform
@@ -199,6 +202,33 @@ def test_attach_on_the_card_matches_the_cpu(cuda_device, tmp_path, capsys):
             outputs.append(f.read())
     assert outputs[0] == outputs[1]
     assert errors[0] == errors[1] and "Total barcodes:700" in errors[0]
+
+
+def test_attach_takes_the_native_loop_and_launches_once_a_batch(cuda_device, tmp_path):
+    """Attach -w on the card runs the native loop (``native.calls``), one
+    kernel launch per batch, and writes the CPU's bytes."""
+    rng = np.random.default_rng(12)
+    whitelist = _barcodes(rng, 100, 16)
+    (tmp_path / "wl.txt").write_text("\n".join(whitelist) + "\n")
+    n = 700
+    r1 = [q.ljust(16, "A") + s for q, s in zip(_queries(rng, whitelist, n), _barcodes(rng, n, 12))]
+    with gzip.open(tmp_path / "r1.fastq.gz", "wt") as f:
+        f.writelines(f"@r{i}\n{seq}\n+\n{'F' * len(seq)}\n" for i, seq in enumerate(r1))
+    header = BamHeader("@HD\tVN:1.6\tSO:unsorted\n")
+    with AlignmentWriter(str(tmp_path / "u2.bam"), header) as out:
+        for i, seq in enumerate(_barcodes(rng, n, 50)):
+            out.write(BamRecord(query_name=f"r{i}", sequence=seq, quality=[30] * 50))
+    outputs = []
+    for device in ("cpu", "cuda"):
+        native.reset_calls()
+        before = kernels.launches["whitelist_correct"]
+        written = port_attach.attach_barcodes(
+            str(tmp_path / "r1.fastq.gz"), str(tmp_path / "u2.bam"), str(tmp_path / f"{device}.bam"),
+            [(0, 16)], [(16, 26)], whitelist=str(tmp_path / "wl.txt"), device=device, batch_size=128)
+        assert written == n and native.calls["attach"] == 1
+        assert kernels.launches["whitelist_correct"] - before == (-(-n // 128) if device == "cuda" else 0)
+        outputs.append((tmp_path / f"{device}.bam").read_bytes())
+    assert outputs[0] == outputs[1]
 
 
 # ------------------------------------------------------------------ metrics
@@ -515,6 +545,29 @@ def test_fastq_process_on_the_card_matches_the_cpu(cuda_device, tmp_path, triple
                 rc = port_platform.GenericPlatform.check_barcode_partition(["-b", *files], device=device)
                 results.append((rc, capsys.readouterr().err))
             assert results[0] == results[1] and results[0][0] == want
+
+
+def test_fastq_process_native_loop_on_the_card(cuda_device, tmp_path, triplets, capsys, monkeypatch):
+    """FastqProcess -w on the card runs the native loop: the CPU's
+    decompressed shards and counters, one launch per batch, and compressed
+    shards that do not depend on the BGZF pool's threads."""
+    shards, summaries = {}, {}
+    for device, threads in (("cpu", "8"), ("cuda", "8"), ("cuda", "1")):
+        monkeypatch.setenv("SCTOOLS_TPU_THREADS", threads)
+        prefix = str(tmp_path / f"{device}{threads}")
+        native.reset_calls()
+        before = kernels.launches["whitelist_correct"]
+        capsys.readouterr()
+        stats = port_fqp.fastq_process(
+            triplets["r1"], triplets["r2"], prefix, [(0, 16)], [(16, 26)], [(0, 8)], triplets["i1"],
+            whitelist=triplets["wl"], n_shards=2, batch_size=256, device=device)
+        summaries[device, threads] = (stats, capsys.readouterr().err)
+        assert native.calls["fastqprocess"] == 1
+        assert kernels.launches["whitelist_correct"] - before == (-(-700 // 256) if device == "cuda" else 0)
+        shards[device, threads] = [open(p, "rb").read() for p in port_fqp.shard_paths(prefix, 2)]
+    assert summaries["cuda", "8"] == summaries["cpu", "8"] == summaries["cuda", "1"]
+    assert shards["cuda", "8"] == shards["cuda", "1"]
+    assert [gzip.decompress(s) for s in shards["cuda", "8"]] == [gzip.decompress(s) for s in shards["cpu", "8"]]
 
 
 def test_sample_fastq_on_the_card_matches_the_cpu(cuda_device, tmp_path):

@@ -172,8 +172,7 @@ def test_route_counts_calls(inputs, tmp_path):
     path = inputs["tagged"][0]
     native.reset_calls()
     frames = list(packed.iter_frames_from_bam(path, 250))
-    assert native.calls == {"stream_frames": 1, "frame_from_bam": 0, "tagsort": 0,
-                            "tagsort_stream_frames": 0}
+    assert native.calls == {**dict.fromkeys(native.calls, 0), "stream_frames": 1}
     for a, b in zip(frames, jax_packed.iter_frames_from_bam(path, 250, want_qname=True)):
         assert_frames_equal(a, b)
     custom = ("CR", "UR", "GE")
@@ -267,9 +266,9 @@ def test_thread_counts_give_the_same_output(tmp_path, inputs, sort_input, monkey
 
 
 def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
+    for name in native.SOURCES + native.HEADERS:
+        (tmp_path / name).write_text("")
     (tmp_path / "bamdecode.cpp").write_text("int broken(\n")
-    (tmp_path / "tagsort.cpp").write_text("")
-    (tmp_path / "native_io.h").write_text("")
     monkeypatch.setattr(native, "_SOURCE_DIR", tmp_path)
     target = tmp_path / "lib.so"
     with pytest.raises(RuntimeError, match="building the native layer failed:\n.*error"):
