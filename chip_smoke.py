@@ -35,10 +35,12 @@ Phases, in order; any failure exits non-zero before the last line:
               be equal byte for byte (decompressed), and per cell n_reads,
               n_molecules, n_genes and n_mitochondrial_molecules must equal
               the generator's counts. Each command must decode through the
-              native layer and render its CSV through the native block
-              formatter (``native.calls``). Prints records/s, the wall
-              split, device milliseconds per batch and the profiler's top
-              device ops, and the decode alone: the port's Python decoder
+              ingest ring's native arena stream and render its CSV through
+              the native block formatter (``native.calls``). Prints
+              records/s, the wall split (the ring's producer seconds of
+              decoding on its thread beside this thread's wait on the ring,
+              and the ring's batches), device milliseconds per batch and the
+              profiler's top device ops, and the decode alone: the port's Python decoder
               against the native stream over the first 2^18 records of the
               cell BAM, in turns, with equal frames. The metrics path has no
               hand kernel; the phase checks that none launched. The
@@ -50,13 +52,14 @@ Phases, in order; any failure exits non-zero before the last line:
               records: two full batches, a remainder, carried tails) over all
               33,538 genes of a GTF. The matrix must equal a numpy count of the
               reference's rule over the generator's columns, entry for entry
-              and in row order; the command's decoded frames, counted again on
-              the card and on the CPU, must give the same files; the matrix
+              and in row order; the file's frames, decoded again and counted
+              on the card and on the CPU, must give the same files; the matrix
               split in two must merge back (MergeCountMatrices), and phase 5's
               CSVs must merge as they should (MergeCellMetrics of the cell CSV
               in two files, MergeGeneMetrics of the gene CSV with itself).
-              The command must decode through the native layer.
-              Prints records/s, the wall split, the idle share, and the count
+              The command must decode through the ingest ring's native
+              arena stream. Prints records/s, the wall split (the ring's
+              producer decode beside the wait on it), the idle share, and the count
               pass alone on one staged full batch with its top device ops. No
               hand kernel may launch;
 7. fastq   -- ``TenXV2.fastq_process`` (FastqProcess -w) on 262,144 synthetic
@@ -78,8 +81,9 @@ Phases, in order; any failure exits non-zero before the last line:
               cell records in a shuffled order, sorted on the host by the
               native sort in 3 partials of the default 500,000 records,
               merged through a pipe into the native decoder's 2^20-record
-              frames for the metrics pass on the card in one pass that also
-              writes the sorted BAM (``native.calls`` must show that route).
+              frames, behind the ingest ring's prefetch stage, for the
+              metrics pass on the card in one pass that also writes the
+              sorted BAM (``native.calls`` must show that route).
               The CSV must equal
               phase 5's CalculateCellMetrics CSV byte for byte (decompressed)
               and the sorted BAM hold the input's record bodies in phase 5's
@@ -1002,16 +1006,18 @@ def phase_metrics(rng, stamp: str, modules) -> None:
             getattr(port_platform.GenericPlatform, entry[axis])(args)
             torch.cuda.synchronize()
         wall = time.perf_counter() - begin
-        check_calls(native, entry[axis], stream_frames=1, format_csv_block=None)
+        check_calls(native, entry[axis], batch_stream=1, format_csv_block=None)
         busy_ms = device_busy_ms(prof)
         gatherer = made[0]
         device_ms = gatherer.device_ms()
         split = gatherer.seconds
-        other = wall - sum(split.values())
+        # the ring's decode runs on its own thread, beside the rest
+        other = wall - sum(v for k, v in split.items() if k != "decode")
         n = len(axes[axis]["cell"])
         log(f"[metrics] {stamp} | {entry[axis]} on cuda: {n} records in {wall:.2f} s = "
-            f"{n / wall:.0f} records/s; decode (native stream) {split['decode']:.2f} s, pack "
-            f"{split['pack']:.2f} s, upload+enqueue {split['dispatch']:.2f} s, waiting on "
+            f"{n / wall:.0f} records/s; ring: {gatherer.ring_batches} batches decoded into the native "
+            f"arena on its thread in {split['decode']:.2f} s, this thread waited on it "
+            f"{split['decode_wait']:.2f} s; pack {split['pack']:.2f} s, upload+enqueue {split['dispatch']:.2f} s, waiting on "
             f"pulls {split['wait']:.2f} s, CSV {split['csv']:.2f} s, other {other:.2f} s; "
             f"per batch, upload to pull on the stream (CUDA events, host gaps included) "
             f"{' + '.join(f'{ms:.2f}' for ms in device_ms)} ms; device busy (torch.profiler, "
@@ -1311,7 +1317,7 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    kernels, native, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf = modules
+    kernels, native, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf, packed = modules
     if port_count.DEFAULT_BATCH_RECORDS != COUNT_BATCH:
         raise AssertionError("the smoke's batch width is not the count's default")
     phase_start = start = time.perf_counter()
@@ -1324,37 +1330,27 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
     log(f"[count] inputs: {COUNT_QUERIES} queries, {n} records grouped by query name, "
         f"{len(want_rows)} cells, {N_GENES} genes in the GTF; made in {time.perf_counter() - start:.1f} s")
 
-    # the command decodes once: its frames are kept for the comparisons
-    kept = []
-    decode = port_count.iter_frames_from_bam
-
-    def keeping(*args, **kwargs):
-        for frame in decode(*args, **kwargs):
-            kept.append(frame)
-            yield frame
-
     launches_before = dict(kernels.launches)
     made = []
     out = WORK / "cli_count"
-    port_count.iter_frames_from_bam = keeping
-    try:
+    torch.cuda.synchronize()
+    native.reset_calls()
+    begin = time.perf_counter()
+    with recording(port_platform, "CountMatrix", made), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        port_platform.GenericPlatform.bam_to_count_matrix(
+            ["-b", str(bam), "-a", str(gtf_path), "-o", str(out)])
         torch.cuda.synchronize()
-        native.reset_calls()
-        begin = time.perf_counter()
-        with recording(port_platform, "CountMatrix", made), profile(activities=[ProfilerActivity.CUDA]) as prof:
-            port_platform.GenericPlatform.bam_to_count_matrix(
-                ["-b", str(bam), "-a", str(gtf_path), "-o", str(out)])
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - begin
-    finally:
-        port_count.iter_frames_from_bam = decode
-    check_calls(native, "bam_to_count_matrix", stream_frames=1)
+    wall = time.perf_counter() - begin
+    check_calls(native, "bam_to_count_matrix", batch_stream=1)
     busy_ms = device_busy_ms(prof)
     command = made[0]
     split = command.seconds
-    other = wall - sum(split.values())
+    # the ring's decode runs on its own thread, beside the rest
+    other = wall - sum(v for k, v in split.items() if k != "decode")
     log(f"[count] {stamp} | bam_to_count_matrix on cuda: {n} records in {wall:.2f} s = "
-        f"{n / wall:.0f} records/s; decode (native stream) {split['decode']:.2f} s, carried tails (concat, "
+        f"{n / wall:.0f} records/s; ring: {command.ring_batches} batches decoded into the native arena "
+        f"on its thread in {split['decode']:.2f} s, this thread waited on it {split['decode_wait']:.2f} s; "
+        f"carried tails (concat, "
         f"compact, copy) {split['carry']:.2f} s, pack {split['pack']:.2f} s, "
         f"upload+enqueue {split['dispatch']:.2f} s, waiting on pulls {split['wait']:.2f} s, "
         f"accumulate {split['accumulate']:.2f} s, assemble {split['assemble']:.2f} s, save "
@@ -1369,21 +1365,23 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
     log(f"[count] the command's matrix equals the generator's count: {want.shape[0]} cells x "
         f"{want.shape[1]} genes, {want.nnz} entries, {int(want.sum())} molecules, same row order")
 
+    # the frames for the cuda/cpu comparison, decoded as the command decodes
+    kept = list(packed.iter_frames_from_bam(str(bam), COUNT_BATCH, want_qname=True))
     for device in ("cuda", "cpu"):
         prefix = WORK / f"frames_count_{device}"
         begin = time.perf_counter()
         port_count.CountMatrix.from_sorted_tagged_bam(
             str(bam), port_gtf.extract_gene_names(str(gtf_path)),
             frame_source=lambda: iter(kept), device=device).save(str(prefix))
-        log(f"[count] from the kept frames on {device}: {time.perf_counter() - begin:.2f} s")
+        log(f"[count] from the decoded frames on {device}: {time.perf_counter() - begin:.2f} s")
         if not same_files(prefix, out):
-            raise AssertionError(f"the count of the kept frames on {device} differs from the command's")
-    log("[count] the kept frames counted on cuda and on cpu give the command's .npy bytes and .npz arrays")
+            raise AssertionError(f"the count of the decoded frames on {device} differs from the command's")
+    log("[count] the decoded frames counted on cuda and on cpu give the command's .npy bytes and .npz arrays")
 
     # the count pass alone, on one staged full batch
     frame = kept[0]
     cut = int(np.nonzero(frame.qname[1:] != frame.qname[:-1])[0][-1]) + 1
-    block = port_count.pack_count_block(port_count.slice_frame(frame, 0, cut), pad_to=COUNT_BATCH)
+    block = port_count.pack_count_block(packed.slice_frame(frame, 0, cut), pad_to=COUNT_BATCH)
     staged = torch.from_numpy(block).to("cuda")
 
     def one_pass():
@@ -1839,14 +1837,16 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
     check_calls(native, "TagSortBam", tagsort_stream_frames=1, format_csv_block=None)
     gatherer = gatherers[0]
     gather_split, sort_split = gatherer.seconds, gatherer.source_stats
-    # the gatherer's decode seconds are the time it waited on the pipe's
-    # decoder; the sort's phases run on its own thread meanwhile
-    other = wall - sum(gather_split.values())
+    # the ring's producer decodes the pipe on its thread (its seconds hold
+    # its waits on the sort), the sort's phases run on the sort's thread,
+    # and this thread waits on the ring (decode_wait)
+    other = wall - sum(v for k, v in gather_split.items() if k != "decode")
     log(f"[sort] {stamp} | TagSortBam --cell-metrics-output -o on cuda: {n} records in {wall:.2f} s = "
         f"{n / wall:.0f} records/s; native sort ({native.default_threads()} threads, chunks of "
         f"{SORT_CHUNK}) on its thread: read {sort_split['read']:.2f} s, chunk sort {sort_split['sort']:.2f} s, "
         f"{sort_split['partial_files']} partial writes {sort_split['partials']:.2f} s, merge and BAM tee {sort_split['merge']:.2f} s; "
-        f"metrics pass: waiting on the decoded stream {gather_split['decode']:.2f} s, pack "
+        f"ring: {gatherer.ring_batches} frames decoded from the pipe on its thread in "
+        f"{gather_split['decode']:.2f} s; metrics pass: waiting on the ring {gather_split['decode_wait']:.2f} s, pack "
         f"{gather_split['pack']:.2f} s, upload+enqueue {gather_split['dispatch']:.2f} s, wait "
         f"{gather_split['wait']:.2f} s, CSV {gather_split['csv']:.2f} s, other {other:.2f} s; "
         f"{len(gatherer.batches)} device batches; device busy (torch.profiler, kernels and copies) "
@@ -1991,7 +1991,7 @@ def main(argv=None) -> int:
     )
     phase_count(
         np.random.default_rng(args.seed + 2), stamp,
-        (kernels, native, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf), csvs,
+        (kernels, native, port_platform, port_count, port_counting, port_merge, port_gtf, bgzf, packed), csvs,
     )
     fastq_launches, bam_shards = phase_fastq(
         np.random.default_rng(args.seed + 3), whitelist_ascii, table, stamp,

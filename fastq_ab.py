@@ -1,29 +1,49 @@
 #!/usr/bin/env python3
-"""Time the port's FASTQ commands and metrics CSV writer at two trees, in turns.
+"""Time the port's FASTQ and BAM commands and its CSV writer at two trees, in turns.
 
-    python3 fastq_ab.py --parent DIR [--reads N] [--seed N] [--device cuda|cpu]
+    python3 fastq_ab.py --parent DIR [--reads N] [--cell-records N]
+        [--count-queries N] [--sort-records N] [--only fastq|bam]
+        [--seed N] [--device cuda|cpu]
 
 ``DIR`` holds another tree of the repository (a ``git archive`` of an
 earlier commit, unpacked). Both trees run the same inputs, generated once
-from ``--seed`` with ``chip_smoke.py``'s generators at its phase 4 and 7
-widths: 262,144 10x v2 triplets in two triplet files and a u2 BAM of as many
-98 bp reads, the 737,280 x 16 bp synthetic whitelist, 131,072 slide-seq
-pairs (8C18X6C9M1X) with a 100,000 x 14 bp whitelist, and a metrics block of
-33,538 rows x 24 columns (the gene CSV's shape). Each tree runs in its own
-process, in the order parent, tree, tree, parent, builds its native layer
-and its kernels first, and times through the entry points: FastqProcess -w
-(BAM and FASTQ shards, 4 shards), Attach10xBarcodes with and without -w,
-SampleFastq, FastqMetrics, and ``MetricCSVWriter.write_block`` of the
-block with its close. Prints each run's reads/s (rows/s for the CSV) and
-seconds, the card's name and power limit, and checks that the two trees
-wrote the same decompressed outputs; the last line of its output holds
-all results as one JSON object. Work files go to ``.fastq_ab_work/`` and
-are removed.
+from ``--seed`` with ``chip_smoke.py``'s generators:
+
+- FASTQ (its phase 4 and 7 widths): 262,144 10x v2 triplets in two triplet
+  files and a u2 BAM of as many 98 bp reads, the 737,280 x 16 bp synthetic
+  whitelist, 131,072 slide-seq pairs (8C18X6C9M1X) with a 100,000 x 14 bp
+  whitelist, and a metrics block of 33,538 rows x 24 columns (the gene
+  CSV's shape);
+- BAM (its phase 5, 6 and 8 libraries): 6,500,000 records sorted by (CB,
+  UB, GE), six full batches of the gatherer's 2^20 and a remainder, so that
+  the ingest ring's slots are reused; a queryname-grouped library of
+  2,100,000 queries (some 3.3 million records: six full batches of the
+  count's 2^19 and a remainder) over a 33,538-gene GTF; and 1,250,000
+  records in a random order for the fused sort (the size of the smoke's
+  phase 8: its frames come from the sort's pipe, through no arena slot).
+
+Each tree runs in its own process, in the order parent, tree, tree,
+parent, builds its native layer and its kernels first, and times through
+the entry points: FastqProcess -w (BAM and FASTQ shards, 4 shards),
+Attach10xBarcodes with and without -w, SampleFastq, FastqMetrics,
+``MetricCSVWriter.write_block`` of the block with its close,
+CalculateCellMetrics, CreateCountMatrix and TagSortBam -t CB UB GE
+--cell-metrics-output -o. Prints each run's reads/s (rows/s for the CSV,
+records/s for the BAM commands) and seconds, with the BAM commands' decode
+split as each tree reports it (this tree: the ring's producer seconds on
+its thread, ``decode``, beside the main thread's wait on the ring,
+``decode_wait``, and the ring's batches), the card's name and power limit,
+and checks that the two trees wrote the same outputs (decompressed; count
+matrices by their arrays, as the ``.npz`` bytes hold the save's time). The
+last line of its output holds all results as one JSON object. ``--only``
+runs one of the two groups. Work files go to ``.fastq_ab_work/`` and are
+removed.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gzip
 import json
 import shutil
@@ -38,14 +58,34 @@ REPO = Path(__file__).resolve().parent
 WORK = REPO / ".fastq_ab_work"
 CSV_ROWS, CSV_COLUMNS = 33_538, 24
 SLIDESEQ_WHITELIST = 100_000
+GROUPS = ("fastq", "bam")
 
 
-def make_inputs(work: Path, reads: int, seed: int) -> None:
+def make_inputs(work: Path, args) -> None:
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
     from sctools_tpu_torch.io import bgzf
 
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(args.seed)
+    if "fastq" in args.groups:
+        make_fastq_inputs(work, args.reads, rng, cs, bgzf)
+    if "bam" in args.groups:
+        cell = cs.sort_reads(cs.make_reads(rng, args.cell_records), "cell")
+        cs.write_tagged_bam(work / "cell_sorted.bam", rng, cell, bgzf)
+        del cell
+        cs.write_mito_gtf(work / "mito.gtf")
+        library = cs.make_count_library(rng, args.count_queries)
+        cs.write_tagged_bam(work / "count.bam", rng, library, bgzf)
+        cs.write_gene_gtf(work / "genes.gtf")
+        reads = cs.make_reads(rng, args.sort_records)
+        order = rng.permutation(args.sort_records)
+        cs.write_tagged_bam(work / "shuffled.bam", rng, {k: v[order] for k, v in reads.items()}, bgzf)
+        records = {"cell_sorted.bam": args.cell_records, "count.bam": len(library["qname"]),
+                   "shuffled.bam": args.sort_records}
+        (work / "records.json").write_text(json.dumps(records))
+
+
+def make_fastq_inputs(work: Path, reads: int, rng, cs, bgzf) -> None:
     whitelist = cs.make_whitelist(rng, cs.WHITELIST_SIZE, cs.CB_LEN)
     newline = np.full((len(whitelist), 1), ord("\n"), dtype=np.uint8)
     (work / "whitelist.txt").write_bytes(np.concatenate([whitelist, newline], axis=1).tobytes())
@@ -80,16 +120,32 @@ def make_inputs(work: Path, reads: int, seed: int) -> None:
                              cs.full_rows(seqs), cs.full_rows(quals), ((0, pairs // 3), (pairs // 3, pairs)))
 
 
-def run_arm(root: Path, work: Path, out: Path, reads: int, device: str) -> dict:
+@contextlib.contextmanager
+def recording(module, name: str, into: list):
+    """Within the block, ``module.name`` (a class) is a subclass that
+    appends each instance to ``into``."""
+    cls = getattr(module, name)
+
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            into.append(self)
+
+    setattr(module, name, Recorded)
+    try:
+        yield
+    finally:
+        setattr(module, name, cls)
+
+
+def run_arm(root: Path, work: Path, out: Path, reads: int, device: str, groups) -> dict:
     """One tree's timings, in this process (``root`` first on sys.path)."""
     sys.path.insert(0, str(root))
-    import contextlib
     import io
 
     import torch
 
     from sctools_tpu_torch import kernels, native, platform
-    from sctools_tpu_torch.metrics.writer import MetricCSVWriter
 
     # built before any timed run: the native layer, and on the card the kernels
     native.library()
@@ -99,19 +155,36 @@ def run_arm(root: Path, work: Path, out: Path, reads: int, device: str) -> dict:
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     kwargs = {} if device == "cuda" else {"device": "cpu"}
     out.mkdir(parents=True)
-    triplets = {k: [str(work / f"{k}_{t}.fastq.gz") for t in range(2)] for k in ("r1", "r2", "i1")}
-    total_bytes = sum(Path(p).stat().st_size for paths in triplets.values() for p in paths)
-    bam_size = total_bytes / (3.5 * (1 << 30))  # ceil(3.5) = 4 shards
     commands = {}
 
-    def timed(name, n, call):
+    def timed(name, n, call, record=None):
+        made = []
         sync()
         start = time.perf_counter()
-        with contextlib.redirect_stderr(io.StringIO()), contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stderr(io.StringIO()), contextlib.redirect_stdout(io.StringIO()), \
+                (recording(platform, record, made) if record else contextlib.nullcontext()):
             call()
         sync()
         seconds = time.perf_counter() - start
         commands[name] = {"seconds": seconds, "per_s": n / seconds}
+        if made:
+            # the tree's own split; the ring's batches where it has a ring
+            commands[name].update(split=dict(made[0].seconds),
+                                  ring_batches=getattr(made[0], "ring_batches", None))
+
+    if "fastq" in groups:
+        time_fastq(work, out, reads, platform, kwargs, timed)
+    if "bam" in groups:
+        time_bam(work, out, platform, kwargs, timed)
+    return commands
+
+
+def time_fastq(work: Path, out: Path, reads: int, platform, kwargs, timed) -> None:
+    from sctools_tpu_torch.metrics.writer import MetricCSVWriter
+
+    triplets = {k: [str(work / f"{k}_{t}.fastq.gz") for t in range(2)] for k in ("r1", "r2", "i1")}
+    total_bytes = sum(Path(p).stat().st_size for paths in triplets.values() for p in paths)
+    bam_size = total_bytes / (3.5 * (1 << 30))  # ceil(3.5) = 4 shards
 
     for fmt in ("BAM", "FASTQ"):
         args = ["--r1", *triplets["r1"], "--r2", *triplets["r2"], "--i1", *triplets["i1"],
@@ -144,29 +217,69 @@ def run_arm(root: Path, work: Path, out: Path, reads: int, device: str) -> dict:
         writer.close()
 
     timed("MetricCSVWriter.write_block + close", CSV_ROWS, write_csv)
-    return commands
+
+
+def time_bam(work: Path, out: Path, platform, kwargs, timed) -> None:
+    records = json.loads((work / "records.json").read_text())
+    cell, count, shuffled = (work / name for name in ("cell_sorted.bam", "count.bam", "shuffled.bam"))
+    timed("CalculateCellMetrics", records[cell.name], lambda: platform.GenericPlatform.calculate_cell_metrics(
+        ["-i", str(cell), "-o", str(out / "cell"), "-a", str(work / "mito.gtf")], **kwargs),
+        record="GatherCellMetrics")
+    timed("CreateCountMatrix", records[count.name], lambda: platform.GenericPlatform.bam_to_count_matrix(
+        ["-b", str(count), "-a", str(work / "genes.gtf"), "-o", str(out / "count")], **kwargs),
+        record="CountMatrix")
+    timed("TagSortBam --cell-metrics-output -o", records[shuffled.name],
+          lambda: platform.GenericPlatform.tag_sort_bam(
+              ["-i", str(shuffled), "-t", "CB", "UB", "GE", "--cell-metrics-output", str(out / "fused"),
+               "-a", str(work / "mito.gtf"), "-o", str(out / "fused_sorted.bam")], **kwargs),
+          record="GatherCellMetrics")
 
 
 def outputs(directory: Path) -> dict:
-    """Every output file of an arm, decompressed where it is gzip."""
+    """Every output file of an arm, decompressed where it is gzip; a
+    ``.npz`` as its arrays' bytes (its zip members carry the save's time).
+    ``gzip.open`` streams: ``gzip.decompress`` copies the rest of the data
+    for each of a BGZF file's thousands of members."""
     files = {}
     for path in sorted(directory.iterdir()):
-        data = path.read_bytes()
-        files[path.name] = gzip.decompress(data) if data[:2] == b"\x1f\x8b" else data
+        if path.suffix == ".npz":
+            with np.load(path) as arrays:
+                files[path.name] = {key: (arrays[key].dtype.str, arrays[key].tobytes()) for key in arrays.files}
+            continue
+        with open(path, "rb") as f:
+            gzipped = f.read(2) == b"\x1f\x8b"
+        with (gzip.open if gzipped else open)(path, "rb") as f:
+            files[path.name] = f.read()
     return files
+
+
+def describe(name: str, result: dict) -> str:
+    unit = "rows" if "CSV" in name else "reads" if "Fastq" in name or "Attach" in name else "records"
+    line = f"{name} {result['seconds']:.3f} s = {result['per_s']:.0f} {unit}/s"
+    split = result.get("split")
+    if split:
+        line += "; " + ", ".join(f"{key} {value:.3f} s" for key, value in split.items())
+        if result.get("ring_batches") is not None:
+            line += f"; ring batches {result['ring_batches']}"
+    return line
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", type=Path, help="the other tree's root")
     parser.add_argument("--reads", type=int, default=1 << 18)
+    parser.add_argument("--cell-records", type=int, default=6_500_000)
+    parser.add_argument("--count-queries", type=int, default=2_100_000)
+    parser.add_argument("--sort-records", type=int, default=1_250_000)
+    parser.add_argument("--only", choices=GROUPS, help="time one group of commands")
     parser.add_argument("--seed", type=int, default=3)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     parser.add_argument("--arm", type=Path, help=argparse.SUPPRESS)  # a child process: this tree's root
     parser.add_argument("--out", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
+    args.groups = (args.only,) if args.only else GROUPS
     if args.arm is not None:
-        print(json.dumps(run_arm(args.arm, WORK, args.out, args.reads, args.device)))
+        print(json.dumps(run_arm(args.arm, WORK, args.out, args.reads, args.device, args.groups)))
         return 0
     if args.parent is None or not (args.parent / "sctools_tpu_torch").is_dir():
         raise SystemExit("fastq_ab: --parent must name a tree with a sctools_tpu_torch package")
@@ -179,26 +292,30 @@ def main(argv=None) -> int:
     WORK.mkdir()
     try:
         start = time.perf_counter()
-        make_inputs(WORK, args.reads, args.seed)
-        print(f"[ab] inputs made in {time.perf_counter() - start:.1f} s; {stamp}", flush=True)
+        make_inputs(WORK, args)
+        records = WORK / "records.json"
+        sizes = f"; BAM records {records.read_text()}" if records.exists() else ""
+        print(f"[ab] inputs made in {time.perf_counter() - start:.1f} s{sizes}; {stamp}", flush=True)
         runs = []
         for k, (label, root) in enumerate((("parent", args.parent.resolve()), ("tree", REPO),
                                            ("tree", REPO), ("parent", args.parent.resolve()))):
             out = WORK / f"out_{k}_{label}"
             child = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--arm", str(root), "--out", str(out),
-                 "--reads", str(args.reads), "--device", args.device],
+                 "--reads", str(args.reads), "--device", args.device]
+                + (["--only", args.only] if args.only else []),
                 capture_output=True, text=True, cwd=str(root))
             if child.returncode != 0:
                 raise SystemExit(f"fastq_ab: the {label} run failed:\n{child.stderr[-4000:]}")
             commands = json.loads(child.stdout.strip().splitlines()[-1])
             runs.append({"arm": label, "commands": commands})
             for name, result in commands.items():
-                print(f"[ab] run {k + 1} {label}: {name} {result['seconds']:.3f} s = "
-                      f"{result['per_s']:.0f} {'rows' if 'CSV' in name else 'reads'}/s", flush=True)
+                print(f"[ab] run {k + 1} {label}: {describe(name, result)}", flush=True)
         same = outputs(WORK / "out_0_parent") == outputs(WORK / "out_1_tree")
         print(f"[ab] the two trees' outputs, decompressed, are {'equal' if same else 'DIFFERENT'}")
-        result = {"device": stamp, "reads": args.reads, "runs": runs, "outputs_equal": same}
+        result = {"device": stamp, "reads": args.reads, "cell_records": args.cell_records,
+                  "count_queries": args.count_queries, "sort_records": args.sort_records, "runs": runs,
+                  "outputs_equal": same}
         print(json.dumps(result))
         return 0 if same else 1
     finally:

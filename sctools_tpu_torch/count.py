@@ -4,8 +4,10 @@ The port of ``sctools_tpu.count`` on its single-device path, with two
 backends:
 
 - ``device``: the BAM streams in batches of at most ``batch_records``
-  alignments (decoded by the native layer, query names included, for a
-  BGZF input with the default tag keys), each cut at its last query-name
+  alignments through the ingest ring (``ingest.ring_frames``: a prefetch
+  thread decodes the next batch, through the native layer's packed column
+  arena with query names for a BGZF input with the default tag keys, while
+  this thread works on the current one), each cut at its last query-name
   boundary (the incomplete tail group carries into the next batch). Per
   batch the host builds the padded count columns
   (``device_count_columns``), makes one ``ingest.upload`` of them as one
@@ -14,7 +16,10 @@ backends:
   only after its event. The batch's unique triples accumulate as packed integers
   (``_MoleculeAccumulator``) that one vectorized pass deduplicates across
   batches and orders by first observation. One batch's pull is waited on
-  only after the next batch is queued.
+  only after the next batch is queued. The loop holds at most two ring
+  frames (``frame`` and ``following``); a queued batch keeps only its
+  frame's vocabularies, owned lists that the ring does not recycle, so
+  nothing is read from a slot past the ring's retention window.
 - ``cpu``: the reference-semantics host loop (itertools.groupby over query
   names), the parity oracle.
 
@@ -25,8 +30,8 @@ chunked matrices whose cell rows are disjoint.
 Not ported: the mesh path (``_add_batch_sharded``, ``--devices N``), the
 accumulator's one-batch ``add_batch`` (the streaming loop queues and
 finishes each batch itself through ``dispatch`` and ``finish``), the
-guard ladder (a failed batch fails the command), the ingest ring, and the
-JAX package's heartbeats, dispatch records and audit counters. A matrix
+guard ladder (a failed batch fails the command), and the JAX package's
+heartbeats, dispatch records and audit counters. A matrix
 built by the device backend keeps plain records instead: ``batches`` and
 ``seconds``.
 """
@@ -37,7 +42,7 @@ import itertools
 import operator
 import time
 from collections import deque
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import scipy.sparse as sp
@@ -51,7 +56,6 @@ from .io.packed import (
     compact_frame,
     concat_frames,
     copy_frame,
-    iter_frames_from_bam,
     pack_barcode_u64,
     slice_frame,
     unpack_barcode_u64,
@@ -134,30 +138,31 @@ class _MoleculeAccumulator:
         out = count_molecules(dict(zip(UPLOAD_COLUMNS, staged)), num_segments=block.shape[1])
         return ingest.pull(torch.stack([out[name].to(torch.int32) for name in RESULT_COLUMNS]))
 
-    def finish(self, frame, offset: int, result: np.ndarray) -> int:
+    def finish(self, names: "BatchNames", offset: int, result: np.ndarray) -> int:
         """Append one batch's molecules from its pulled ``[5, n]`` block;
-        returns how many there were."""
+        returns how many there were. ``names`` are its frame's
+        vocabularies."""
         is_molecule = result[0].astype(bool)
         cells, umis, genes, first = (result[i][is_molecule] for i in range(1, 5))
-        self._append_molecules(frame, cells, umis, genes, first.astype(np.int64), offset)
+        self._append_molecules(names, cells, umis, genes, first.astype(np.int64), offset)
         return int(is_molecule.sum())
 
-    def _gene_vocab_cols(self, frame) -> np.ndarray:
-        """Batch gene vocabulary -> output column indices (once per frame)."""
+    def _gene_vocab_cols(self, names: "BatchNames") -> np.ndarray:
+        """Batch gene vocabulary -> output column indices (once per batch)."""
         return np.asarray(
-            [self._gene_name_to_index.get(name, -1) for name in frame.gene_names],
+            [self._gene_name_to_index.get(name, -1) for name in names.gene_names],
             dtype=np.int64,
         )
 
-    def _append_molecules(self, frame, cells, umis, genes, first, offset: int) -> None:
-        gene_cols = self._gene_vocab_cols(frame)[genes]
+    def _append_molecules(self, names: "BatchNames", cells, umis, genes, first, offset: int) -> None:
+        gene_cols = self._gene_vocab_cols(names)[genes]
         if np.any(gene_cols < 0):
-            missing = {frame.gene_names[g] for g in np.unique(genes[gene_cols < 0])}
+            missing = {names.gene_names[g] for g in np.unique(genes[gene_cols < 0])}
             raise KeyError(
                 f"gene names not present in gene_name_to_index: {sorted(missing)[:5]}"
             )
-        self._cells.append(self._pack_used(cells, frame.cell_names))
-        self._umis.append(self._pack_used(umis, frame.umi_names))
+        self._cells.append(self._pack_used(cells, names.cell_names))
+        self._umis.append(self._pack_used(umis, names.umi_names))
         self._genes.append(gene_cols)
         self._firsts.append(np.asarray(first, dtype=np.int64) + offset)
 
@@ -201,6 +206,15 @@ class _MoleculeAccumulator:
         )
         row_index = np.asarray([self._name_of(int(code)) for code in ordered_codes])
         return coordinate_matrix.tocsr(), row_index
+
+
+class BatchNames(NamedTuple):
+    """What a queued batch keeps of its frame for ``finish``: the
+    vocabularies, which the frame owns (never views of a ring slot)."""
+
+    cell_names: List[str]
+    umi_names: List[str]
+    gene_names: List[str]
 
 
 def pack_count_block(frame, pad_to: int = 0) -> np.ndarray:
@@ -262,6 +276,7 @@ class CountMatrix:
         # host wall seconds by activity (``save`` adds its own)
         self.batches: List[dict] = []
         self.seconds: Dict[str, float] = {}
+        self.ring_batches = 0  # the frames the ingest ring handed over
 
     @property
     def matrix(self) -> sp.csr_matrix:
@@ -339,19 +354,24 @@ class CountMatrix:
         device: DeviceLike = None,
     ) -> "CountMatrix":
         accumulator = _MoleculeAccumulator(gene_name_to_index, resolve(device))
+        # host wall seconds by activity: decode (the ring's producer
+        # thread; it overlaps the rest), and on this thread decode_wait (on
+        # the ring's queue), carry, pack, dispatch, wait (on pulls),
+        # accumulate, assemble
         seconds = dict.fromkeys(
-            ("decode", "carry", "pack", "dispatch", "wait", "accumulate", "assemble"), 0.0
+            ("decode", "decode_wait", "carry", "pack", "dispatch", "wait", "accumulate",
+             "assemble"), 0.0
         )
         batches: List[dict] = []
         pending = deque()  # dispatched, not yet accumulated
 
         def finish_oldest() -> None:
-            frame, offset, pulled, batch = pending.popleft()
+            names, offset, pulled, batch = pending.popleft()
             start = time.perf_counter()
             result = pulled.numpy()  # waits for this batch's pull only
             seconds["wait"] += time.perf_counter() - start
             start = time.perf_counter()
-            batch["molecules"] = accumulator.finish(frame, offset, result)
+            batch["molecules"] = accumulator.finish(names, offset, result)
             seconds["accumulate"] += time.perf_counter() - start
 
         def add(batch_frame, batch_offset: int, pad: int) -> None:
@@ -365,7 +385,8 @@ class CountMatrix:
             seconds["dispatch"] += time.perf_counter() - start
             batch = dict(records=batch_frame.n_records, padded=block.shape[1], h2d_bytes=block.nbytes)
             batches.append(batch)
-            pending.append((batch_frame, batch_offset, pulled, batch))
+            names = BatchNames(batch_frame.cell_names, batch_frame.umi_names, batch_frame.gene_names)
+            pending.append((names, batch_offset, pulled, batch))
             # the previous batch's pull is waited on only now, with this
             # batch queued behind it
             while len(pending) > 1:
@@ -385,65 +406,73 @@ class CountMatrix:
             while True:
                 start = time.perf_counter()
                 decoded = next(frames, None)
-                seconds["decode"] += time.perf_counter() - start
+                seconds["decode_wait"] += time.perf_counter() - start
                 if decoded is None:
                     return
                 yield decoded
 
+        ring_stats: Dict[str, float] = {}
         if frame_source is not None:
-            frames = frame_source()
+            frames = ingest.ring_frames(source=frame_source(), stats=ring_stats)
         else:
-            frames = iter_frames_from_bam(bam_file, batch_records, tuple(tag_keys), want_qname=True)
+            frames = ingest.ring_frames(bam_file, batch_records, want_qname=True,
+                                       tag_keys=tuple(tag_keys), stats=ring_stats)
         carry = None
         offset = 0
         multi_batch = False
-        iterator = timed(frames)
-        frame = next(iterator, None)
         capacity = bucket_size(batch_records)
-        while frame is not None:
-            if carry is not None:
-                start = time.perf_counter()
-                frame = concat_frames(carry, frame)
-                seconds["carry"] += time.perf_counter() - start
-                carry = None
-            following = next(iterator, None)
-            multi_batch = multi_batch or frame.n_records >= batch_records
-            pad = capacity if multi_batch else 0
-            if following is None:
-                # the final frame goes whole: cutting it would split a
-                # non-adjacent query's alignments across device passes, and
-                # within one pass record order is free. If carries pushed
-                # it past the capacity, cut at query boundaries first
-                # (adjacent in a multi-batch input by the documented
-                # requirement); only a single oversized group overflows.
-                while frame.n_records > capacity:
-                    changes = np.nonzero(frame.qname[1:] != frame.qname[:-1])[0]
-                    eligible = changes[changes < capacity]
-                    if not eligible.size:
-                        break
-                    cut = int(eligible[-1]) + 1
-                    add(slice_frame(frame, 0, cut), offset, pad)
-                    offset += cut
-                    frame = carried(frame, cut)
-                add(frame, offset, pad)
-                break
-            changes = np.nonzero(frame.qname[1:] != frame.qname[:-1])[0]
-            if changes.size == 0:
-                # one query group so far: keep accumulating
-                carry = copy_frame(frame)
+        try:
+            iterator = timed(frames)
+            frame = next(iterator, None)
+            while frame is not None:
+                if carry is not None:
+                    start = time.perf_counter()
+                    frame = concat_frames(carry, frame)
+                    seconds["carry"] += time.perf_counter() - start
+                    carry = None
+                following = next(iterator, None)
+                multi_batch = multi_batch or frame.n_records >= batch_records
+                pad = capacity if multi_batch else 0
+                if following is None:
+                    # the final frame goes whole: cutting it would split a
+                    # non-adjacent query's alignments across device passes, and
+                    # within one pass record order is free. If carries pushed
+                    # it past the capacity, cut at query boundaries first
+                    # (adjacent in a multi-batch input by the documented
+                    # requirement); only a single oversized group overflows.
+                    while frame.n_records > capacity:
+                        changes = np.nonzero(frame.qname[1:] != frame.qname[:-1])[0]
+                        eligible = changes[changes < capacity]
+                        if not eligible.size:
+                            break
+                        cut = int(eligible[-1]) + 1
+                        add(slice_frame(frame, 0, cut), offset, pad)
+                        offset += cut
+                        frame = carried(frame, cut)
+                    add(frame, offset, pad)
+                    break
+                changes = np.nonzero(frame.qname[1:] != frame.qname[:-1])[0]
+                if changes.size == 0:
+                    # one query group so far: keep accumulating
+                    carry = copy_frame(frame)
+                    frame = following
+                    continue
+                # cut at the last query boundary inside the capacity, so the
+                # alignments of one query never split across batches (the
+                # multi-gene rule spans the whole group) and every batch of a
+                # multi-batch run pads to one shape; when even the first group
+                # overflows the capacity, cut right after it
+                eligible = changes[changes < capacity]
+                cut = int(eligible[-1] if eligible.size else changes[0]) + 1
+                add(slice_frame(frame, 0, cut), offset, pad)
+                offset += cut
+                carry = carried(frame, cut)
                 frame = following
-                continue
-            # cut at the last query boundary inside the capacity, so the
-            # alignments of one query never split across batches (the
-            # multi-gene rule spans the whole group) and every batch of a
-            # multi-batch run pads to one shape; when even the first group
-            # overflows the capacity, cut right after it
-            eligible = changes[changes < capacity]
-            cut = int(eligible[-1] if eligible.size else changes[0]) + 1
-            add(slice_frame(frame, 0, cut), offset, pad)
-            offset += cut
-            carry = carried(frame, cut)
-            frame = following
+        finally:
+            # closing the ring joins its thread, which closes the native
+            # stream (or the frame source), on a failure too
+            frames.close()
+            seconds["decode"] = ring_stats["decode"]
         while pending:
             finish_oldest()
         start = time.perf_counter()
@@ -451,6 +480,7 @@ class CountMatrix:
         seconds["assemble"] = time.perf_counter() - start
         result = cls(matrix, row_index, _col_index_from_map(gene_name_to_index))
         result.batches = batches
+        result.ring_batches = ring_stats["batches"]
         result.seconds.update(seconds)
         return result
 

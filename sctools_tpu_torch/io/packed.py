@@ -14,10 +14,10 @@ reads_unmapped).
 A BGZF BAM decodes through the native layer (``sctools_tpu_torch.native``:
 thread-pooled inflate, records parsed straight into these columns), as the
 JAX package's does; custom tag keys and inputs that are not gzip (SAM text)
-take the pure-Python record path (``io.sam.AlignmentReader``). The JAX
-package's per-record side columns (``extras``) have no counterpart here, so
-every frame derives its packed flags and sort operands from the columns
-below.
+take the pure-Python record path (``io.sam.AlignmentReader``). A frame of
+the ingest ring's packed column arena (``ingest.ring_frames``) carries two
+prepacked side columns in ``extras``, as in the JAX package; a frame without
+them derives its packed flags and sort operands from the columns below.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from __future__ import annotations
 import contextlib
 import gc
 import itertools
-from dataclasses import dataclass
-from typing import Iterable, List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -221,12 +221,30 @@ class ReadFrame:
     genomic_qual: np.ndarray  # uint32: above30<<16 | aligned len; 0 == none
     genomic_total: np.ndarray  # uint32: sum of aligned phred scores
 
+    # optional per-record side columns riding the frame through slicing,
+    # concatenation and compaction. The arena decoder ships two: ``flags``
+    # (the packed int16 device word, bits 0..11: all but the host-knowledge
+    # FLAG_MITO and FLAG_RUN_START bits) and ``ps`` (the prepacked
+    # pos << 1 | strand sort operand). Consumers treat a missing key as
+    # "derive it yourself"; concat keeps only keys both sides carry.
+    extras: Dict[str, np.ndarray] = field(default_factory=dict)
+
     def __len__(self) -> int:
         return len(self.cell)
 
     @property
     def n_records(self) -> int:
         return len(self.cell)
+
+    def _view(self, **kwargs) -> "ReadFrame":
+        """A frame whose arrays view this frame's (slice, compact).
+
+        The hook of the ingest frame witness: a stamped arena frame
+        (``SCTOOLS_TPU_FRAME_DEBUG=1``, ``ingest.framedebug.WitnessFrame``)
+        overrides it so that derived views inherit the stamp, while
+        ``copy_frame``, which owns its memory, builds a plain ReadFrame.
+        """
+        return ReadFrame(**kwargs)
 
     # ---- derived float views (the plain schema's quality columns) --------
 
@@ -408,17 +426,24 @@ def slice_frame(frame: ReadFrame, start: int, stop: int) -> ReadFrame:
     kwargs = {name: getattr(frame, name)[start:stop] for name in _PER_RECORD_FIELDS}
     for name in _CODED_FIELDS:
         kwargs[f"{name}_names"] = getattr(frame, f"{name}_names")
-    return ReadFrame(**kwargs)
+    kwargs["extras"] = {k: v[start:stop] for k, v in frame.extras.items()}
+    return frame._view(**kwargs)
 
 
 def copy_frame(frame: ReadFrame) -> ReadFrame:
     """Deep-copy every per-record array (vocabulary lists are shared), so a
-    carried tail owns its memory instead of viewing the batch it came from."""
+    carried tail owns its memory instead of viewing the batch it came from.
+
+    A frame of the ingest ring views a recycled arena slot and is valid only
+    for the ring's retention window (``ingest.ring``); one held longer must
+    be copied.
+    """
     kwargs = {
         name: np.array(getattr(frame, name)) for name in _PER_RECORD_FIELDS
     }
     for name in _CODED_FIELDS:
         kwargs[f"{name}_names"] = getattr(frame, f"{name}_names")
+    kwargs["extras"] = {k: np.array(v) for k, v in frame.extras.items()}
     return ReadFrame(**kwargs)
 
 
@@ -431,6 +456,7 @@ def compact_frame(frame: ReadFrame) -> ReadFrame:
     the compacted (still sorted) vocabulary.
     """
     kwargs = {name: getattr(frame, name) for name in _PER_RECORD_FIELDS}
+    kwargs["extras"] = dict(frame.extras)
     for name in _CODED_FIELDS:
         codes = getattr(frame, name)
         names = getattr(frame, f"{name}_names")
@@ -442,7 +468,7 @@ def compact_frame(frame: ReadFrame) -> ReadFrame:
         remap[used] = np.arange(len(used), dtype=np.int32)
         kwargs[name] = remap[codes]
         kwargs[f"{name}_names"] = [names[int(code)] for code in used]
-    return ReadFrame(**kwargs)
+    return frame._view(**kwargs)
 
 
 def _merge_coded(codes_a, names_a, codes_b, names_b):
@@ -489,6 +515,11 @@ def concat_frames(a: ReadFrame, b: ReadFrame) -> ReadFrame:
         if name in _CODED_FIELDS:
             continue
         kwargs[name] = np.concatenate([getattr(a, name), getattr(b, name)])
+    # keep only the side columns both sides carry: an arena batch after a
+    # Python-decoded or copied carry without them re-derives them instead
+    kwargs["extras"] = {
+        k: np.concatenate([a.extras[k], b.extras[k]]) for k in a.extras if k in b.extras
+    }
     return ReadFrame(**kwargs)
 
 
@@ -552,9 +583,8 @@ def _cyclic_gc_paused():
 
     A chunk's decoded records form no reference cycles, yet each of them is
     several tracked containers, and the collector's passes over a million of
-    them take a large share of the decode time (``decode_gc_ab.py`` times
-    the decode with and without the pause). Their reference counts free
-    them all the same.
+    them take a large share of the Python decoder's time. Their reference
+    counts free them all the same.
     """
     enabled = gc.isenabled()
     gc.disable()

@@ -1,8 +1,10 @@
 """Metric gatherers: stream a sorted BAM through the device engine to a CSV.
 
 The port of ``sctools_tpu.metrics.gatherer`` on its device backend. Batches
-of at most ``batch_records`` alignments decode on the main thread (through
-the native layer for a BGZF input, without query names); each batch
+of at most ``batch_records`` alignments come through the ingest ring
+(``ingest.ring_frames``): a prefetch thread decodes the next batch (through
+the native layer's packed column arena for a BGZF input, without query
+names) while this thread works on the current one. Each batch
 is cut at its last entity boundary and the incomplete tail entity carries
 into the next batch, so an entity never spans two processed batches and
 per-batch results need no merging. Per batch the host makes the same schema
@@ -12,16 +14,20 @@ wide genomic lanes, presorted or not), uploads one int32 block
 ``compact_results_wire`` on the device, and pulls one compacted int32 block
 back (``ingest.pull``). Up to ``_PIPELINE_DEPTH`` batches are on the device
 before the oldest result is written, so batch k+2 is packed and uploaded
-while batch k's pull is in flight.
+while batch k's pull is in flight. The loop holds at most two ring frames
+(the current one while the next is pulled) and keeps nothing of an older
+one: the carry is copied, and a dispatched batch keeps its entity names (an
+owned list) and its pulled result, so the ring's retention window holds.
 
 ``backend='cpu'`` runs the host aggregators (``metrics.aggregator``) over
 the tag groups of ``bam.iter_tag_groups``, one entity at a time in record
 order: the reference-semantics path, which needs no device.
 
-Not ported: the mesh-sharded gatherer, the prefetch/ingest ring, the guard
-ladder (a failed batch fails the command, and the writer discards its temp
-file), and the JAX package's observability hooks. Each gatherer keeps plain
-records instead (``batches``, ``seconds``, ``run_keyed_batches``).
+Not ported: the mesh-sharded gatherer, the writeback ring (``ingest.pull``
+does its asynchronous copy), the guard ladder (a failed batch fails the
+command, and the writer discards its temp file), and the JAX package's
+observability hooks. Each gatherer keeps plain records instead
+(``batches``, ``seconds``, ``ring_batches``, ``run_keyed_batches``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from .. import ingest
 from ..bam import iter_cell_barcodes, iter_genes, iter_molecule_barcodes
 from ..device import DeviceLike, resolve
 from ..io.packed import (
+    FLAG_MITO,
     FLAG_RUN_START,
     KEY_CODE_BITS,
     KEY_HI_SHIFT,
@@ -47,7 +54,6 @@ from ..io.packed import (
     compact_frame,
     concat_frames,
     copy_frame,
-    iter_frames_from_bam,
     pack_flags,
     slice_frame,
     wire_layout,
@@ -104,11 +110,20 @@ def _pad_columns(
         out[:n] = arr
         return out
 
-    flags = pack_flags(
-        frame.strand, frame.unmapped, frame.duplicate, frame.spliced,
-        frame.xf, frame.perfect_umi, frame.perfect_cb, frame.nh,
-        is_mito[frame.gene],
-    )
+    if "flags" in frame.extras:
+        # the arena decoder prepacked bits 0..11; only the host-knowledge
+        # mito bit remains (FLAG_RUN_START is OR-ed below for run-keyed
+        # batches, whichever the flags' source)
+        flags = (
+            frame.extras["flags"].astype(np.int32)
+            | (is_mito[frame.gene].astype(np.int32) * FLAG_MITO)
+        ).astype(np.int16)
+    else:
+        flags = pack_flags(
+            frame.strand, frame.unmapped, frame.duplicate, frame.spliced,
+            frame.xf, frame.perfect_umi, frame.perfect_cb, frame.nh,
+            is_mito[frame.gene],
+        )
     cols = {"flags": pad(flags, 0, np.int16)}
     if prepacked_keys is None:
         # the plain schema ships the derived float32 quality views
@@ -163,7 +178,9 @@ def _pad_columns(
         )
     key_hi = (k1 << KEY_HI_SHIFT) | (k2 >> KEY_HI_SHIFT)
     key_lo = ((k2 & KEY_LO_MASK) << KEY_CODE_BITS) | k3
-    ps_col = (frame.pos.astype(np.int32) << 1) | frame.strand.astype(np.int32)
+    ps_col = frame.extras.get("ps")
+    if ps_col is None:
+        ps_col = (frame.pos.astype(np.int32) << 1) | frame.strand.astype(np.int32)
     cols.update(
         umi_qual=pad(frame.umi_qual, 0, np.uint16),
         m_ref=m_ref,
@@ -307,10 +324,15 @@ class MetricGatherer:
         # schema decisions, and on CUDA the (start, end) events around its
         # upload, device pass and pull
         self.batches: List[dict] = []
-        # host wall seconds of the run by activity: decode, pack (schema
-        # decisions and padded columns), dispatch (upload and enqueue of
-        # the device pass and its pull), wait (on pulls), csv
-        self.seconds = {"decode": 0.0, "pack": 0.0, "dispatch": 0.0, "wait": 0.0, "csv": 0.0}
+        # host wall seconds of the run by activity: decode (the ring's
+        # producer thread, decoding and filling arenas: it overlaps the
+        # rest), and on this thread decode_wait (on the ring's queue), pack
+        # (schema decisions and padded columns), dispatch (upload and
+        # enqueue of the device pass and its pull), wait (on pulls), csv
+        self.seconds = {"decode": 0.0, "decode_wait": 0.0, "pack": 0.0, "dispatch": 0.0,
+                        "wait": 0.0, "csv": 0.0}
+        # the frames the ring handed over
+        self.ring_batches = 0
         # what the frame source reports of its own work, off this thread:
         # the fused TagSortBam's native sort fills its phase seconds and
         # the partials it wrote (``native.tagsort_stream_frames``)
@@ -338,10 +360,11 @@ class MetricGatherer:
             self._extract_cpu()
             return
         self.start_stream()
+        ring_stats: Dict[str, float] = {}
         if self._frame_source is not None:
-            frames = self._frame_source()
+            frames = ingest.ring_frames(source=self._frame_source(), stats=ring_stats)
         else:
-            frames = iter_frames_from_bam(self._bam_file, self._batch_records, want_qname=False)
+            frames = ingest.ring_frames(self._bam_file, self._batch_records, stats=ring_stats)
         out = MetricCSVWriter(self._output_stem)
         try:
             out.write_header({c: None for c in self.columns})
@@ -353,9 +376,12 @@ class MetricGatherer:
         else:
             out.close()
         finally:
-            # a source left open on a failure holds its files (the fused
-            # sort's worker, partials and tee) until garbage collection
-            getattr(frames, "close", lambda: None)()
+            # closing the ring joins its thread, which closes the source: a
+            # source left open on a failure holds its files (the native
+            # stream, or the fused sort's worker, partials and tee)
+            frames.close()
+            self.seconds["decode"] = ring_stats["decode"]
+            self.ring_batches = ring_stats["batches"]
 
     def start_stream(self) -> None:
         """Reset the wire-schema state that must not flip mid-stream: the u8
@@ -372,7 +398,7 @@ class MetricGatherer:
         while True:
             start = time.perf_counter()
             frame = next(frames, None)
-            self.seconds["decode"] += time.perf_counter() - start
+            self.seconds["decode_wait"] += time.perf_counter() - start
             if frame is None:
                 return
             yield frame

@@ -6,6 +6,9 @@ commands, as in the JAX package:
 
 - ``stream_frames`` yields ``ReadFrame``s of a BGZF (or plain ``"BAM\\1"``)
   BAM, decoded on a thread pool (``io.packed.iter_frames_from_bam``);
+- ``NativeBatchStream`` decodes batch by batch into a caller's packed
+  column arena (``scx_batch_fill_arena``), the decoder of the ingest ring
+  (``ingest.ring_frames``) under the metrics and count commands;
 - ``frame_from_bam`` decodes a whole file into one frame
   (``io.packed.frame_from_bam``);
 - ``tagsort`` sorts a BAM by three tags and the query name into a BGZF
@@ -66,7 +69,8 @@ CXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared", "-Wall", "-Wextra"]
 LINK_FLAGS = ["-lz", "-lpthread"]
 
 calls: Dict[str, int] = {
-    "stream_frames": 0, "frame_from_bam": 0, "tagsort": 0, "tagsort_stream_frames": 0,
+    "stream_frames": 0, "batch_stream": 0, "frame_from_bam": 0, "tagsort": 0,
+    "tagsort_stream_frames": 0,
     "format_csv_block": 0, "fastqprocess": 0, "attach": 0, "sample_fastq": 0, "fastq_metrics": 0,
 }
 
@@ -144,6 +148,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "scx_stream_next": (c_long, [p, c_long]),
         "scx_stream_error": (c_char_p, [p]),
         "scx_stream_close": (None, [p]),
+        "scx_arena_nbytes": (c_long, [c_long]),
+        "scx_batch_fill_arena": (c_long, [p, p, c_long]),
         "scx_decode_bam": (p, [c_char_p, c_int, c_char_p, c_int]),
         "scx_free": (None, [p]),
         "scx_n_records": (c_long, [p]),
@@ -221,12 +227,24 @@ def _copy_array(pointer, n, dtype):
 
 
 def _vocab(lib, handle, name: bytes) -> List[str]:
+    """A batch's vocabulary of a coded column as Python strings.
+
+    The names (which hold no NUL: BAM strings end at one) are laid out with
+    a NUL between each two in numpy and split in one call, not sliced one
+    by one: a query-name vocabulary holds about a string a record, and on
+    the ingest ring's thread every Python step holds the GIL against the
+    consumer's.
+    """
     size = lib.scx_vocab_size(handle, name)
+    if size <= 0:
+        return []
     total = ctypes.c_long(0)
     data = lib.scx_vocab_bytes(handle, name, ctypes.byref(total))
-    offsets = lib.scx_vocab_offsets(handle, name)
-    raw = ctypes.string_at(data, total.value) if total.value else b""
-    return [raw[offsets[i]:offsets[i + 1]].decode("ascii") for i in range(size)]
+    offsets = np.ctypeslib.as_array(lib.scx_vocab_offsets(handle, name), shape=(size + 1,))
+    raw = np.frombuffer(ctypes.string_at(data, total.value), dtype=np.uint8)
+    joined = np.zeros(total.value + size - 1, dtype=np.uint8)
+    joined[np.arange(total.value) + np.repeat(np.arange(size), np.diff(offsets))] = raw
+    return joined.tobytes().decode("ascii").split("\0")
 
 
 def _frame_from_handle(lib, handle, want_qname: bool) -> ReadFrame:
@@ -325,6 +343,78 @@ def stream_frames(path: str, batch_records: int, want_qname: bool = False) -> It
         yield from _decoded_batches(lib, handle, batch_records, want_qname, "native BAM stream")
     finally:
         lib.scx_stream_close(handle)
+
+
+def arena_nbytes(capacity: int) -> int:
+    """The byte size of a packed column arena for ``capacity`` records, by
+    the C++ layout (``scx_arena_nbytes``); ``ingest.arena.arena_nbytes``
+    computes the same from ``ARENA_SPEC``. Raises ValueError unless the
+    capacity is a positive multiple of 64."""
+    n = library().scx_arena_nbytes(capacity)
+    if n < 0:
+        raise ValueError(f"invalid arena capacity {capacity} (a positive multiple of 64)")
+    return int(n)
+
+
+class NativeBatchStream:
+    """A streaming BAM decode handle for the ingest ring.
+
+    ``next()`` decodes up to ``max_records`` alignments into the handle's
+    batch, ``fill_arena()`` writes that batch's columns into a caller-owned
+    contiguous buffer (``ingest.arena.ColumnArena`` views it with
+    ``np.frombuffer``: no per-column copies), and ``vocab()`` returns the
+    batch's sorted vocabulary of a coded column. Raises RuntimeError when
+    the file cannot be opened or is malformed. ``close()`` releases the
+    handle; the stream is also a context manager.
+    """
+
+    def __init__(self, path: str, want_qname: bool = False):
+        lib = library()
+        errbuf = _errbuf()
+        handle = lib.scx_stream_open(
+            path.encode(), default_threads(), int(want_qname), errbuf, ctypes.sizeof(errbuf))
+        if not handle:
+            raise RuntimeError(f"native BAM stream open failed: {_message(errbuf)}")
+        calls["batch_stream"] += 1
+        self._lib = lib
+        self._handle = handle
+
+    def next(self, max_records: int) -> int:
+        """Decode the next batch; returns its record count (0 at the end)."""
+        n = self._lib.scx_stream_next(self._handle, max_records)
+        if n < 0:
+            raise RuntimeError(
+                "native BAM stream failed: "
+                f"{self._lib.scx_stream_error(self._handle).decode(errors='replace')}")
+        return int(n)
+
+    def fill_arena(self, arena: np.ndarray, capacity: int) -> int:
+        """Write the current batch's columns into ``arena`` (a C-contiguous
+        uint8 buffer of ``arena_nbytes(capacity)`` bytes); returns the record
+        count. Rows [n:capacity) of each section are left as they were."""
+        if arena.dtype != np.uint8 or not arena.flags["C_CONTIGUOUS"]:
+            raise ValueError("arena must be a C-contiguous uint8 buffer")
+        if arena.nbytes < arena_nbytes(capacity):
+            raise ValueError(f"arena of {arena.nbytes} bytes is too small for capacity {capacity}")
+        n = self._lib.scx_batch_fill_arena(self._handle, arena.ctypes.data, capacity)
+        if n < 0:
+            raise RuntimeError(f"arena fill failed: capacity {capacity} cannot hold the batch")
+        return int(n)
+
+    def vocab(self, name: str) -> List[str]:
+        """The current batch's sorted vocabulary of a coded column."""
+        return _vocab(self._lib, self._handle, name.encode())
+
+    def close(self) -> None:
+        if self._handle is not None:
+            self._lib.scx_stream_close(self._handle)
+            self._handle = None
+
+    def __enter__(self) -> "NativeBatchStream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def _tag_bytes(tag_keys: Sequence[str]) -> List[bytes]:

@@ -25,8 +25,7 @@
 //   * gene names and query names keep per-thread interning with a last-key
 //     memo, merged and remapped once per batch.
 //
-// Left out of the JAX copy: the packed column arena of its ingest ring
-// (scx_arena_nbytes, scx_batch_fill_arena) and the per-stage timers.
+// Left out of the JAX copy: its per-stage timers.
 //
 // Exposed through a minimal C API consumed by ctypes
 // (sctools_tpu_torch/native/__init__.py); no Python.h dependency.
@@ -897,6 +896,101 @@ long stream_next(Stream& s, long max_records) {
   return static_cast<long>(n);
 }
 
+// ------------------------------------------------------- packed column arena
+//
+// Caller-owned contiguous staging buffer: one allocation holds every
+// per-record column of a batch as adjacent struct-of-arrays sections, so the
+// Python side views them with np.frombuffer (no copies, no per-record
+// objects). The section order and widths are the ingest ABI:
+// sctools_tpu_torch/ingest/arena.py ARENA_SPEC iterates the same list, and
+// tests/test_torch_ingest.py holds the two sides (and the JAX package's
+// arena) to the same bytes. Widths descend (4-byte lanes first) and the
+// capacity must be a multiple of kArenaAlign, so every section offset stays
+// 64-byte aligned for any capacity.
+//
+// Two fields are finished host-side because they need host-only knowledge:
+// the ``flags`` word carries bits 0..11 (strand/unmapped/duplicate/spliced/
+// xf/perfect_umi/perfect_cb/nh==1, the io/packed.py bit layout); FLAG_MITO
+// and FLAG_RUN_START need the mito-gene set / run boundaries and are OR-ed
+// in by the gatherer's padder. ``ps`` ships finished (pos << 1 | strand).
+
+constexpr long kArenaAlign = 64;
+
+struct ArenaLane {
+  const char* name;
+  int width;  // bytes per record
+};
+
+// the ingest ABI: order and widths mirrored by ingest/arena.py ARENA_SPEC
+constexpr ArenaLane kArenaLanes[] = {
+    {"cell", 4},         {"umi", 4},           {"gene", 4},
+    {"qname", 4},        {"ref", 4},           {"pos", 4},
+    {"nh", 4},           {"ps", 4},            {"genomic_qual", 4},
+    {"genomic_total", 4},{"umi_qual", 2},      {"cb_qual", 2},
+    {"flags", 2},        {"strand", 1},        {"xf", 1},
+    {"perfect_umi", 1},  {"perfect_cb", 1},    {"unmapped", 1},
+    {"duplicate", 1},    {"spliced", 1},
+};
+
+long arena_nbytes(long capacity) {
+  if (capacity <= 0 || capacity % kArenaAlign != 0) return -1;
+  long total = 0;
+  for (const ArenaLane& lane : kArenaLanes) total += capacity * lane.width;
+  return total;
+}
+
+long batch_fill_arena(Stream& s, uint8_t* arena, long capacity) {
+  const Columns& c = s.batch.cols;
+  long n = static_cast<long>(c.size());
+  if (arena == nullptr || capacity < n || capacity % kArenaAlign != 0)
+    return -1;
+  uint8_t* cursor = arena;
+  auto lane = [&](int width) {
+    uint8_t* p = cursor;
+    cursor += capacity * width;
+    return p;
+  };
+  auto copy = [&](const void* src, int width) {
+    std::memcpy(lane(width), src, static_cast<size_t>(n) * width);
+  };
+  copy(c.cell.data(), 4);
+  copy(c.umi.data(), 4);
+  copy(c.gene.data(), 4);
+  copy(c.qname.data(), 4);
+  copy(c.ref.data(), 4);
+  copy(c.pos.data(), 4);
+  copy(c.nh.data(), 4);
+  // ps: the prepacked position-strand sort operand (io/packed.py key docs)
+  int32_t* ps = reinterpret_cast<int32_t*>(lane(4));
+  for (long i = 0; i < n; ++i)
+    ps[i] = (c.pos[i] << 1) | static_cast<int32_t>(c.strand[i]);
+  copy(c.genomic_qual.data(), 4);
+  copy(c.genomic_total.data(), 4);
+  copy(c.umi_qual.data(), 2);
+  copy(c.cb_qual.data(), 2);
+  // flags bits 0..11: io/packed.py pack_flags minus the host-only bits
+  int16_t* flags = reinterpret_cast<int16_t*>(lane(2));
+  for (long i = 0; i < n; ++i) {
+    int32_t f = static_cast<int32_t>(c.strand[i]) & 1;
+    f |= (static_cast<int32_t>(c.unmapped[i]) & 1) << 1;
+    f |= (static_cast<int32_t>(c.duplicate[i]) & 1) << 2;
+    f |= (static_cast<int32_t>(c.spliced[i]) & 1) << 3;
+    f |= (static_cast<int32_t>(c.xf[i]) & 7) << 4;
+    f |= ((static_cast<int32_t>(c.perfect_umi[i]) + 1) & 3) << 7;
+    f |= ((static_cast<int32_t>(c.perfect_cb[i]) + 1) & 3) << 9;
+    f |= (c.nh[i] == 1 ? 1 : 0) << 11;
+    flags[i] = static_cast<int16_t>(f);
+  }
+  copy(c.strand.data(), 1);
+  copy(c.xf.data(), 1);
+  copy(c.perfect_umi.data(), 1);
+  copy(c.perfect_cb.data(), 1);
+  copy(c.unmapped.data(), 1);
+  copy(c.duplicate.data(), 1);
+  copy(c.spliced.data(), 1);
+  return n;
+}
+
 Batch::Flat* flat_vocab(Stream* s, const char* name) {
   std::string_view n(name);
   std::vector<std::string>* vocab = nullptr;
@@ -962,6 +1056,14 @@ const char* scx_stream_error(void* h) {
 }
 
 void scx_stream_close(void* h) { delete static_cast<Stream*>(h); }
+
+// ---- packed column arena (ingest ABI; layout mirrored by ingest/arena.py)
+
+long scx_arena_nbytes(long capacity) { return arena_nbytes(capacity); }
+
+long scx_batch_fill_arena(void* h, uint8_t* arena, long capacity) {
+  return batch_fill_arena(*static_cast<Stream*>(h), arena, capacity);
+}
 
 // ---- batch column accessors (current batch of a stream / whole-file handle)
 

@@ -304,11 +304,15 @@ class GenericPlatform:
         optional sorted bam, teed at BGZF level 1).
 
         The native sort's merge streams into the gatherer
-        (``native.tagsort_stream_frames``), as in the JAX package, for every
-        gzip input: the JAX package's two-pass fallback, for a BAM named
-        ``.sam``, gives the same outputs. An input that is not gzip fails as
+        (``native.tagsort_stream_frames``, behind the ingest ring's prefetch
+        stage), as in the JAX package, for every gzip input: the JAX
+        package's two-pass fallback, for a BAM named ``.sam``, gives the
+        same outputs. An input that is not gzip fails as
         that fallback fails, opening it as a BAM (SAM text: gzip's error).
-        A failure publishes no CSV and leaves no sorted BAM and no partials.
+        A failure publishes no CSV and leaves no sorted BAM and no partials:
+        the sorted BAM is teed into the scratch directory and moved to
+        ``-o`` only once the metrics pass has succeeded (the ring's producer
+        may finish the sort before the pass fails).
         """
         mitochondrial_gene_ids: Set[str] = set()
         if args.gtf_annotation_file:
@@ -320,6 +324,7 @@ class GenericPlatform:
         gatherer_cls = GatherCellMetrics if kind == "cell" else GatherGeneMetrics
         scratch_dir = os.path.dirname(os.path.abspath(args.output_bam or metrics_stem))
         with tempfile.TemporaryDirectory(prefix="tagsort_", dir=scratch_dir) as scratch:
+            tee = os.path.join(scratch, "sorted.bam") if args.output_bam else None
             # the source runs inside extract_metrics, after ``gatherer`` is
             # bound, and reports the sort's own work to it
             gatherer = gatherer_cls(
@@ -327,11 +332,13 @@ class GenericPlatform:
                 frame_source=lambda: native.tagsort_stream_frames(
                     args.input_bam, tags, os.path.join(scratch, "partial"), gatherer.source_stats,
                     sort_batch_records=args.records_per_chunk or tagsort.DEFAULT_RECORDS_PER_CHUNK,
-                    bam_output=args.output_bam,
+                    bam_output=tee,
                 ),
                 device=device,
             )
             gatherer.extract_metrics()
+            if tee is not None:
+                os.replace(tee, args.output_bam)
         return 0
 
     @classmethod

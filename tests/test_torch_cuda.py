@@ -11,7 +11,8 @@ The metrics engine (plain torch ops, no hand kernel) is held here to its own
 CPU results bit for bit, floats included, on a run-keyed prepacked batch and
 a plain unsorted one, at 5,000 records and at 2^20 (where the scan's stride
 loop runs to 2^19), and one ``GatherCellMetrics`` CSV on the card to the
-same on the CPU. The count pass (plain torch ops too) is held to its CPU
+same on the CPU, also through the ingest ring at depth 1 under the frame
+witness with its slots reused. The count pass (plain torch ops too) is held to its CPU
 results at 5,000 records and at 2^19, the count's batch width, and one
 ``CreateCountMatrix`` run on the card to the same on the CPU. FastqProcess
 (BAM and FASTQ shards, compared decompressed), SampleFastq and
@@ -353,6 +354,38 @@ def test_cell_metrics_csv_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         )
         gatherer.extract_metrics()
         assert gatherer.run_keyed_batches >= 1
+        with gzip.open(tmp_path / f"{device}.csv.gz", "rb") as f:
+            csv[device] = f.read()
+    assert csv["cuda"] == csv["cpu"] and csv["cpu"].count(b"\n") == 301
+
+
+def test_ring_cell_metrics_csv_on_the_card_matches_the_cpu(cuda_device, tmp_path, monkeypatch):
+    """The ingest ring at depth 1, under the frame witness, with 1,000-record
+    batches: 7 frames over 4 slots, so every slot is reused; the CSV on the
+    card equals the CPU's, and no prefetch thread is left."""
+    import threading
+
+    from sctools_tpu_torch import ingest
+    from sctools_tpu_torch.ingest import framedebug
+
+    monkeypatch.setenv("SCTOOLS_TPU_PREFETCH_DEPTH", "1")
+    monkeypatch.setenv(framedebug.ENV_FLAG, "1")
+    header, records = _cell_library(np.random.default_rng(8))
+    bam = str(tmp_path / "cells.bam")
+    with AlignmentWriter(bam, header) as out:
+        for record in records:
+            out.write(record)
+    csv = {}
+    for device in ("cpu", "cuda"):
+        native.reset_calls()
+        framedebug.reset()
+        gatherer = port_gatherer.GatherCellMetrics(
+            bam, str(tmp_path / device), {"G000", "G001"}, batch_records=1000, device=device
+        )
+        gatherer.extract_metrics()
+        assert native.calls["batch_stream"] == 1 and gatherer.ring_batches == 7 > ingest.ring_slots()
+        assert framedebug.stamped_count() == 7 and framedebug.violations() == []
+        assert not [t for t in threading.enumerate() if t.name == "sctools-prefetch" and t.is_alive()]
         with gzip.open(tmp_path / f"{device}.csv.gz", "rb") as f:
             csv[device] = f.read()
     assert csv["cuda"] == csv["cpu"] and csv["cpu"].count(b"\n") == 301
