@@ -97,7 +97,22 @@ Phases, in order; any failure exits non-zero before the last line:
               the sort's split by phase (read, chunk sort, partial writes,
               merge), the metrics pass's split and the idle share; no hand
               kernel may launch;
-9. kernels -- one JSON line per the port's kernel contract; its launches are
+9. mesh    -- ``--devices 2`` on the card: CalculateCellMetrics and
+              CalculateGeneMetrics on phase 5's BAMs, CreateCountMatrix on
+              phase 6's, MergeCellMetrics / MergeGeneMetrics (the collective
+              merges) on phase 6's merge inputs and the fused TagSortBam on
+              phase 8's shuffled BAM, through their entry points on a
+              2-shard mesh: two distinct cards where the machine has them,
+              else [cuda:0, cuda:0] (then ``--devices 2`` alone must stop at
+              the parser, and the commands get the one-card mesh in its
+              place). Every CSV must equal its one-device phase's byte for
+              byte (decompressed), the count matrix phase 6's, the merges
+              the host merges'. ``collective_preflight``,
+              ``distributed_metrics_step`` and ``distributed_sort`` on the
+              card mesh, over the cell BAM's first 2^18 records, must equal
+              the same on a 2-shard CPU mesh. Prints each command's wall
+              and ``seconds``; no hand kernel may launch;
+10. kernels -- one JSON line per the port's kernel contract; its launches are
               those of every main-path run (phases 4 and 7).
 
 The last line of standard output is
@@ -1723,12 +1738,21 @@ SORT_TAGS = ("CB", "UB", "GE")
 SORT_CHUNK = 500_000  # TagSortBam's default --records-per-chunk, not cut
 # phase 5's outputs that phases 6 and 7 leave for the sort phase
 KEPT_FOR_SORT = ("cli_cell.csv.gz", "cell_sorted.bam")
+# the inputs and one-device outputs of phases 5, 6 and 8 that the mesh
+# phase runs again on the mesh and compares with
+KEPT_FOR_MESH = (
+    "cell_sorted.bam", "gene_sorted.bam", "mito.gtf", "cli_cell.csv.gz", "cli_gene.csv.gz",
+    "count.bam", "genes.gtf", "cli_count.npz", "cli_count_row_index.npy", "cli_count_col_index.npy",
+    "cell_part0.csv.gz", "cell_part1.csv.gz", "merged_cell.csv.gz", "merged_gene.csv.gz",
+    "cell_shuffled.bam", "fused_cell.csv.gz",
+)
 
 
 def clear_work(*keep: str) -> None:
-    """Remove the work files but the names in ``keep``, which a later phase reads."""
+    """Remove the work files but the names in ``keep`` and KEPT_FOR_MESH,
+    which a later phase reads."""
     for path in WORK.iterdir():
-        if path.name not in keep:
+        if path.name not in keep and path.name not in KEPT_FOR_MESH:
             shutil.rmtree(path) if path.is_dir() else path.unlink()
 
 
@@ -1882,8 +1906,7 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
         raise AssertionError("VerifyBamSort passed the shuffled BAM")
     log(f"[sort] VerifyBamSort: 0 on the sorted BAM ({n} records in {verify_seconds:.2f} s = "
         f"{n / verify_seconds:.0f} records/s), SortError on the shuffled one ({refused})")
-    for path in (shuffled, sorted_bam):
-        path.unlink()
+    sorted_bam.unlink()  # the shuffled BAM stays for the mesh phase
 
     # SplitBam on phase 7's four shards, from inside the work directory: the
     # scratch directories go in the working directory. SplitBam re-encodes
@@ -1944,8 +1967,170 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
     log(f"[sort] GroupQCs Picard, PicardTable, HISAT2, RSEM and Core: {checked} cells read back as written")
     if any(kernels.launches.values()):
         raise AssertionError(f"a hand kernel launched in the sort phase: {kernels.launches}")
-    shutil.rmtree(WORK)
+    clear_work()
     log(f"[sort] phase 8 took {time.perf_counter() - phase_start:.1f} s")
+
+
+MESH_SHARDS = 2
+# the distributed step's and the sample sort's input: the cell BAM's first
+# records, at 2 shards of 2^17 (their CPU mesh run is the reference)
+MESH_STEP_RECORDS = 1 << 18
+
+
+@contextlib.contextmanager
+def mesh_for_devices(port_platform, mesh):
+    """Within the block, ``--devices N`` with N the mesh's size resolves to
+    ``mesh`` (the one-card mesh, which no command line can ask for); every
+    other value resolves as the command would."""
+    real = port_platform._resolve_mesh
+
+    def resolve(devices, backend, parser, device):
+        if devices == mesh.size and backend != "cpu":
+            return mesh
+        return real(devices, backend, parser, device)
+
+    port_platform._resolve_mesh = resolve
+    try:
+        yield
+    finally:
+        port_platform._resolve_mesh = real
+
+
+def same_sharded(name: str, got: dict, want: dict) -> None:
+    """Two stacked sharded results equal, float bits included."""
+    if set(got) != set(want):
+        raise AssertionError(f"{name}: columns {sorted(got)} != {sorted(want)}")
+    for key in want:
+        a, b = got[key], want[key]
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+            a.view(np.int32) if a.dtype == np.float32 else a, b.view(np.int32) if b.dtype == np.float32 else b
+        ):
+            raise AssertionError(f"{name}: {key} differs between the card mesh and the CPU mesh")
+
+
+def phase_mesh(stamp: str, modules) -> None:
+    """The six ``--devices`` commands on a 2-shard card mesh against their
+    one-device outputs of phases 5, 6 and 8; the mesh functions on the card
+    against a CPU mesh."""
+    import torch
+
+    kernels, port_platform, port_par, port_par_gatherer, port_gatherer, port_gtf, packed = modules
+    phase_start = time.perf_counter()
+    launches_before = dict(kernels.launches)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= MESH_SHARDS:
+        mesh = port_par.make_mesh(MESH_SHARDS)
+        patch = contextlib.nullcontext()
+        how = f"the commands' own --devices {MESH_SHARDS}"
+    else:
+        # the CLI's mesh needs as many cards as shards: JAX's parser error
+        stderr = io.StringIO()
+        with contextlib.redirect_stderr(stderr), contextlib.suppress(SystemExit):
+            port_platform.GenericPlatform.calculate_cell_metrics(
+                ["-i", str(WORK / "cell_sorted.bam"), "-o", str(WORK / "refused"), "--devices", str(MESH_SHARDS)])
+        want = f"error: requested {MESH_SHARDS} devices, only {n_cards} available"
+        if want not in stderr.getvalue() or list(WORK.glob("refused*")):
+            raise AssertionError(f"--devices {MESH_SHARDS} on {n_cards} card: {stderr.getvalue()!r}")
+        log(f"[mesh] --devices {MESH_SHARDS} on this {n_cards}-card machine stops at the parser: {want!r}")
+        card = torch.device("cuda", 0)
+        mesh = port_par.make_mesh(devices=[card] * MESH_SHARDS)
+        patch = mesh_for_devices(port_platform, mesh)
+        how = f"--devices {MESH_SHARDS} resolved to the one-card mesh"
+    log(f"[mesh] {n_cards} card(s) of {torch.cuda.get_device_name(0)}: the commands run on {mesh!r} ({how}); "
+        f"fingerprint {port_par.mesh_fingerprint(mesh)}")
+    devices = ["--devices", str(MESH_SHARDS)]
+    mito = str(WORK / "mito.gtf")
+    commands = [
+        ("calculate_cell_metrics", "ShardedCellMetrics",
+         ["-i", str(WORK / "cell_sorted.bam"), "-o", str(WORK / "mesh_cell"), "-a", mito],
+         "mesh_cell.csv.gz", "cli_cell.csv.gz"),
+        ("calculate_gene_metrics", "ShardedGeneMetrics",
+         ["-i", str(WORK / "gene_sorted.bam"), "-o", str(WORK / "mesh_gene")],
+         "mesh_gene.csv.gz", "cli_gene.csv.gz"),
+        ("bam_to_count_matrix", "CountMatrix",
+         ["-b", str(WORK / "count.bam"), "-a", str(WORK / "genes.gtf"), "-o", str(WORK / "mesh_count")],
+         "mesh_count", "cli_count"),
+        ("merge_cell_metrics", None,
+         [str(WORK / "cell_part0.csv.gz"), str(WORK / "cell_part1.csv.gz"), "-o", str(WORK / "mesh_merged_cell")],
+         "mesh_merged_cell.csv.gz", "merged_cell.csv.gz"),
+        ("merge_gene_metrics", None,
+         [str(WORK / "cli_gene.csv.gz"), str(WORK / "cli_gene.csv.gz"), "-o", str(WORK / "mesh_merged_gene")],
+         "mesh_merged_gene.csv.gz", "merged_gene.csv.gz"),
+        ("tag_sort_bam", "ShardedCellMetrics",
+         ["-i", str(WORK / "cell_shuffled.bam"), "-t", *SORT_TAGS, "--cell-metrics-output",
+          str(WORK / "mesh_fused"), "-a", mito],
+         "mesh_fused.csv.gz", "fused_cell.csv.gz"),
+    ]
+    with patch:
+        for entry, recorded, args, got, want in commands:
+            made = []
+            module = port_platform if recorded == "CountMatrix" else port_par_gatherer
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            with recording(module, recorded, made) if recorded else contextlib.nullcontext():
+                rc = getattr(port_platform.GenericPlatform, entry)(args + devices)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - begin
+            if entry == "bam_to_count_matrix":
+                equal = same_files(WORK / got, WORK / want)
+            else:
+                equal = read_csv(WORK / got)[0] == read_csv(WORK / want)[0]
+            if rc != 0 or not equal:
+                raise AssertionError(f"{entry} --devices {MESH_SHARDS}: rc {rc}, output equal to {want}: {equal}")
+            detail = ""
+            if made:
+                runner = made[0]
+                split = ", ".join(f"{k} {v:.2f}" for k, v in runner.seconds.items() if isinstance(v, float))
+                shards = [b.get("shards", MESH_SHARDS) for b in runner.batches]
+                detail = (f"; {len(runner.batches)} batches over {shards[0] if shards else MESH_SHARDS} shards, "
+                          f"{sum(b['records'] for b in runner.batches)} records padded to "
+                          f"{sum(b['padded'] for b in runner.batches)}; seconds: {split}")
+                if getattr(runner, "source_stats", None):
+                    detail += "; sort: " + ", ".join(
+                        f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}" for k, v in runner.source_stats.items())
+            log(f"[mesh] {stamp} | {entry} --devices {MESH_SHARDS}: {wall:.2f} s wall{detail}; "
+                f"output equals {want} (one device)")
+
+    cpu_mesh = port_par.make_mesh(MESH_SHARDS, device="cpu")
+    begin = time.perf_counter()
+    if port_par.collective_preflight(mesh) != port_par.collective_preflight(cpu_mesh):
+        raise AssertionError("collective_preflight: the card mesh and the CPU mesh differ")
+    frames = packed.iter_frames_from_bam(str(WORK / "cell_sorted.bam"), MESH_STEP_RECORDS, want_qname=False)
+    frame = next(frames)
+    frames.close()
+    names = port_gtf.get_mitochondrial_gene_names(mito)
+    is_mito = np.asarray([name in names for name in frame.gene_names], dtype=bool)
+    cols = port_gatherer._pad_columns(frame, is_mito)[0]
+    stacked = port_par.partition_columns(cols, MESH_SHARDS, key="cell")
+    keys = {"k1": frame.cell.reshape(MESH_SHARDS, -1), "k2": frame.umi.reshape(MESH_SHARDS, -1),
+            "payload": np.arange(frame.n_records, dtype=np.int32).reshape(MESH_SHARDS, -1),
+            "valid": np.ones((MESH_SHARDS, frame.n_records // MESH_SHARDS), dtype=bool)}
+    seconds = {}
+    results = {}
+    for name, on in (("card", mesh), ("cpu", cpu_mesh)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        cell, gene = port_par.distributed_metrics_step(stacked, on)
+        step = (port_par.stack_to_host(cell), port_par.stack_to_host(gene))
+        seconds[name, "step"] = time.perf_counter() - start
+        start = time.perf_counter()
+        ordered = port_par.stack_to_host(port_par.distributed_sort(keys, ["k1", "k2"], on))
+        seconds[name, "sort"] = time.perf_counter() - start
+        results[name] = step + (ordered,)
+    for label, got, want in zip(("step cell", "step gene", "sort"), results["card"], results["cpu"]):
+        same_sharded(label, got, want)
+    flat = np.concatenate([results["card"][2]["k1"][s][results["card"][2]["valid"][s]] for s in range(MESH_SHARDS)])
+    if flat.size != frame.n_records or np.any(np.diff(flat) < 0):
+        raise AssertionError("distributed_sort: the flattened shards are not the records in order")
+    log(f"[mesh] {stamp} | collective_preflight equal on the card and CPU meshes; distributed_metrics_step "
+        f"({frame.n_records} records, {stacked['cell'].shape[1]} a shard) card {seconds['card', 'step']:.2f} s, "
+        f"cpu {seconds['cpu', 'step']:.2f} s; distributed_sort (cell, umi) card {seconds['card', 'sort']:.2f} s, "
+        f"cpu {seconds['cpu', 'sort']:.2f} s; every output equal bit for bit ({time.perf_counter() - begin:.1f} s)")
+    if dict(kernels.launches) != launches_before:
+        raise AssertionError(f"a hand kernel launched in the mesh phase: {kernels.launches}")
+    log("[mesh] no hand kernel launched (kernels.launches unchanged)")
+    shutil.rmtree(WORK)
+    log(f"[mesh] phase 9 took {time.perf_counter() - phase_start:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1976,6 +2161,8 @@ def main(argv=None) -> int:
     from sctools_tpu_torch.ops import counting as port_counting
     from sctools_tpu_torch.ops import segments as port_seg
     from sctools_tpu_torch.ops import whitelist as wl_ops
+    from sctools_tpu_torch import parallel as port_par
+    from sctools_tpu_torch.parallel import gatherer as port_par_gatherer
 
     phase_build(kernels, native)
     rng = np.random.default_rng(args.seed)
@@ -2001,18 +2188,19 @@ def main(argv=None) -> int:
         np.random.default_rng(args.seed + 4), stamp,
         (kernels, native, port_platform, port_bam, bgzf, sam), bam_shards,
     )
+    phase_mesh(stamp, (kernels, port_platform, port_par, port_par_gatherer, port_gatherer, port_gtf, packed))
     record = {
         "name": "whitelist_correct",
         "route": "cuda",
         "source": "sctools_tpu_torch/csrc/whitelist_correct.cu",
         "replaces": "sctools_tpu/ops/whitelist.py:125",
         # every main-path run of the smoke: attach, FastqProcess in both
-        # formats, SampleFastq (the metrics, count and sort paths launch none)
+        # formats, SampleFastq (the metrics, count, sort and mesh paths launch none)
         "launches": launches["whitelist_correct"] + fastq_launches,
         "verdict": "exact",
         **measured,
     }
-    log(f"[smoke] phases 1-8 took {time.perf_counter() - smoke_start:.1f} s")
+    log(f"[smoke] phases 1-9 took {time.perf_counter() - smoke_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

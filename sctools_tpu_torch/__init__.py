@@ -9,6 +9,7 @@ Every console entry point of the JAX package has its classmethod of the
 same name in ``platform``; the whitelist correction runs on a hand-written
 CUDA kernel (``csrc/whitelist_correct.cu``), the metrics and count passes
 on PyTorch ops on the device, and the sorts, splits, merges and QC
-aggregation on the host. Multi-device runs (``--devices N > 1``) are not
-ported.
+aggregation on the host. ``--devices N > 1`` runs the metrics, count and
+merge commands on a mesh of N devices driven by one process
+(``parallel``).
 """

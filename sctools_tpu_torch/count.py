@@ -27,8 +27,13 @@ File formats are interchangeable with the reference's: ``save`` / ``load``
 use .npz + _row_index.npy + _col_index.npy, and ``merge_matrices`` vstacks
 chunked matrices whose cell rows are disjoint.
 
-Not ported: the mesh path (``_add_batch_sharded``, ``--devices N``), the
-accumulator's one-batch ``add_batch`` (the streaming loop queues and
+With a ``mesh`` (``--devices N``) each batch is partitioned by cell over
+the mesh's devices and counted on every shard
+(``parallel.count.pack_sharded_count`` / ``dispatch_sharded_count``, the
+port of ``_add_batch_sharded``); the molecules, their first indices mapped
+back to batch positions, accumulate as above.
+
+Not ported: the accumulator's one-batch ``add_batch`` (the streaming loop queues and
 finishes each batch itself through ``dispatch`` and ``finish``), the
 guard ladder (a failed batch fails the command), and the JAX package's
 heartbeats, dispatch records and audit counters. A matrix
@@ -305,6 +310,7 @@ class CountMatrix:
         batch_records: int = DEFAULT_BATCH_RECORDS,
         frame_source=None,
         device: DeviceLike = None,
+        mesh=None,
     ) -> "CountMatrix":
         """Count unique (cell, molecule, gene) triples from a tagged BAM.
 
@@ -331,6 +337,7 @@ class CountMatrix:
                 batch_records=batch_records,
                 frame_source=frame_source,
                 device=device,
+                mesh=mesh,
             )
         if backend == "cpu":
             return cls._from_bam_cpu(
@@ -352,8 +359,13 @@ class CountMatrix:
         batch_records: int = DEFAULT_BATCH_RECORDS,
         frame_source=None,
         device: DeviceLike = None,
+        mesh=None,
     ) -> "CountMatrix":
-        accumulator = _MoleculeAccumulator(gene_name_to_index, resolve(device))
+        if mesh is not None:
+            from .parallel.count import dispatch_sharded_count, pack_sharded_count
+        accumulator = _MoleculeAccumulator(
+            gene_name_to_index, mesh.devices[0] if mesh is not None else resolve(device)
+        )
         # host wall seconds by activity: decode (the ring's producer
         # thread; it overlaps the rest), and on this thread decode_wait (on
         # the ring's queue), carry, pack, dispatch, wait (on pulls),
@@ -378,12 +390,21 @@ class CountMatrix:
             if batch_frame.n_records == 0:
                 return
             start = time.perf_counter()
-            block = pack_count_block(batch_frame, pad_to=pad)
+            if mesh is None:
+                block = pack_count_block(batch_frame, pad_to=pad)
+                padded, h2d_bytes = block.shape[1], block.nbytes
+            else:
+                stacked, orig = pack_sharded_count(batch_frame, mesh.size)
+                padded = int(stacked["qname"].size)
+                h2d_bytes = padded * 4 * len(UPLOAD_COLUMNS)
             seconds["pack"] += time.perf_counter() - start
             start = time.perf_counter()
-            pulled = accumulator.dispatch(block)
+            if mesh is None:
+                pulled = accumulator.dispatch(block)
+            else:
+                pulled = dispatch_sharded_count(stacked, orig, mesh)
             seconds["dispatch"] += time.perf_counter() - start
-            batch = dict(records=batch_frame.n_records, padded=block.shape[1], h2d_bytes=block.nbytes)
+            batch = dict(records=batch_frame.n_records, padded=padded, h2d_bytes=h2d_bytes)
             batches.append(batch)
             names = BatchNames(batch_frame.cell_names, batch_frame.umi_names, batch_frame.gene_names)
             pending.append((names, batch_offset, pulled, batch))

@@ -68,11 +68,14 @@ class Pulled:
 
 
 def pull(tensor: torch.Tensor) -> Pulled:
-    """Start the copy of ``tensor`` to the host, on the current stream."""
+    """Start the copy of ``tensor`` to the host, on the current stream of
+    the tensor's device (which need not be the current device: a mesh
+    shard's results live on its own card), and record the event there."""
     if tensor.device.type == "cpu":
         return Pulled(tensor, None)
     host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
-    host.copy_(tensor, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
+    with torch.cuda.device(tensor.device):
+        host.copy_(tensor, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
     return Pulled(host, event)

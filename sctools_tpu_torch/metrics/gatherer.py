@@ -23,7 +23,10 @@ owned list) and its pulled result, so the ring's retention window holds.
 the tag groups of ``bam.iter_tag_groups``, one entity at a time in record
 order: the reference-semantics path, which needs no device.
 
-Not ported: the mesh-sharded gatherer, the writeback ring (``ingest.pull``
+The mesh-sharded gatherers (``--devices N``) are ``parallel.gatherer``'s:
+the same streaming loop with their own dispatch/finalize pair.
+
+Not ported: the writeback ring (``ingest.pull``
 does its asynchronous copy), the guard ladder (a failed batch fails the
 command, and the writer discards its temp file), and the JAX package's
 observability hooks. Each gatherer keeps plain records instead

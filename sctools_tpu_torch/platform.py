@@ -38,8 +38,12 @@ each batch's barcodes corrected on the whitelist kernel;
 
 Every entry point is a classmethod taking an optional ``args`` list, plus a
 ``device`` keyword: ``cuda`` unless the caller passes ``device="cpu"``; the
-host-only commands accept it and do not use it. The one option without a
-port is ``--devices N`` with N > 1 (the mesh), which stops at the parser.
+host-only commands accept it and do not use it. ``--devices N`` with N > 1
+runs CalculateCellMetrics, CalculateGeneMetrics, the fused TagSortBam and
+CreateCountMatrix on a mesh of N devices of ``device``'s type (N cards, or N
+CPU shards with ``device="cpu"``; ``parallel``), and MergeCellMetrics /
+MergeGeneMetrics as the collective merges (``metrics.collective``), with
+the JAX package's parser errors.
 Unlike the JAX classes, ``BarcodePlatform`` keeps the geometry of one call
 local to that call instead of storing it on the class.
 """
@@ -137,31 +141,44 @@ _DEVICES_SPEC = (
     dict(
         type=int,
         default=0,
-        help="shard the computation over N devices; 0/1 = one device "
-        "(default). N > 1 is not ported yet",
+        help="shard the device computation over the first N devices as a "
+        "mesh (entity-hash partition, one pass a shard; output identical to "
+        "one device). 0/1 = one device (default)",
     ),
 )
 
 
-def _refuse_devices(args, parser) -> None:
-    """A parser error for ``--devices N`` with N > 1 (no mesh yet)."""
-    if args.devices and args.devices > 1:
-        parser.error(
-            "--devices N > 1 (the mesh) is not ported yet: ROADMAP queue 1, "
-            "item 5 (multi-GPU)"
-        )
-
-
-def _metric_gatherer(kind: str, args, parser):
-    """(gatherer class, backend) of a metric command, or a parser error for
-    ``--devices N > 1``, which has no port yet. ``--backend cpu`` (the host
-    aggregators) takes ``--devices`` as the JAX parser does: N > 1 needs the
-    device backend."""
-    backend = "cpu" if args.backend == "cpu" else "device"
-    if backend == "cpu" and args.devices and args.devices > 1:
+def _resolve_mesh(devices: int, backend: str, parser, device: DeviceLike):
+    """``--devices N > 1`` -> a mesh over the first N devices of
+    ``device``'s type (else None), or JAX's parser errors: N > 1 needs the
+    device backend and N devices. A ``cuda`` request without a GPU raises
+    as every entry point does."""
+    if not devices or devices <= 1:
+        return None
+    if backend == "cpu":
         parser.error("--devices requires the device backend")
-    _refuse_devices(args, parser)
-    return (GatherCellMetrics if kind == "cell" else GatherGeneMetrics), backend
+    from .parallel.mesh import make_mesh
+
+    try:
+        return make_mesh(devices, device=device)
+    except ValueError as error:
+        parser.error(str(error))
+
+
+def _make_metric_gatherer(kind: str, devices: int, backend: str, parser, device: DeviceLike):
+    """(gatherer class, its keyword arguments) of a metrics pass: the
+    mesh-sharded gatherer for ``--devices N > 1``, else the single-device
+    one, on ``device`` (resolved here: without a GPU, ``cuda`` raises before
+    any input is read) or with the host aggregators of ``--backend cpu``."""
+    mesh = _resolve_mesh(devices, backend, parser, device)
+    if mesh is not None:
+        from .parallel.gatherer import sharded_gatherer_cls
+
+        return sharded_gatherer_cls(kind), {"mesh": mesh}
+    cls = GatherCellMetrics if kind == "cell" else GatherGeneMetrics
+    if backend == "cpu":
+        return cls, {"backend": "cpu"}
+    return cls, {"device": resolve(device)}
 
 
 _MERGE_SPECS = (
@@ -317,11 +334,11 @@ class GenericPlatform:
         mitochondrial_gene_ids: Set[str] = set()
         if args.gtf_annotation_file:
             mitochondrial_gene_ids = gtf.get_mitochondrial_gene_names(args.gtf_annotation_file)
-        _refuse_devices(args, parser)
-        device = resolve(device)  # no GPU: raise before any sorting
+        # the metrics side runs on the mesh with --devices N > 1; the sort
+        # stays the native out-of-core merge on the host
+        gatherer_cls, gatherer_kwargs = _make_metric_gatherer(kind, args.devices, "device", parser, device)
         if not bgzf.is_gzip(args.input_bam):
             AlignmentReader(args.input_bam, "rb").close()  # raises, as that fallback does
-        gatherer_cls = GatherCellMetrics if kind == "cell" else GatherGeneMetrics
         scratch_dir = os.path.dirname(os.path.abspath(args.output_bam or metrics_stem))
         with tempfile.TemporaryDirectory(prefix="tagsort_", dir=scratch_dir) as scratch:
             tee = os.path.join(scratch, "sorted.bam") if args.output_bam else None
@@ -334,7 +351,7 @@ class GenericPlatform:
                     sort_batch_records=args.records_per_chunk or tagsort.DEFAULT_RECORDS_PER_CHUNK,
                     bam_output=tee,
                 ),
-                device=device,
+                **gatherer_kwargs,
             )
             gatherer.extract_metrics()
             if tee is not None:
@@ -447,10 +464,10 @@ class GenericPlatform:
         (reference platform.py:225-261)."""
         parser = _build_parser(_INPUT_BAM_SPEC, _FILESTEM_SPEC, _BACKEND_SPEC, _DEVICES_SPEC)
         args = parser.parse_args(args)
-        gatherer_cls, backend = _metric_gatherer("gene", args, parser)
-        gatherer_cls(
-            args.input_bam, args.output_filestem, device=device, backend=backend
-        ).extract_metrics()
+        gatherer_cls, kwargs = _make_metric_gatherer(
+            "gene", args.devices, "cpu" if args.backend == "cpu" else "device", parser, device
+        )
+        gatherer_cls(args.input_bam, args.output_filestem, **kwargs).extract_metrics()
         return 0
 
     @classmethod
@@ -478,10 +495,11 @@ class GenericPlatform:
         mitochondrial_gene_ids: Set[str] = set()
         if args.gtf_annotation_file:
             mitochondrial_gene_ids = gtf.get_mitochondrial_gene_names(args.gtf_annotation_file)
-        gatherer_cls, backend = _metric_gatherer("cell", args, parser)
+        gatherer_cls, kwargs = _make_metric_gatherer(
+            "cell", args.devices, "cpu" if args.backend == "cpu" else "device", parser, device
+        )
         gatherer_cls(
-            args.input_bam, args.output_filestem, mitochondrial_gene_ids, device=device,
-            backend=backend,
+            args.input_bam, args.output_filestem, mitochondrial_gene_ids, **kwargs
         ).extract_metrics()
         return 0
 
@@ -490,21 +508,33 @@ class GenericPlatform:
     def merge_gene_metrics(cls, args: Iterable[str] = None, device: DeviceLike = None) -> int:
         """Merge chunked gene metrics csvs (reference platform.py:315-347).
 
-        A host merge: ``device`` is accepted for a uniform surface and not
-        used."""
+        A host merge; ``--devices N > 1`` runs the collective merge on a
+        mesh of N devices of ``device``'s type instead (the count columns
+        reduce in one ``psum``), with the same output bytes."""
         parser = _build_parser(*_MERGE_SPECS)
         args = parser.parse_args(args)
-        _refuse_devices(args, parser)
+        mesh = _resolve_mesh(args.devices, "device", parser, device)
+        if mesh is not None:
+            from .metrics.collective import CollectiveMergeGeneMetrics
+
+            CollectiveMergeGeneMetrics(args.metric_files, args.output_filestem, mesh=mesh).execute()
+            return 0
         MergeGeneMetrics(args.metric_files, args.output_filestem).execute()
         return 0
 
     @classmethod
     def merge_cell_metrics(cls, args: Iterable[str] = None, device: DeviceLike = None) -> int:
         """Merge chunked cell metrics csvs (cells are disjoint across chunks;
-        reference platform.py:349-381). A host merge, like the gene one."""
+        reference platform.py:349-381). A host merge, like the gene one;
+        ``--devices N > 1`` gathers the rows over a mesh instead."""
         parser = _build_parser(*_MERGE_SPECS)
         args = parser.parse_args(args)
-        _refuse_devices(args, parser)
+        mesh = _resolve_mesh(args.devices, "device", parser, device)
+        if mesh is not None:
+            from .metrics.collective import CollectiveMergeCellMetrics
+
+            CollectiveMergeCellMetrics(args.metric_files, args.output_filestem, mesh=mesh).execute()
+            return 0
         MergeCellMetrics(args.metric_files, args.output_filestem).execute()
         return 0
 
@@ -571,9 +601,9 @@ class GenericPlatform:
             ),
         )
         args = parser.parse_args(args)
-        _refuse_devices(args, parser)
         open_mode = "r" if args.bam_file.endswith(".sam") else "rb"
         gene_name_to_index = gtf.extract_gene_names(args.gtf_annotation_file)
+        backend = "cpu" if args.backend == "cpu" else "device"
         # snRNA mode loads extended gene locations in the reference, but the
         # counting never reads them: the flag is accepted for CLI parity
         matrix = CountMatrix.from_sorted_tagged_bam(
@@ -583,11 +613,12 @@ class GenericPlatform:
             molecule_barcode_tag=args.molecule_barcode_tag,
             gene_name_tag=args.gene_name_tag,
             open_mode=open_mode,
-            backend="cpu" if args.backend == "cpu" else "device",
+            backend=backend,
             batch_records=(
                 args.batch_records if args.batch_records is not None else DEFAULT_BATCH_RECORDS
             ),
             device=device,
+            mesh=_resolve_mesh(args.devices, backend, parser, device),
         )
         matrix.save(args.output_prefix)
         return 0

@@ -446,19 +446,6 @@ def test_float_converter_matches_pandas():
 # ------------------------------------------------------------------ surface
 
 
-@pytest.mark.parametrize("entry", ["bam_to_count_matrix", "merge_gene_metrics", "merge_cell_metrics"])
-def test_devices_stop_at_the_parser(tmp_path, capsys, entry):
-    if entry == "bam_to_count_matrix":
-        args = ["-b", "missing.bam", "-a", "missing.gtf", "-o", str(tmp_path / "o")]
-    else:
-        args = ["missing.csv.gz", "-o", str(tmp_path / "o")]
-    with pytest.raises(SystemExit) as stop:
-        getattr(port_platform.GenericPlatform, entry)(args + ["--devices", "2"], device="cpu")
-    assert stop.value.code == 2
-    assert "ROADMAP queue 1, item 5" in capsys.readouterr().err
-    assert not list(tmp_path.iterdir())
-
-
 def test_default_device_needs_a_gpu(synthetic, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the failure without a GPU")

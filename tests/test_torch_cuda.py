@@ -23,7 +23,13 @@ pool's threads. A fused TagSortBam (the sort on the
 host, the metrics pass on the card) gives the CSV and the sorted BAM it
 gives on the CPU, for both tag orders, and launches no hand kernel. The
 native host layer builds on the machine and decodes a small library to the
-frames the port's Python decoder gives.
+frames the port's Python decoder gives. The mesh: on ``[cuda:0, cuda:0]``
+(two shards on one card, where every copy between shards is a no-op) the
+sharded gatherers, the sharded count, the collective merges, the reshard,
+the distributed step, the sample sort and the preflight equal a 2-shard CPU
+mesh and one device; on a machine with 2 or 4 cards, ``--devices 2`` and
+``--devices 4`` on distinct cards give one device's outputs too (fewer
+cards: those two skip); more devices than cards is JAX's parser error.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
@@ -622,3 +628,218 @@ def test_sample_fastq_on_the_card_matches_the_cpu(cuda_device, tmp_path):
         assert kernels.launches["whitelist_correct"] - before == (5 if device == "cuda" else 0)
         outputs[device] = (kept, [open(tmp_path / f"{device}{s}", "rb").read() for s in (".R1", ".R2")])
     assert outputs["cuda"] == outputs["cpu"] and 200 < outputs["cpu"][0][0] < 600
+
+
+# --------------------------------------------------------------------- mesh
+
+
+def _card_and_cpu_meshes():
+    """A 2-shard mesh that repeats the first card, and 2 CPU shards."""
+    from sctools_tpu_torch import parallel as port_par
+
+    card = torch.device("cuda", 0)
+    return port_par.make_mesh(devices=[card, card]), port_par.make_mesh(2, device="cpu")
+
+
+def _gz(path) -> bytes:
+    with gzip.open(path, "rb") as f:
+        return f.read()
+
+
+def test_mesh_metrics_and_merges_on_a_repeated_card_match_the_cpu_mesh(cuda_device, tmp_path):
+    """The sharded cell and gene gatherers on [cuda:0, cuda:0] write the
+    CPU mesh's CSVs, which equal the one-device CSV; the collective merges
+    of those CSVs in two parts equal the host merges."""
+    from sctools_tpu_torch import bam as port_bam
+    from sctools_tpu_torch import parallel as port_par
+    from sctools_tpu_torch.metrics import collective, merge
+
+    header, records = _cell_library(np.random.default_rng(9))
+    paths = {}
+    for kind, tags in (("cell", ["CB", "UB", "GE"]), ("gene", ["GE", "CB", "UB"])):
+        paths[kind] = str(tmp_path / f"{kind}.bam")
+        with AlignmentWriter(paths[kind], header) as out:
+            for record in port_bam.sort_by_tags_and_queryname(records, tags):
+                out.write(record)
+    card, cpu = _card_and_cpu_meshes()
+    csv = {}
+    for kind in ("cell", "gene"):
+        cls = port_par.sharded_gatherer_cls(kind)
+        mito = {"G000", "G001"} if kind == "cell" else set()
+        before = dict(kernels.launches)
+        for name, mesh in (("card", card), ("cpu", cpu)):
+            gatherer = cls(paths[kind], str(tmp_path / f"{kind}_{name}"), mito, mesh=mesh, batch_records=3000)
+            gatherer.extract_metrics()
+            assert len(gatherer.batches) > 2 and gatherer.batches[0]["prepacked"]
+            csv[kind, name] = _gz(tmp_path / f"{kind}_{name}.csv.gz")
+        single = port_gatherer.GatherCellMetrics if kind == "cell" else port_gatherer.GatherGeneMetrics
+        single(paths[kind], str(tmp_path / f"{kind}_one"), mito, device="cpu").extract_metrics()
+        assert dict(kernels.launches) == before
+        assert csv[kind, "card"] == csv[kind, "cpu"] == _gz(tmp_path / f"{kind}_one.csv.gz")
+    assert csv["cell", "card"].count(b"\n") == 301
+
+    for kind in ("cell", "gene"):
+        lines = csv[kind, "card"].decode().split("\n")
+        half = len(lines) // 2
+        parts = []
+        for i, chunk in enumerate((lines[1:half], lines[half:-1])):
+            parts.append(str(tmp_path / f"{kind}_part{i}.csv.gz"))
+            with gzip.open(parts[-1], "wt") as f:
+                f.write("\n".join([lines[0]] + chunk) + "\n")
+        files = parts if kind == "cell" else [parts[0], parts[1], parts[0]]
+        host = merge.MergeCellMetrics if kind == "cell" else merge.MergeGeneMetrics
+        host(files, str(tmp_path / f"{kind}_merged_host")).execute()
+        want = _gz(tmp_path / f"{kind}_merged_host.csv.gz")
+        mesh_cls = collective.CollectiveMergeCellMetrics if kind == "cell" else collective.CollectiveMergeGeneMetrics
+        for name, mesh in (("card", card), ("cpu", cpu)):
+            mesh_cls(files, str(tmp_path / f"{kind}_merged_{name}"), mesh=mesh).execute()
+            assert _gz(tmp_path / f"{kind}_merged_{name}.csv.gz") == want
+
+
+def test_mesh_count_on_a_repeated_card_matches_the_cpu_mesh(cuda_device, tmp_path):
+    from sctools_tpu_torch import count as port_count
+    from sctools_tpu_torch import parallel as port_par
+
+    rng = np.random.default_rng(12)
+    genes = {f"G{i:03d}": i for i in range(40)}
+    header = BamHeader.from_text("@HD\tVN:1.6\tSO:queryname\n@SQ\tSN:chr1\tLN:1000000\n")
+    cells, umis = _barcodes(rng, 60, 16), _barcodes(rng, 30, 10)
+    bam = str(tmp_path / "grouped.bam")
+    with AlignmentWriter(bam, header) as out:
+        for q in range(3000):
+            tags = {"CB": ("Z", cells[rng.integers(60)]), "UB": ("Z", umis[rng.integers(30)])}
+            for _ in range(int(rng.choice([1, 1, 2]))):
+                gene = f"G{int(rng.integers(40)):03d}"
+                out.write(BamRecord(query_name=f"q{q:06d}", flag=0, reference_id=0, pos=100, cigar=[(0, 20)],
+                                    sequence="A" * 20, quality=[30] * 20,
+                                    tags=dict(tags, GE=("Z", gene), XF=("Z", "CODING"))))
+    card, cpu = _card_and_cpu_meshes()
+    matrices = [port_count.CountMatrix.from_sorted_tagged_bam(bam, genes, batch_records=1500, mesh=mesh)
+                for mesh in (card, cpu)]
+    matrices.append(port_count.CountMatrix.from_sorted_tagged_bam(bam, genes, batch_records=1500, device="cpu"))
+    for other in matrices[1:]:
+        for attr in ("data", "indices", "indptr"):
+            np.testing.assert_array_equal(getattr(matrices[0].matrix, attr), getattr(other.matrix, attr))
+        np.testing.assert_array_equal(matrices[0].row_index, other.row_index)
+    assert len(matrices[0].batches) > 1 and matrices[0].matrix.nnz > 100
+
+
+def test_mesh_collectives_on_a_repeated_card_match_the_cpu_mesh(cuda_device):
+    """On [cuda:0, cuda:0] every ``.to`` between shards is a no-op, so an
+    exchange that wrote in place would read its own output: the reshard's
+    received columns, the sample sort, the distributed step and the
+    preflight must equal the CPU mesh's."""
+    from sctools_tpu_torch import parallel as port_par
+    from sctools_tpu_torch.parallel import metrics as par_metrics
+
+    card, cpu = _card_and_cpu_meshes()
+    frame = _synthetic_frame(np.random.default_rng(13), 6000)
+    cols = port_gatherer._pad_columns(frame, np.zeros(len(frame.gene_names), bool))[0]
+    stacked = port_par.partition_columns(cols, 2, key="cell")
+    required = port_par.required_reshard_capacity(stacked, "gene", 2)
+    received = {}
+    for name, mesh in (("card", card), ("cpu", cpu)):
+        out, dropped = port_par.reshard_by_key(par_metrics.place(stacked, mesh), "gene", mesh, capacity=required)
+        received[name] = port_par.stack_to_host({k: [shard[k] for shard in out] for k in out[0]})
+        assert sum(int(d.cpu()) for d in dropped) == 0
+    for key, want in received["cpu"].items():
+        np.testing.assert_array_equal(received["card"][key], want)
+    assert int(received["card"]["valid"].sum()) == frame.n_records
+
+    steps = {name: port_par.distributed_metrics_step(stacked, mesh) for name, mesh in (("card", card), ("cpu", cpu))}
+    for i in range(2):
+        got, want = (port_par.stack_to_host(steps[name][i]) for name in ("card", "cpu"))
+        for key in want:
+            np.testing.assert_array_equal(_bits(torch.from_numpy(got[key])), _bits(torch.from_numpy(want[key])))
+    keys = {"k1": frame.cell.reshape(2, -1), "k2": frame.umi.reshape(2, -1),
+            "payload": np.arange(6000, dtype=np.int32).reshape(2, -1), "valid": np.ones((2, 3000), bool)}
+    sorted_ = {name: port_par.stack_to_host(port_par.distributed_sort(keys, ["k1", "k2"], mesh))
+               for name, mesh in (("card", card), ("cpu", cpu))}
+    for key, want in sorted_["cpu"].items():
+        np.testing.assert_array_equal(sorted_["card"][key], want)
+    assert port_par.collective_preflight(card) == port_par.collective_preflight(cpu) == {"devices": 2, "total": 28}
+
+
+def test_more_devices_than_cards_stop_at_the_parser(cuda_device, tmp_path, capsys):
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit) as stop:
+        port_platform.GenericPlatform.calculate_cell_metrics(
+            ["-i", "missing.bam", "-o", str(tmp_path / "o"), "--devices", str(n)])
+    assert stop.value.code == 2
+    assert f"requested {n} devices, only {n - 1} available" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_devices_on_distinct_cards_match_one_device(cuda_device, tmp_path, n):
+    """``--devices n`` on n cards (a machine with fewer skips): the cell and
+    gene CSVs, the count, the collective merges and the fused TagSortBam
+    equal one device's, and the exchanges equal a CPU mesh's; every shard's
+    results come back through its own card's stream."""
+    from sctools_tpu_torch import bam as port_bam
+    from sctools_tpu_torch import parallel as port_par
+    from sctools_tpu_torch.parallel import metrics as par_metrics
+
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices, this machine has {torch.cuda.device_count()}")
+    rng = np.random.default_rng(14)
+    header, records = _cell_library(rng)
+    bams = {}
+    for kind, tags in (("cell", ["CB", "UB", "GE"]), ("gene", ["GE", "CB", "UB"]), ("shuffled", None)):
+        bams[kind] = str(tmp_path / f"{kind}.bam")
+        ordered = port_bam.sort_by_tags_and_queryname(records, tags) if tags else (
+            records[i] for i in rng.permutation(len(records)))
+        with AlignmentWriter(bams[kind], header) as out:
+            for record in ordered:
+                out.write(record)
+    gtf = tmp_path / "genes.gtf"
+    gtf.write_text("".join(
+        f'chr1\tt\tgene\t{i * 100 + 1}\t{i * 100 + 90}\t.\t+\t.\tgene_id "G{i:03d}"; gene_name "G{i:03d}";\n'
+        for i in range(40)))
+    devices = ["--devices", str(n)]
+    before = dict(kernels.launches)
+    for side, extra in (("one", []), ("mesh", devices)):
+        kwargs = {} if side == "mesh" else {"device": "cpu"}
+        generic = port_platform.GenericPlatform
+        generic.calculate_cell_metrics(["-i", bams["cell"], "-o", str(tmp_path / f"cell_{side}")] + extra, **kwargs)
+        generic.calculate_gene_metrics(["-i", bams["gene"], "-o", str(tmp_path / f"gene_{side}")] + extra, **kwargs)
+        generic.bam_to_count_matrix(["-b", bams["shuffled"], "-a", str(gtf), "-o", str(tmp_path / f"count_{side}")]
+                                    + extra, **kwargs)
+        generic.tag_sort_bam(["-i", bams["shuffled"], "-t", "CB", "UB", "GE", "--cell-metrics-output",
+                              str(tmp_path / f"fused_{side}")] + extra, **kwargs)
+        parts = [str(tmp_path / "cell_one.csv.gz"), str(tmp_path / "cell_one.csv.gz")]
+        generic.merge_gene_metrics([str(tmp_path / "gene_one.csv.gz")] * 3 + ["-o", str(tmp_path / f"mg_{side}")]
+                                   + extra, **kwargs)
+        generic.merge_cell_metrics(parts + ["-o", str(tmp_path / f"mc_{side}")] + extra, **kwargs)
+    assert dict(kernels.launches) == before
+    for stem in ("cell", "gene", "fused", "mg", "mc"):
+        assert _gz(tmp_path / f"{stem}_mesh.csv.gz") == _gz(tmp_path / f"{stem}_one.csv.gz"), stem
+    for suffix in ("_row_index.npy", "_col_index.npy"):
+        assert (tmp_path / f"count_mesh{suffix}").read_bytes() == (tmp_path / f"count_one{suffix}").read_bytes()
+    with np.load(tmp_path / "count_mesh.npz") as got, np.load(tmp_path / "count_one.npz") as want:
+        for key in want.files:
+            np.testing.assert_array_equal(got[key], want[key])
+
+    cards, cpu = port_par.make_mesh(n), port_par.make_mesh(n, device="cpu")
+    assert [d.index for d in cards.devices] == list(range(n))
+    frame = _synthetic_frame(np.random.default_rng(15), 8000)
+    cols = port_gatherer._pad_columns(frame, np.zeros(len(frame.gene_names), bool))[0]
+    stacked = port_par.partition_columns(cols, n, key="cell")
+    required = port_par.required_reshard_capacity(stacked, "gene", n)
+    received = {}
+    for name, mesh in (("cards", cards), ("cpu", cpu)):
+        out, _ = port_par.reshard_by_key(par_metrics.place(stacked, mesh), "gene", mesh, capacity=required)
+        assert [shard["gene"].device for shard in out] == list(mesh.devices)
+        received[name] = port_par.stack_to_host({k: [shard[k] for shard in out] for k in out[0]})
+    for key, want in received["cpu"].items():
+        np.testing.assert_array_equal(received["cards"][key], want)
+    for i in range(2):
+        got, want = (port_par.stack_to_host(port_par.distributed_metrics_step(stacked, mesh)[i])
+                     for mesh in (cards, cpu))
+        for key in want:
+            np.testing.assert_array_equal(_bits(torch.from_numpy(got[key])), _bits(torch.from_numpy(want[key])))
+    keys = {"k1": frame.cell.reshape(n, -1), "k2": frame.umi.reshape(n, -1),
+            "payload": np.arange(8000, dtype=np.int32).reshape(n, -1), "valid": np.ones((n, 8000 // n), bool)}
+    got, want = (port_par.stack_to_host(port_par.distributed_sort(keys, ["k1", "k2"], mesh)) for mesh in (cards, cpu))
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    assert port_par.collective_preflight(cards) == port_par.collective_preflight(cpu)

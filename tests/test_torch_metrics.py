@@ -522,17 +522,6 @@ def test_mitochondrial_gene_names_need_gene_name(tmp_path):
 # ------------------------------------------------------------------ surface
 
 
-@pytest.mark.parametrize("entry", ["calculate_cell_metrics", "calculate_gene_metrics"])
-@pytest.mark.parametrize("option", [["--devices", "2"]])
-def test_unported_options_stop_at_the_parser(tmp_path, capsys, entry, option):
-    with pytest.raises(SystemExit) as stop:
-        getattr(port_platform.GenericPlatform, entry)(
-            ["-i", "missing.bam", "-o", str(tmp_path / "o")] + option, device="cpu")
-    assert stop.value.code == 2
-    assert "ROADMAP queue 1" in capsys.readouterr().err
-    assert not list(tmp_path.iterdir())
-
-
 @pytest.mark.parametrize("kind,seed", [("cell", 0), ("cell", 1), ("cell", 2), ("gene", 0), ("gene", 3)])
 def test_cpu_backend_csv_matches_jax(tmp_path, mito_gtf, kind, seed):
     """``--backend cpu``: the host aggregators of both packages, in Python

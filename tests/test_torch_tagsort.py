@@ -274,14 +274,6 @@ def test_cli_errors_match_jax(tmp_path, messy_bam, capsys):
     assert not list(tmp_path.iterdir())
 
 
-def test_fused_devices_stop_at_item_5(tmp_path, messy_bam, capsys):
-    with pytest.raises(SystemExit):
-        port_platform.GenericPlatform.tag_sort_bam(
-            ["-i", messy_bam, "-t", *CELL, "--cell-metrics-output", str(tmp_path / "m"),
-             "--devices", "2"], device="cpu")
-    assert "ROADMAP queue 1, item 5" in capsys.readouterr().err
-
-
 # ------------------------------------------------------------- fused pass
 
 
