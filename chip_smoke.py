@@ -112,7 +112,22 @@ Phases, in order; any failure exits non-zero before the last line:
               card mesh, over the cell BAM's first 2^18 records, must equal
               the same on a 2-shard CPU mesh. Prints each command's wall
               and ``seconds``; no hand kernel may launch;
-10. kernels -- one JSON line per the port's kernel contract; its launches are
+10. sched  -- the chunk queue (``sctools_tpu_torch.sched``,
+              ``parallel.launch``) on the card: ``split_bam -t CB`` cuts
+              phase 5's cell BAM into 5 chunks; two worker processes
+              (``chip_smoke.py --sched-worker``, each its own CUDA context)
+              run ``run_process_cell_metrics`` on cuda with a 2 s lease TTL:
+              A is killed at its first batch of chunk0000 (exit 86), B, a
+              straggler that fails chunk0002 twice, steals A's expired lease
+              and drains the queue; a clean relaunch makes no attempt and
+              ``python -m sctools_tpu_torch.sched status`` exits 0. The
+              parts merged with ``merge_sorted_csv_parts`` (journal and
+              sequence checks) and with ``collective_merge_parts`` on the
+              card mesh must both equal phase 5's CalculateCellMetrics CSV
+              byte for byte (decompressed). Prints each worker's wall,
+              attempts, steals and exit code and both merges' seconds; no
+              worker may launch a hand kernel;
+11. kernels -- one JSON line per the port's kernel contract; its launches are
               those of every main-path run (phases 4 and 7).
 
 The last line of standard output is
@@ -2129,8 +2144,197 @@ def phase_mesh(stamp: str, modules) -> None:
     if dict(kernels.launches) != launches_before:
         raise AssertionError(f"a hand kernel launched in the mesh phase: {kernels.launches}")
     log("[mesh] no hand kernel launched (kernels.launches unchanged)")
-    shutil.rmtree(WORK)
+    for path in WORK.iterdir():
+        if path.name not in KEPT_FOR_SCHED:
+            shutil.rmtree(path) if path.is_dir() else path.unlink()
     log(f"[mesh] phase 9 took {time.perf_counter() - phase_start:.1f} s")
+
+
+# phase 5's cell BAM, its GTF and its one-shot CSV, for the chunk queue
+KEPT_FOR_SCHED = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz")
+SCHED_CHUNKS = 4.5  # -s is the BAM's size over this: 5 chunks
+SCHED_TTL = 2.0  # seconds a dead worker's lease outlives its last heartbeat
+SCHED_STRAGGLE = 0.5  # worker B's delay at each claim
+WORKER_FLAG = "--sched-worker"
+
+
+def sched_worker(argv) -> int:
+    """One worker of phase 10, in its own process: the port's chunk queue on
+    cuda over ``<workdir>/chunks/*.bam``, faults from the environment
+    (``SCTOOLS_TPU_FAULTS``). Prints, as ``[worker] {json}`` lines, the hand
+    kernel launches (a count a process) when its queue starts and, at its
+    end, with its wall and its committed parts. Exit 0, or 86 on an injected
+    crash, which leaves only the first line."""
+    workdir, process_id, n_processes, gtf = Path(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    begin = time.perf_counter()
+    sys.path.insert(0, str(REPO))
+    from sctools_tpu_torch import gtf as port_gtf
+    from sctools_tpu_torch import kernels
+    from sctools_tpu_torch.parallel import launch
+
+    print("[worker] " + json.dumps({"launches": dict(kernels.launches)}), flush=True)
+    committed = launch.run_process_cell_metrics(
+        sorted(str(p) for p in (workdir / "chunks").glob("*.bam")), str(workdir / f"proc{process_id}"),
+        n_processes, process_id, frozenset(port_gtf.get_mitochondrial_gene_names(gtf)),
+        lease_ttl=SCHED_TTL, backoff_base=0.1,
+    )
+    print("[worker] " + json.dumps({"wall": time.perf_counter() - begin, "committed": len(committed),
+                                    "launches": dict(kernels.launches)}), flush=True)
+    return 0
+
+
+def phase_sched(stamp: str, modules) -> None:
+    """SplitBam on phase 5's cell BAM, then the chunk queue on the card: two
+    worker processes at once, one killed mid-chunk and the other a straggler
+    that fails one chunk twice and steals the dead one's lease, a clean
+    relaunch, ``sched status``, and both part merges against phase 5's
+    one-shot CSV."""
+    import os
+
+    import torch
+
+    port_platform, port_sched, port_launch, port_collective = modules
+    phase_start = start = time.perf_counter()
+    workdir = WORK / "sched"
+    (workdir / "chunks").mkdir(parents=True)
+    bam = WORK / "cell_sorted.bam"
+    size_mb = bam.stat().st_size * 1e-6
+    stdout = io.StringIO()
+    with contextlib.chdir(workdir), contextlib.redirect_stdout(stdout):
+        rc = port_platform.GenericPlatform.split_bam(
+            ["-b", str(bam), "-p", str(workdir / "chunks" / "chunk"), "-s", repr(size_mb / SCHED_CHUNKS),
+             "-t", "CB"])
+    split_seconds = time.perf_counter() - start
+    made = stdout.getvalue().split()
+    if rc != 0 or len(made) < 4:
+        raise AssertionError(f"SplitBam: rc {rc}, want >= 4 chunks, printed {made}")
+    # zero-padded names: the chunks sort in the split's order, so task
+    # chunkNNNN reads chunkNNNN.bam and a fault spec can name either
+    for i in range(len(made)):
+        os.replace(workdir / "chunks" / f"chunk_{i}.bam", workdir / "chunks" / f"chunk{i:04d}.bam")
+    n_chunks = len(made)
+    log(f"[sched] SplitBam -t CB -s {size_mb / SCHED_CHUNKS:.2f} on phase 5's cell BAM ({size_mb:.1f} MB): "
+        f"{n_chunks} chunks in {split_seconds:.2f} s")
+
+    journal_dir = workdir / "sched-journal"
+    gtf = str(WORK / "mito.gtf")
+
+    def launch(process_id: int, spec: str):
+        env = {k: v for k, v in os.environ.items() if k != "SCTOOLS_TPU_FAULTS"}
+        if spec:
+            env["SCTOOLS_TPU_FAULTS"] = spec
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), WORKER_FLAG, str(workdir), str(process_id), "2", gtf],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        )
+        return proc, time.perf_counter()
+
+    def finish(proc, began, timeout=300):
+        out, _ = proc.communicate(timeout=timeout)
+        return proc.returncode, out, time.perf_counter() - began
+
+    def worker_id(proc, process_id):
+        return f"proc{process_id}-of-2-{proc.pid}"
+
+    spec_a = "crash@gatherer.batch:match=chunk0000,times=1"
+    spec_b = f"delay@task.claimed:secs={SCHED_STRAGGLE};fail@task.claimed:match=chunk0002,times=2"
+    procs = []
+    try:
+        # A first, so that it holds chunk0000 (the first task by name) when
+        # B starts; B then finds it leased and takes the rest
+        a, a_began = launch(0, spec_a)
+        procs.append(a)
+        probe = port_sched.Journal(str(journal_dir), worker_id="smoke-probe")
+        deadline = time.perf_counter() + 120
+        holder = None
+        while holder is None and time.perf_counter() < deadline:
+            exited = a.poll() is not None  # then this last look sees its final journal
+            if journal_dir.is_dir():
+                tasks, states = probe.replay()
+                holder = next((st.worker for tid, st in states.items()
+                               if tid in tasks and tasks[tid].name == "chunk0000" and st.state == "leased"), None)
+            if exited:
+                break
+            time.sleep(0.05)
+        if holder != worker_id(a, 0):
+            raise AssertionError(f"worker A never leased chunk0000 (holder {holder}): {a.communicate()[0][-3000:]}")
+        b, b_began = launch(1, spec_b)
+        procs.append(b)
+        runs = {"A": finish(a, a_began), "B": finish(b, b_began)}
+        ids = {"A": worker_id(a, 0), "B": worker_id(b, 1)}
+        before_relaunch = probe.replay()[1]
+        r, r_began = launch(0, "")
+        procs.append(r)
+        runs["relaunch"] = finish(r, r_began)
+        ids["relaunch"] = worker_id(r, 0)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if runs["A"][0] != 86 or "injected crash at gatherer.batch" not in runs["A"][1]:
+        raise AssertionError(f"worker A should die at gatherer.batch with 86: rc {runs['A'][0]}\n{runs['A'][1][-3000:]}")
+    for name in ("B", "relaunch"):
+        if runs[name][0] != 0:
+            raise AssertionError(f"worker {name}: rc {runs[name][0]}\n{runs[name][1][-3000:]}")
+
+    tasks, states = probe.replay()
+    by_name = {tasks[tid].name: st for tid, st in states.items()}
+    if len(by_name) != n_chunks or any(st.state != port_sched.COMMITTED for st in by_name.values()):
+        raise AssertionError(f"not every chunk committed: { {n: st.state for n, st in by_name.items()} }")
+    want_attempts = {name: 1 for name in by_name}
+    want_attempts.update(chunk0000=2, chunk0002=3)
+    got = {name: (st.attempts, st.steals) for name, st in by_name.items()}
+    if got != {name: (n, int(name == "chunk0000")) for name, n in want_attempts.items()}:
+        raise AssertionError(f"(attempts, steals) per chunk: {got}")
+    if by_name["chunk0000"].worker != ids["B"]:
+        raise AssertionError(f"chunk0000 committed by {by_name['chunk0000'].worker}, not B ({ids['B']})")
+    if {t: vars(st) for t, st in states.items()} != {t: vars(st) for t, st in before_relaunch.items()}:
+        raise AssertionError("the relaunch changed the journal's task states")
+    events = probe.events()
+    for name, (rc, out, wall) in runs.items():
+        leased = [e for e in events if e.get("worker") == ids[name] and e.get("event") == "leased"]
+        reports = [json.loads(line[len("[worker] "):]) for line in out.splitlines() if line.startswith("[worker] ")]
+        # A's crash (os._exit at the top of its first device batch) leaves
+        # only its first report; the others report at their end too
+        if len(reports) != (1 if name == "A" else 2) or any(any(r["launches"].values()) for r in reports):
+            raise AssertionError(f"worker {name}: hand kernel launches {reports}")
+        log(f"[sched] {stamp} | worker {name} ({ids[name]}): exit {rc} in {wall:.2f} s wall, "
+            f"{len(leased)} attempts, {sum(int(e.get('stolen', 0)) for e in leased)} steals, "
+            f"hand kernel launches 0 {'at its start' if name == 'A' else 'at its start and its end'}")
+    if any(e.get("worker") == ids["relaunch"] and e.get("event") == "leased" for e in events):
+        raise AssertionError("the clean relaunch made an attempt")
+
+    status = subprocess.run(
+        [sys.executable, "-m", "sctools_tpu_torch.sched", "status", str(journal_dir)],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+    )
+    total = [line for line in status.stdout.splitlines() if line.startswith("total=")]
+    if status.returncode != 0 or total != [f"total={n_chunks} (committed={n_chunks})"]:
+        raise AssertionError(f"sched status: rc {status.returncode}\n{status.stdout}{status.stderr}")
+    log(f"[sched] python -m sctools_tpu_torch.sched status: exit 0, {total[0]}; "
+        f"{[line for line in status.stdout.splitlines() if line.startswith('mesh ')]}")
+
+    pattern = str(workdir / "metrics.part*.csv.gz")
+    want = read_csv(WORK / "cli_cell.csv.gz")[0]
+    mesh = port_launch.local_mesh()
+    merged = {}
+    for name, merge, kwargs in (("merge_sorted_csv_parts", port_launch.merge_sorted_csv_parts, {}),
+                                ("collective_merge_parts", port_collective.collective_merge_parts, {"mesh": mesh})):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        rows = merge(pattern, str(workdir / f"{name}.csv.gz"), journal_dir=str(journal_dir),
+                     expected_parts=n_chunks, **kwargs)
+        torch.cuda.synchronize()
+        merged[name] = time.perf_counter() - begin
+        if read_csv(workdir / f"{name}.csv.gz")[0] != want:
+            raise AssertionError(f"{name}: the merged CSV differs from phase 5's CalculateCellMetrics CSV")
+    log(f"[sched] {stamp} | merge_sorted_csv_parts {merged['merge_sorted_csv_parts']:.2f} s, "
+        f"collective_merge_parts on {mesh!r} {merged['collective_merge_parts']:.2f} s: {rows} rows each, "
+        f"both equal phase 5's CalculateCellMetrics CSV byte for byte ({len(want)} bytes)")
+    shutil.rmtree(WORK)
+    log(f"[sched] phase 10 took {time.perf_counter() - phase_start:.1f} s")
+
 
 
 def main(argv=None) -> int:
@@ -2163,6 +2367,9 @@ def main(argv=None) -> int:
     from sctools_tpu_torch.ops import whitelist as wl_ops
     from sctools_tpu_torch import parallel as port_par
     from sctools_tpu_torch.parallel import gatherer as port_par_gatherer
+    from sctools_tpu_torch.parallel import launch as port_launch
+    from sctools_tpu_torch import sched as port_sched
+    from sctools_tpu_torch.metrics import collective as port_collective
 
     phase_build(kernels, native)
     rng = np.random.default_rng(args.seed)
@@ -2189,18 +2396,19 @@ def main(argv=None) -> int:
         (kernels, native, port_platform, port_bam, bgzf, sam), bam_shards,
     )
     phase_mesh(stamp, (kernels, port_platform, port_par, port_par_gatherer, port_gatherer, port_gtf, packed))
+    phase_sched(stamp, (port_platform, port_sched, port_launch, port_collective))
     record = {
         "name": "whitelist_correct",
         "route": "cuda",
         "source": "sctools_tpu_torch/csrc/whitelist_correct.cu",
         "replaces": "sctools_tpu/ops/whitelist.py:125",
         # every main-path run of the smoke: attach, FastqProcess in both
-        # formats, SampleFastq (the metrics, count, sort and mesh paths launch none)
+        # formats, SampleFastq (the metrics, count, sort, mesh and sched paths launch none)
         "launches": launches["whitelist_correct"] + fastq_launches,
         "verdict": "exact",
         **measured,
     }
-    log(f"[smoke] phases 1-9 took {time.perf_counter() - smoke_start:.1f} s")
+    log(f"[smoke] phases 1-10 took {time.perf_counter() - smoke_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2211,6 +2419,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [WORKER_FLAG]:  # one of phase 10's worker processes
+        sys.exit(sched_worker(sys.argv[2:]))
     try:
         sys.exit(main())
     except SystemExit:

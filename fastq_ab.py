@@ -2,8 +2,8 @@
 """Time the port's FASTQ and BAM commands and its CSV writer at two trees, in turns.
 
     python3 fastq_ab.py --parent DIR [--reads N] [--cell-records N]
-        [--count-queries N] [--sort-records N] [--only fastq|bam]
-        [--seed N] [--device cuda|cpu]
+        [--count-queries N] [--sort-records N] [--split-records N]
+        [--only fastq|bam|split] [--seed N] [--device cuda|cpu]
 
 ``DIR`` holds another tree of the repository (a ``git archive`` of an
 earlier commit, unpacked). Both trees run the same inputs, generated once
@@ -20,15 +20,19 @@ from ``--seed`` with ``chip_smoke.py``'s generators:
   2,100,000 queries (some 3.3 million records: six full batches of the
   count's 2^19 and a remainder) over a 33,538-gene GTF; and 1,250,000
   records in a random order for the fused sort (the size of the smoke's
-  phase 8: its frames come from the sort's pipe, through no arena slot).
+  phase 8: its frames come from the sort's pipe, through no arena slot);
+- split (the smoke's phase 10): SplitBam -t CB of a 1,250,000-record
+  BAM sorted by (CB, UB, GE), the smoke's phase 5 library, with ``-s``
+  its size over 4.5, so into 5 chunks. Which chunk a barcode lands in
+  depends on ``PYTHONHASHSEED``, so every run's is ``--seed``.
 
 Each tree runs in its own process, in the order parent, tree, tree,
 parent, builds its native layer and its kernels first, and times through
 the entry points: FastqProcess -w (BAM and FASTQ shards, 4 shards),
 Attach10xBarcodes with and without -w, SampleFastq, FastqMetrics,
 ``MetricCSVWriter.write_block`` of the block with its close,
-CalculateCellMetrics, CreateCountMatrix and TagSortBam -t CB UB GE
---cell-metrics-output -o. Prints each run's reads/s (rows/s for the CSV,
+CalculateCellMetrics, CreateCountMatrix, TagSortBam -t CB UB GE
+--cell-metrics-output -o and SplitBam. Prints each run's reads/s (rows/s for the CSV,
 records/s for the BAM commands) and seconds, with the BAM commands' decode
 split as each tree reports it (this tree: the ring's producer seconds on
 its thread, ``decode``, beside the main thread's wait on the ring,
@@ -36,7 +40,7 @@ its thread, ``decode``, beside the main thread's wait on the ring,
 and checks that the two trees wrote the same outputs (decompressed; count
 matrices by their arrays, as the ``.npz`` bytes hold the save's time). The
 last line of its output holds all results as one JSON object. ``--only``
-runs one of the two groups. Work files go to ``.fastq_ab_work/`` and are
+runs one of the three groups. Work files go to ``.fastq_ab_work/`` and are
 removed.
 """
 
@@ -46,6 +50,7 @@ import argparse
 import contextlib
 import gzip
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -58,7 +63,7 @@ REPO = Path(__file__).resolve().parent
 WORK = REPO / ".fastq_ab_work"
 CSV_ROWS, CSV_COLUMNS = 33_538, 24
 SLIDESEQ_WHITELIST = 100_000
-GROUPS = ("fastq", "bam")
+GROUPS = ("fastq", "bam", "split")
 
 
 def make_inputs(work: Path, args) -> None:
@@ -67,6 +72,7 @@ def make_inputs(work: Path, args) -> None:
     from sctools_tpu_torch.io import bgzf
 
     rng = np.random.default_rng(args.seed)
+    records = {}
     if "fastq" in args.groups:
         make_fastq_inputs(work, args.reads, rng, cs, bgzf)
     if "bam" in args.groups:
@@ -80,8 +86,13 @@ def make_inputs(work: Path, args) -> None:
         reads = cs.make_reads(rng, args.sort_records)
         order = rng.permutation(args.sort_records)
         cs.write_tagged_bam(work / "shuffled.bam", rng, {k: v[order] for k, v in reads.items()}, bgzf)
-        records = {"cell_sorted.bam": args.cell_records, "count.bam": len(library["qname"]),
-                   "shuffled.bam": args.sort_records}
+        records.update({"cell_sorted.bam": args.cell_records, "count.bam": len(library["qname"]),
+                        "shuffled.bam": args.sort_records})
+    if "split" in args.groups:
+        cs.write_tagged_bam(work / "split_cell.bam", rng,
+                            cs.sort_reads(cs.make_reads(rng, args.split_records), "cell"), bgzf)
+        records["split_cell.bam"] = args.split_records
+    if records:
         (work / "records.json").write_text(json.dumps(records))
 
 
@@ -176,6 +187,8 @@ def run_arm(root: Path, work: Path, out: Path, reads: int, device: str, groups) 
         time_fastq(work, out, reads, platform, kwargs, timed)
     if "bam" in groups:
         time_bam(work, out, platform, kwargs, timed)
+    if "split" in groups:
+        time_split(work, out, platform, timed)
     return commands
 
 
@@ -235,6 +248,20 @@ def time_bam(work: Path, out: Path, platform, kwargs, timed) -> None:
           record="GatherCellMetrics")
 
 
+def time_split(work: Path, out: Path, platform, timed) -> None:
+    """SplitBam into ``out``, its scratch directories in ``out`` too."""
+    bam = work / "split_cell.bam"
+    records = json.loads((work / "records.json").read_text())[bam.name]
+
+    def split():
+        with contextlib.chdir(out):
+            platform.GenericPlatform.split_bam(
+                ["-b", str(bam), "-p", str(out / "chunk"), "-s", repr(bam.stat().st_size * 1e-6 / 4.5),
+                 "-t", "CB"])
+
+    timed("SplitBam -t CB", records, split)
+
+
 def outputs(directory: Path) -> dict:
     """Every output file of an arm, decompressed where it is gzip; a
     ``.npz`` as its arrays' bytes (its zip members carry the save's time).
@@ -271,6 +298,7 @@ def main(argv=None) -> int:
     parser.add_argument("--cell-records", type=int, default=6_500_000)
     parser.add_argument("--count-queries", type=int, default=2_100_000)
     parser.add_argument("--sort-records", type=int, default=1_250_000)
+    parser.add_argument("--split-records", type=int, default=1_250_000)
     parser.add_argument("--only", choices=GROUPS, help="time one group of commands")
     parser.add_argument("--seed", type=int, default=3)
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -304,7 +332,8 @@ def main(argv=None) -> int:
                 [sys.executable, str(Path(__file__).resolve()), "--arm", str(root), "--out", str(out),
                  "--reads", str(args.reads), "--device", args.device]
                 + (["--only", args.only] if args.only else []),
-                capture_output=True, text=True, cwd=str(root))
+                capture_output=True, text=True, cwd=str(root),
+                env=dict(os.environ, PYTHONHASHSEED=str(args.seed)))
             if child.returncode != 0:
                 raise SystemExit(f"fastq_ab: the {label} run failed:\n{child.stderr[-4000:]}")
             commands = json.loads(child.stdout.strip().splitlines()[-1])
@@ -314,7 +343,8 @@ def main(argv=None) -> int:
         same = outputs(WORK / "out_0_parent") == outputs(WORK / "out_1_tree")
         print(f"[ab] the two trees' outputs, decompressed, are {'equal' if same else 'DIFFERENT'}")
         result = {"device": stamp, "reads": args.reads, "cell_records": args.cell_records,
-                  "count_queries": args.count_queries, "sort_records": args.sort_records, "runs": runs,
+                  "count_queries": args.count_queries, "sort_records": args.sort_records,
+                  "split_records": args.split_records, "runs": runs,
                   "outputs_equal": same}
         print(json.dumps(result))
         return 0 if same else 1

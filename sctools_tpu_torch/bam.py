@@ -28,7 +28,7 @@ from concurrent.futures import ProcessPoolExecutor
 from typing import Dict, Generator, Iterable, Iterator, List, Optional, Set, Tuple
 
 from . import consts
-from .io.sam import AlignmentReader, AlignmentWriter, BamRecord, merge_bam_files
+from .io.sam import AlignmentReader, AlignmentWriter, BamRecord, aux_fields, aux_value, merge_bam_files
 
 _STDERR_FD = 2  # phase markers bypass logging, like the reference's os.write
 
@@ -183,23 +183,26 @@ class SortError(Exception):
 # ---------------------------------------------------------------- splitting
 
 
-def get_barcode_for_alignment(
-    alignment: BamRecord, tags: List[str], raise_missing: bool
-) -> Optional[str]:
-    """Value of the first of ``tags`` present on ``alignment`` (else None)."""
-    for tag in tags:
-        value = get_tag_or_default(alignment, tag)
-        if value is not None:
-            return value
+def _barcode_of_body(body: bytes, keys: List[bytes], tags: List[str], raise_missing: bool):
+    """The value of the first of ``keys`` (``tags`` encoded) among an
+    undecoded record body's aux fields, as ``BamRecord.get_tag`` gives it;
+    else None, or RuntimeError with ``raise_missing``."""
+    fields = aux_fields(body)
+    for key in keys:
+        field = fields.get(key)
+        if field is not None:
+            return aux_value(body, field)
     if raise_missing:
         raise RuntimeError("Alignment encountered that is missing {} tag(s).".format(tags))
     return None
 
 
 def get_barcodes_from_bam(in_bam: str, tags: List[str], raise_missing: bool) -> Set[str]:
-    """All distinct (non-None) barcode values in ``in_bam`` for ``tags``."""
+    """All distinct (non-None) barcode values in ``in_bam`` for ``tags``,
+    read from the aux fields without decoding the records."""
+    keys = [tag.encode() for tag in tags]
     with AlignmentReader(in_bam, "rb", check_sq=False) as records:
-        values = (get_barcode_for_alignment(record, tags, raise_missing) for record in records)
+        values = (_barcode_of_body(body, keys, tags, raise_missing) for body in records.raw_records())
         return {value for value in values if value is not None}
 
 
@@ -207,20 +210,26 @@ def write_barcodes_to_bins(
     in_bam: str, tags: List[str], barcodes_to_bins: Dict[str, int], raise_missing: bool
 ) -> List[str]:
     """Scatter ``in_bam`` records into per-bin bam files by barcode, in a
-    scratch directory ``{stem}_{uuid}`` made in the working directory."""
+    scratch directory ``{stem}_{uuid}`` made in the working directory.
+
+    The records are copied as the input holds them, undecoded, and at zlib
+    level 1: these files live until the bins' merge (``merge_bam_files``),
+    which writes each record through the record encoder, so a chunk holds
+    the bytes of a decode and re-encode, as JAX's does."""
     stem = os.path.splitext(os.path.basename(in_bam))[0]
     scratch = f"{stem}_{uuid.uuid4()}"
     os.makedirs(scratch)
+    keys = [tag.encode() for tag in tags]
 
     with AlignmentReader(in_bam, "rb", check_sq=False) as records:
         n_bins = len(set(barcodes_to_bins.values()))
         paths = [os.path.join(scratch, f"{scratch}_{index}.bam") for index in range(n_bins)]
-        writers = [AlignmentWriter(path, records.header.copy(), "wb") for path in paths]
+        writers = [AlignmentWriter(path, records.header.copy(), "wb", level=1) for path in paths]
         try:
-            for record in records:
-                barcode = get_barcode_for_alignment(record, tags, raise_missing)
+            for body in records.raw_records():
+                barcode = _barcode_of_body(body, keys, tags, raise_missing)
                 if barcode is not None:
-                    writers[barcodes_to_bins[barcode]].write(record)
+                    writers[barcodes_to_bins[barcode]].write_body(body)
         finally:
             for writer in writers:
                 writer.close()

@@ -33,6 +33,12 @@ _HEX_TO_NT16 = str.maketrans("0123456789abcdef", SEQ_NT16)
 _NT16_CODE = {c: i for i, c in enumerate(SEQ_NT16)}
 for _c in "acmgrsvtwyhkdbn":
     _NT16_CODE[_c] = _NT16_CODE[_c.upper()]
+# the inverse, for encoding: every one-byte character to the hex digit of
+# its code (15, N, for any other), so that bytes.fromhex packs two bases a
+# byte at C speed
+_NT16_TO_HEX = str.maketrans(
+    {chr(c): "0123456789abcdef"[_NT16_CODE.get(chr(c), 15)] for c in range(256)}
+)
 
 # flag bits
 FPAIRED = 0x1
@@ -248,17 +254,19 @@ class BamRecord:
         )
         seq = self.sequence
         l_seq = len(seq)
-        seq_packed = bytearray((l_seq + 1) // 2)
-        for i, base in enumerate(seq):
-            code = _NT16_CODE.get(base, 15)
-            if i % 2 == 0:
-                seq_packed[i // 2] = code << 4
-            else:
-                seq_packed[i // 2] |= code
+        # an odd length leaves the last byte's low nibble 0
+        hexed = seq.translate(_NT16_TO_HEX) + "0" * (l_seq % 2)
+        if hexed.isascii():
+            seq_packed = bytes.fromhex(hexed)
+        else:  # a character past one byte: code 15, as any other
+            seq_packed = bytes.fromhex("".join(c if c.isascii() else "f" for c in hexed))
         if self.quality is None:
             qual = b"\xff" * l_seq
         else:
-            qual = bytes(min(q, 0xFF) for q in self.quality)
+            try:
+                qual = bytes(self.quality)
+            except ValueError:  # a value past 255 is written as 255
+                qual = bytes(min(q, 0xFF) for q in self.quality)
         tags = self._encode_tags()
         # bin is a BAI indexing hint; 0 is acceptable for our outputs
         fixed = self._FIXED.pack(
@@ -274,7 +282,7 @@ class BamRecord:
             self.next_pos,
             self.tlen,
         )
-        body = fixed + name + cigar_packed + bytes(seq_packed) + qual + tags
+        body = fixed + name + cigar_packed + seq_packed + qual + tags
         return struct.pack("<i", len(body)) + body
 
     def _encode_tags(self) -> bytes:
@@ -567,13 +575,14 @@ class AlignmentReader:
 
 
 class AlignmentWriter:
-    """Write records to BAM (``mode='wb'``) or SAM text (``mode='w'``)."""
+    """Write records to BAM (``mode='wb'``, BGZF at zlib ``level``) or SAM
+    text (``mode='w'``)."""
 
-    def __init__(self, path: str, header: BamHeader, mode: str = "wb"):
+    def __init__(self, path: str, header: BamHeader, mode: str = "wb", level: int = 6):
         self._mode = mode
         self.header = header
         if mode == "wb":
-            self._bgzf = bgzf.BgzfWriter(path)
+            self._bgzf = bgzf.BgzfWriter(path, level)
             self._write_bam_header()
         elif mode == "w":
             self._fh = open(path, "w")
@@ -599,6 +608,12 @@ class AlignmentWriter:
             self._bgzf.write(record.to_bam_bytes())
         else:
             self._fh.write(record.to_sam_line(self.header) + "\n")
+
+    def write_body(self, body: bytes) -> None:
+        """A record body as ``iter_raw_records`` yields it, verbatim; BAM only."""
+        if self._mode != "wb":
+            raise ValueError("raw records need a BAM writer (mode 'wb')")
+        self._bgzf.write(struct.pack("<i", len(body)) + body)
 
     def close(self) -> None:
         if self._mode == "wb":

@@ -26,13 +26,22 @@ overflow, within one shard and across shards.
 One difference from the JAX package: a gene whose name reads as NA
 (``None``, which the gatherer writes for records without GE) makes JAX's
 vocabulary sort raise ``TypeError``; here it joins no count slot and the
-fold drops it, as ``MergeGeneMetrics`` does. Not ported:
-``collective_merge_parts`` (it needs ``parallel.launch``'s journal and
-sequence checks) and the merge's audit record.
+fold drops it, as ``MergeGeneMetrics`` does. Not ported: the merges'
+audit records.
+
+``collective_merge_parts`` (metrics/collective.py:288-450) is the
+gatherer-part merge of ``parallel.launch.merge_sorted_csv_parts`` with the
+same validation and the same output bytes: the parts' numeric values go
+through the same lanes and ``all_gather``, and the host renders the pulled
+values with ``str()``, the writer's own format. That is byte-identical
+because every value of a gatherer part round-trips through ``str()``; a
+value that does not, or a ragged row, is refused with JAX's message.
 """
 
 from __future__ import annotations
 
+import gzip
+import re
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,8 +50,11 @@ from .. import ingest
 from ..ops import segments as seg
 from ..parallel import collective
 from ..parallel.mesh import Mesh, make_mesh
+from ..sched import atomic_output
+from ..sched.parts import validated_parts
 from .merge import MergeGeneMetrics, MergeMetrics, _Column, _Table
 
+_INT_TEXT = re.compile(r"^-?\d+$")
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 
 
@@ -137,6 +149,115 @@ def _device_gather_parts(
     return [
         _decode_lanes(block, dtypes) for block in _gathered_part_rows(gathered, assignment, part_rows)
     ], summed
+
+
+def _parse_canonical_part(path: str) -> Tuple[str, List[str], List[str]]:
+    """(header_line, index_texts, row_tails) of one gatherer part file."""
+    with gzip.open(path, "rt") as f:
+        header = f.readline()
+        names: List[str] = []
+        tails: List[str] = []
+        for line in f:
+            if not line.strip():
+                continue
+            name, _, tail = line.rstrip("\n").partition(",")
+            names.append(name)
+            tails.append(tail)
+    return header, names, tails
+
+
+def _columns_from_tails(path: str, tails: List[str], n_columns: int) -> List[np.ndarray]:
+    """Parse row tails into canonical int64/float64 columns.
+
+    Every value must round-trip through ``str()`` byte for byte, which the
+    gatherer's CSV writer guarantees, or the merge refuses the input rather
+    than silently rewriting it.
+    """
+    cells = [tail.split(",") for tail in tails]
+    for row in cells:
+        if len(row) != n_columns:
+            raise ValueError(
+                f"collective merge: ragged row in {path} "
+                f"({len(row)} fields, header has {n_columns})"
+            )
+    columns: List[np.ndarray] = []
+    for col in range(n_columns):
+        texts = [row[col] for row in cells]
+        if all(_INT_TEXT.match(t) for t in texts):
+            values = np.array([int(t) for t in texts], dtype=np.int64)
+        else:
+            values = np.array([float(t) for t in texts], dtype=np.float64)
+        rendered = [str(v) for v in values.tolist()]
+        if rendered != texts:
+            drift = next((t, r) for t, r in zip(texts, rendered) if t != r)
+            raise ValueError(
+                f"collective merge: non-canonical value {drift[0]!r} in "
+                f"{path} (round-trips as {drift[1]!r}); merge these parts "
+                "with parallel.merge_sorted_csv_parts instead"
+            )
+        columns.append(values)
+    return columns
+
+
+def collective_merge_parts(
+    part_pattern: str,
+    output_path: str,
+    mesh: Optional[Mesh] = None,
+    compress: bool = True,
+    journal_dir: Optional[str] = None,
+    expected_parts: Optional[int] = None,
+) -> int:
+    """Join per-worker CSV parts through the mesh's ``all_gather``.
+
+    The drop-in for ``parallel.launch.merge_sorted_csv_parts``: the same
+    validation (gap, duplicate and journal checks), the same output bytes.
+    The parts' values travel as int32 lanes, one ``all_gather`` replaces
+    the host's concatenation, one pull brings them back, and the host
+    renders them with ``str()``. ``mesh`` defaults to every CUDA device.
+    Returns the number of entity rows written.
+    """
+    paths = validated_parts(part_pattern, journal_dir, expected_parts)
+    header: Optional[str] = None
+    part_names: List[List[str]] = []
+    part_columns: List[List[np.ndarray]] = []
+    for path in paths:
+        part_header, names, tails = _parse_canonical_part(path)
+        if header is None:
+            header = part_header
+        elif part_header != header:
+            raise ValueError(f"part {path} header differs")
+        n_columns = len(part_header.rstrip("\n").split(",")) - 1
+        part_names.append(names)
+        part_columns.append(_columns_from_tails(path, tails, n_columns))
+    # one dtype layout across parts (one schema writer); a column that is
+    # int in one part and float in another would need a cast the text
+    # merge never makes: refuse instead of guessing
+    layouts = {tuple(c.dtype.str for c in cols) for cols in part_columns}
+    if len(layouts) > 1:
+        raise ValueError(
+            f"collective merge: parts under {part_pattern!r} disagree on "
+            f"column dtypes ({sorted(layouts)}); merge with "
+            "parallel.merge_sorted_csv_parts instead"
+        )
+    gathered, _ = _device_gather_parts(_merge_mesh(mesh), part_columns)
+    # the text merge's row order: keyed on the index text, parts
+    # presorted, ties broken by part order: (name, part, row) exactly
+    order = sorted(
+        (name, part_index, row_index)
+        for part_index, names in enumerate(part_names)
+        for row_index, name in enumerate(names)
+    )
+    rendered = [
+        [",".join(row) for row in zip(*([str(v) for v in column.tolist()] for column in columns))]
+        for columns in gathered
+    ]
+    with atomic_output(output_path) as tmp_path:
+        opener = gzip.open if compress else open
+        with opener(tmp_path, "wt") as out:
+            out.write(header or "")
+            for name, part_index, row_index in order:
+                out.write(f"{name},{rendered[part_index][row_index]}\n")
+    return len(order)
 
 
 def _unified_tables(metric_files: Sequence[str]) -> Tuple[List[_Table], List[str]]:

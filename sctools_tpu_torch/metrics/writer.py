@@ -7,12 +7,14 @@ unnamed index column), one row per entity, every value rendered by
 batches, so the gzip stream gets large writes.
 
 Commit is atomic: bytes stream into a process-unique ``*.inflight.<pid>``
-temp sibling, and only ``close()`` publishes it onto the final path with
-``os.replace``. ``discard()`` abandons the output without publishing (the
-error path). ``write_block`` renders its rows with the native layer's
-block formatter (``native.format_csv_block``), which gives the bytes of
-the ``str()`` path at C++ speed, as the JAX writer does. The JAX writer's
-audit counters and fault hooks are not ported.
+temp sibling (``sched.commit.inflight_path``), and only ``close()``
+publishes it onto the final path with ``os.replace``; the ``writer.commit``
+fault site (``sched.faults``) sits just before the rename, as in the JAX
+writer. ``discard()`` abandons the output without publishing (the error
+path). ``write_block`` renders its rows with the native layer's block
+formatter (``native.format_csv_block``), which gives the bytes of the
+``str()`` path at C++ speed, as the JAX writer does. The JAX writer's
+audit counters are not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Any, List, Mapping
 import numpy as np
 
 from .. import native
+from ..sched import faults
+from ..sched.commit import inflight_path
 
 _FLUSH_EVERY = 4096  # rows per underlying write
 
@@ -36,7 +40,7 @@ class MetricCSVWriter:
         if not output_stem.endswith(".csv.gz"):
             output_stem += ".csv.gz"
         self._filename = output_stem
-        self._inflight = f"{output_stem}.inflight.{os.getpid()}"
+        self._inflight = inflight_path(output_stem)
         self._committed = False
         # level 1: on numeric CSV rows the ratio loss against the default (9)
         # is small, and the writer shares a host core with decode and dispatch
@@ -102,6 +106,14 @@ class MetricCSVWriter:
             return
         self._flush()
         self._sink.close()
+        # the crash window: bytes complete, rename pending. The merge must
+        # never see this state as a finished part
+        faults.fire("writer.commit", name=self._filename)
+        if faults.should_corrupt("writer.commit", name=self._filename):
+            with open(self._inflight, "rb") as f:
+                data = f.read()
+            with open(self._inflight, "wb") as f:
+                f.write(faults.mangle(data))
         os.replace(self._inflight, self._filename)
         self._committed = True
 

@@ -13,9 +13,11 @@ per-entity results do not depend on where an entity lands in a batch, the
 partition never splits an entity, and both paths make the same schema
 decision (``MetricGatherer._prepare_batch``).
 
-Not ported: JAX's fault sites, heartbeats, dispatch records and the guard
-ladder (a failed batch fails the command, and the writer discards its temp
-file).
+Each batch's dispatch is the ``gatherer.batch`` fault site
+(``sched.faults``), as in JAX: a crash there is a worker dying mid-chunk,
+with earlier batches already in the writer's temp file. Not ported: JAX's
+heartbeats, dispatch records and the guard ladder (a failed batch fails
+the command, and the writer discards its temp file).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..metrics.gatherer import (
     wire_result_names,
 )
 from ..ops.segments import entity_bucket
+from ..sched import faults
 from .metrics import run_sharded_metrics
 from .shard import partition_columns
 
@@ -54,6 +57,7 @@ class _ShardedMixin:
         self._n_shards = mesh.size
 
     def _dispatch_device_batch(self, frame, pad_to: int, presorted: bool = True):
+        faults.fire("gatherer.batch", name=str(self._bam_file))
         start_time = time.perf_counter()
         # the same schema decision as the single-device path: byte-identical
         # CSVs need both to derive the per-record quality floats alike. The

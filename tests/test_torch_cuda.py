@@ -30,6 +30,10 @@ the distributed step, the sample sort and the preflight equal a 2-shard CPU
 mesh and one device; on a machine with 2 or 4 cards, ``--devices 2`` and
 ``--devices 4`` on distinct cards give one device's outputs too (fewer
 cards: those two skip); more devices than cards is JAX's parser error.
+The chunk queue: two chunks through ``run_process_cell_metrics`` on cuda
+(its default) merge to the one-shot card CSV, and ``collective_merge_parts``
+on the card mesh and on a repeated card gives ``merge_sorted_csv_parts``'s
+bytes.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
@@ -843,3 +847,58 @@ def test_devices_on_distinct_cards_match_one_device(cuda_device, tmp_path, n):
     for key in want:
         np.testing.assert_array_equal(got[key], want[key])
     assert port_par.collective_preflight(cards) == port_par.collective_preflight(cpu)
+
+
+def _scheduled_parts(tmp_path):
+    """The cell library in two cell-disjoint chunks through the chunk queue
+    on the card: returns the one-shot BAM, the parts' pattern, the journal
+    and the worker's summary of committed parts."""
+    from sctools_tpu_torch import bam as port_bam
+    from sctools_tpu_torch.parallel import launch
+
+    header, records = _cell_library(np.random.default_rng(12))
+    records = list(port_bam.sort_by_tags_and_queryname(records, ["CB", "UB", "GE"]))
+    cells = sorted({r.get_tag("CB") for r in records})
+    bam = str(tmp_path / "cells.bam")
+    (tmp_path / "chunks").mkdir()
+    chunks = [str(tmp_path / "chunks" / f"chunk_{i}.bam") for i in range(2)]
+    with AlignmentWriter(bam, header) as whole, AlignmentWriter(chunks[0], header) as first, \
+            AlignmentWriter(chunks[1], header) as second:
+        for record in records:
+            whole.write(record)
+            (first if record.get_tag("CB") < cells[len(cells) // 2] else second).write(record)
+    committed = launch.run_process_cell_metrics(
+        chunks, str(tmp_path / "proc0"), 1, 0, frozenset({"G000", "G001"}), lease_ttl=30.0
+    )
+    return bam, str(tmp_path / "metrics.part*.csv.gz"), str(tmp_path / "sched-journal"), committed
+
+
+def test_scheduled_run_on_the_card_matches_the_one_shot_csv(cuda_device, tmp_path):
+    """Two chunks through ``run_process_cell_metrics`` on cuda (its
+    default), merged with the journal's checks, equal the one-shot card
+    CSV byte for byte; no hand kernel launches."""
+    from sctools_tpu_torch.parallel import launch
+
+    before = dict(kernels.launches)
+    bam, pattern, journal, committed = _scheduled_parts(tmp_path)
+    assert sorted(committed) == [str(tmp_path / f"metrics.part{i:04d}.csv.gz") for i in range(2)]
+    n = launch.merge_sorted_csv_parts(pattern, str(tmp_path / "merged.csv.gz"), journal_dir=journal,
+                                      expected_parts=2)
+    port_gatherer.GatherCellMetrics(bam, str(tmp_path / "one"), {"G000", "G001"}).extract_metrics()
+    assert n == 300 and _gz(tmp_path / "merged.csv.gz") == _gz(tmp_path / "one.csv.gz")
+    assert dict(kernels.launches) == before
+
+
+def test_collective_merge_parts_on_the_card_matches_the_text_merge(cuda_device, tmp_path):
+    """``collective_merge_parts`` on the card mesh (every card) and on a
+    repeated card gives ``merge_sorted_csv_parts``'s bytes."""
+    from sctools_tpu_torch.metrics.collective import collective_merge_parts
+    from sctools_tpu_torch.parallel import launch
+
+    _, pattern, journal, _ = _scheduled_parts(tmp_path)
+    launch.merge_sorted_csv_parts(pattern, str(tmp_path / "text.csv.gz"), journal_dir=journal, expected_parts=2)
+    card, _ = _card_and_cpu_meshes()
+    for name, mesh in (("local", launch.local_mesh()), ("repeated", card)):
+        n = collective_merge_parts(pattern, str(tmp_path / f"{name}.csv.gz"), mesh=mesh, journal_dir=journal,
+                                   expected_parts=2)
+        assert n == 300 and _gz(tmp_path / f"{name}.csv.gz") == _gz(tmp_path / "text.csv.gz")

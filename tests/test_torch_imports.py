@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``sctools_tpu_torch``, and not
-``chip_smoke.py``, imports JAX, the JAX package or pandas, and every
+``chip_smoke.py``, imports JAX, the JAX package or pandas, every
 ``#include "..."`` of its C++ and CUDA sources names a file inside the
-package.
+package, and every runner the scheduler resolves by name is a port module.
 
 The card's machine has no JAX and no pandas, and the port keeps its own
 copies of whatever it needs from the JAX package. The check reads each
@@ -68,3 +68,14 @@ def test_the_include_scan_sees_quoted_includes(tmp_path):
 def test_includes_resolve_inside_the_package(path):
     for name, target in quoted_includes(path):
         assert target.is_file() and PACKAGE in target.parents, f"{path.relative_to(REPO)} includes {name}"
+
+
+def test_runner_targets_are_the_ports():
+    """``sched.runners`` names its runners as import strings, which the
+    syntax walk above does not read: each must be a port module."""
+    from sctools_tpu_torch.sched.runners import RUNNERS, resolve
+
+    assert RUNNERS
+    for kind, target in RUNNERS.items():
+        assert target.startswith("sctools_tpu_torch."), f"runner {kind!r} -> {target}"
+        assert callable(resolve(kind))

@@ -182,3 +182,68 @@ def test_split_bam_cli_without_tags_fails_like_jax(tmp_path, monkeypatch):
     for entry in (jax_platform, port_platform):
         with pytest.raises(ValueError, match="At least one tag"):
             entry.GenericPlatform.split_bam(["-b", *paths, "-p", "x"])
+
+
+@pytest.mark.parametrize(
+    "sequence,quality",
+    [
+        ("ACGTN", [30, 31, 32, 33, 2]),                     # odd length
+        ("acgtnRYKMSWBDHV=", list(range(16))),              # lowercase, every IUPAC code
+        ("AC.GT X\tZ", [0, 93, 255, 300, 1000, 7, 8, 9, 10]),  # unknown bases, qualities past 255
+        ("ACGÅ€", None),                                     # characters past ASCII and past one byte
+        ("", None),
+        ("G" * 99, bytes(range(99))),
+    ],
+)
+def test_record_bytes_equal_jax(sequence, quality):
+    """The record encoder that SplitBam, the object sort route and attach's
+    Python loop write through: the JAX package's bytes on edge cases."""
+    from sctools_tpu.io.sam import BamRecord as JaxRecord
+    from sctools_tpu_torch.io.sam import BamRecord as PortRecord
+
+    fields = dict(query_name="r1", flag=16, reference_id=0, pos=7, cigar=[(0, len(sequence))],
+                  sequence=sequence, quality=quality, tags={"CB": ("Z", "AAAC"), "NH": ("i", 2)})
+    assert PortRecord(**fields).to_bam_bytes() == JaxRecord(**fields).to_bam_bytes()
+
+
+def test_split_rewrites_raw_records_as_jax(tmp_path, monkeypatch):
+    """The port's scatter copies records undecoded; the bins' merge must
+    still write JAX's decode-and-re-encode bytes. Input records carry what a
+    re-encode changes (a nonzero bin field, an odd sequence's nonzero pad
+    nibble, a repeated tag) and what it keeps (every aux type, a sequence
+    with no qualities)."""
+    from sctools_tpu_torch.io.sam import AlignmentReader, AlignmentWriter
+
+    header = make_header()
+    records = [
+        make_record(name=f"q{i:03d}", cb=f"CELL{i % 5}", ub="ACGTAC", ge="G1", nh=i % 3 + 1, pos=i,
+                    sequence="ACGTN"[: i % 5 + 1] * 3, quality=None if i % 4 == 0 else [30 + i % 9] * (3 * (i % 5 + 1)),
+                    header=header)
+        for i in range(60)
+    ]
+    for i, record in enumerate(records):
+        record.set_tag("XA", "A" if i % 2 else "z", "A")
+        record.set_tag("XF", 0.25 * i, "f")
+        record.set_tag("XB", ("s", [i, -i, 7]), "B")
+    plain = write_bam(tmp_path / "plain.bam", records, header)
+    raw = str(tmp_path / "raw.bam")
+    with AlignmentReader(plain, "rb") as reader, AlignmentWriter(raw, reader.header, "wb") as writer:
+        for i, body in enumerate(reader.raw_records()):
+            body = bytearray(body)
+            body[10:12] = (4681 + i).to_bytes(2, "little")  # bin
+            l_read_name, n_cigar = body[8], int.from_bytes(body[12:14], "little")
+            l_seq = int.from_bytes(body[16:20], "little")
+            if l_seq % 2:  # the pad nibble after an odd sequence's last base
+                body[32 + l_read_name + 4 * n_cigar + l_seq // 2] |= 0x7
+            if i % 3 == 0:  # a repeated tag: the last value wins, at the first's place
+                body += b"NHC" + bytes([9])
+            writer.write_body(bytes(body))
+    chunks = {}
+    for side, module in (("jax", jax_bam), ("port", port_bam)):
+        (tmp_path / side).mkdir()
+        monkeypatch.chdir(tmp_path / side)
+        (out,) = module.split([raw], "chunk", ["CB"], approx_mb_per_split=100.0, num_processes=1)
+        chunks[side] = _bodies(out)
+    assert len(chunks["port"]) == 60
+    assert chunks["port"] == chunks["jax"]
+    assert chunks["port"] != _bodies(raw)
