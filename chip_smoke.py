@@ -126,8 +126,32 @@ Phases, in order; any failure exits non-zero before the last line:
               card mesh must both equal phase 5's CalculateCellMetrics CSV
               byte for byte (decompressed). Prints each worker's wall,
               attempts, steals and exit code and both merges' seconds; no
-              worker may launch a hand kernel;
-11. kernels -- one JSON line per the port's kernel contract; its launches are
+              worker may launch a hand kernel. Its chunks stay for phase 11;
+11. serve  -- the serving plane (``sctools_tpu_torch.serve``) on the card:
+              phase 10's five chunks and six small 30,000-record libraries
+              (two a tenant, which the planner's file-size estimate puts in
+              the chunks' packs) submitted as three tenants' jobs
+              (``python -m sctools_tpu_torch.serve submit``); worker
+              processes (``chip_smoke.py --serve-worker``, each ``python -m
+              sctools_tpu_torch.serve worker`` on cuda with a 2 s lease TTL
+              at the 2^20-record batch width): wA leases one job a tenant
+              and is SIGTERM'd inside its pack (an injected
+              ``delay@task.claimed``); wB and its replacement wC, each warmed
+              on phase 5's cell BAM (its CUDA graphs captured), drain the
+              journal in cross-tenant packs. Every job must commit, none
+              quarantined, a lease be stolen, a pack hold two tenants, no
+              pack degrade and no graph key be captured twice; every served
+              CSV must equal its input's solo CalculateCellMetrics CSV on
+              the card and the chunks' merge the
+              one-shot CSV of phase 5's cell BAM (without -a: a serve job
+              carries no GTF), byte for byte (decompressed); ``python -m
+              sctools_tpu_torch.sched status`` must exit 0 with the tenant,
+              admission, steer and balanced rows lines. Prints each worker's
+              warmup, first result, packs, graph captures and replays, the
+              pack plans, jobs/s, and one full batch's device pass eager
+              against graph replay (presorted and device-sorted); no worker
+              may launch a hand kernel;
+12. kernels -- one JSON line per the port's kernel contract; its launches are
               those of every main-path run (phases 4 and 7).
 
 The last line of standard output is
@@ -1764,10 +1788,10 @@ KEPT_FOR_MESH = (
 
 
 def clear_work(*keep: str) -> None:
-    """Remove the work files but the names in ``keep`` and KEPT_FOR_MESH,
-    which a later phase reads."""
+    """Remove the work files but the names in ``keep``, KEPT_FOR_MESH and
+    KEPT_FOR_SERVE, which a later phase reads."""
     for path in WORK.iterdir():
-        if path.name not in keep and path.name not in KEPT_FOR_MESH:
+        if path.name not in keep and path.name not in KEPT_FOR_MESH and path.name not in KEPT_FOR_SERVE:
             shutil.rmtree(path) if path.is_dir() else path.unlink()
 
 
@@ -2150,8 +2174,11 @@ def phase_mesh(stamp: str, modules) -> None:
     log(f"[mesh] phase 9 took {time.perf_counter() - phase_start:.1f} s")
 
 
+# phase 5's cell BAM (the serve workers' calibration BAM) and phase 10's
+# chunks (the serve phase's tenant jobs)
+KEPT_FOR_SERVE = ("cell_sorted.bam", "chunks")
 # phase 5's cell BAM, its GTF and its one-shot CSV, for the chunk queue
-KEPT_FOR_SCHED = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz")
+KEPT_FOR_SCHED = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz", *KEPT_FOR_SERVE)
 SCHED_CHUNKS = 4.5  # -s is the BAM's size over this: 5 chunks
 SCHED_TTL = 2.0  # seconds a dead worker's lease outlives its last heartbeat
 SCHED_STRAGGLE = 0.5  # worker B's delay at each claim
@@ -2332,9 +2359,259 @@ def phase_sched(stamp: str, modules) -> None:
     log(f"[sched] {stamp} | merge_sorted_csv_parts {merged['merge_sorted_csv_parts']:.2f} s, "
         f"collective_merge_parts on {mesh!r} {merged['collective_merge_parts']:.2f} s: {rows} rows each, "
         f"both equal phase 5's CalculateCellMetrics CSV byte for byte ({len(want)} bytes)")
-    shutil.rmtree(WORK)
+    # the chunks are the serve phase's tenant jobs
+    shutil.move(str(workdir / "chunks"), str(WORK / "chunks"))
+    for path in WORK.iterdir():
+        if path.name not in KEPT_FOR_SERVE:
+            shutil.rmtree(path) if path.is_dir() else path.unlink()
     log(f"[sched] phase 10 took {time.perf_counter() - phase_start:.1f} s")
 
+
+
+# phase 10's five chunks as three tenants' jobs
+SERVE_TENANTS = (("t0", (0, 1)), ("t1", (2, 3)), ("t2", (4,)))
+# and two small jobs a tenant, which the planner puts in the chunks' packs:
+# its estimate (file size over 48 bytes, the JAX package's) reads each
+# chunk (~160 bytes a record) as 790,000-910,000 records, so a chunk fills
+# most of a 2^20 pack alone
+SERVE_SMALL_JOBS = 2
+SERVE_SMALL_RECORDS = 30_000
+SERVE_TTL = 2.0  # seconds a dead worker's lease outlives its last heartbeat
+SERVE_HOLD = 120.0  # the victim's delay at its first claim: it is killed inside it
+SERVE_FLAG = "--serve-worker"
+
+
+def serve_worker(argv) -> int:
+    """One resident worker of phase 11, in its own process: ``python -m
+    sctools_tpu_torch.serve worker`` with ``argv`` (on cuda, its default),
+    faults from the environment. Prints the hand kernel launches as
+    ``[worker] {json}`` lines when it starts and, after the CLI's own JSON
+    summary line, at its end."""
+    sys.path.insert(0, str(REPO))
+    from sctools_tpu_torch import kernels
+    from sctools_tpu_torch.serve import cli
+
+    print("[worker] " + json.dumps({"launches": dict(kernels.launches)}), flush=True)
+    rc = cli.main(["worker", *argv])
+    print("[worker] " + json.dumps({"launches": dict(kernels.launches)}), flush=True)
+    return rc
+
+
+def phase_serve(rng, stamp: str, modules) -> None:
+    """The serving plane on the card: phase 10's five chunks and six small
+    libraries submitted as three tenants' jobs with ``python -m
+    sctools_tpu_torch.serve submit``; a victim worker that leases one job a
+    tenant and is SIGTERM'd inside its pack, then a worker and its
+    replacement, each warmed on phase 5's cell BAM, drain the journal at the
+    2^20-record batch width in cross-tenant packs on CUDA graphs. Every
+    artifact against its input's solo CalculateCellMetrics CSV, the chunks'
+    merge against the one-shot CSV, ``sched status``'s serve view, and one
+    full batch's device pass eager against graph replay."""
+    import os
+    import signal
+
+    import torch
+
+    (port_platform, port_sched, port_launch, port_gatherer, port_device, port_seg, port_graphs, packed,
+     bgzf) = modules
+    phase_start = time.perf_counter()
+    workdir = WORK / "serve"
+    journal_dir = workdir / "journal"
+    chunks = sorted((WORK / "chunks").glob("chunk*.bam"))
+    if len(chunks) != 5:
+        raise AssertionError(f"phase 10 left {len(chunks)} chunks, want 5")
+    # (tenant, input BAM, output stem) of every job
+    jobs = [(tenant, chunks[i], workdir / "out" / f"metrics.part{i:04d}")
+            for tenant, indices in SERVE_TENANTS for i in indices]
+    begin = time.perf_counter()
+    (workdir / "small").mkdir(parents=True)
+    for tenant, _ in SERVE_TENANTS:
+        for k in range(SERVE_SMALL_JOBS):
+            bam = workdir / "small" / f"{tenant}.{k}.bam"
+            write_tagged_bam(bam, rng, sort_reads(make_reads(rng, SERVE_SMALL_RECORDS), "cell"), bgzf)
+            jobs.append((tenant, bam, workdir / "out" / f"small.{tenant}.{k}"))
+    made = time.perf_counter() - begin
+    submit = []
+    for tenant, bam, stem in jobs:
+        submit += ["--job", tenant, str(bam), str(stem)]
+    begin = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.serve", "submit", str(journal_dir), *submit],
+                          capture_output=True, text=True, cwd=REPO, timeout=120)
+    if done.returncode != 0 or f"registered {len(jobs)} new job(s)" not in done.stdout:
+        raise AssertionError(f"serve submit: rc {done.returncode}\n{done.stdout}{done.stderr}")
+    log(f"[serve] python -m sctools_tpu_torch.serve submit: {len(jobs)} jobs of 3 tenants in "
+        f"{time.perf_counter() - begin:.2f} s: {', '.join(f'{t} {b.name} {b.stat().st_size / 1e6:.1f} MB' for t, b, _ in jobs)} "
+        f"(the small libraries, {SERVE_SMALL_RECORDS} records each, made in {made:.2f} s)")
+
+    def launch(worker_id: str, spec: str, *extra):
+        env = {k: v for k, v in os.environ.items() if k != "SCTOOLS_TPU_FAULTS"}
+        if spec:
+            env["SCTOOLS_TPU_FAULTS"] = spec
+        proc = subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), SERVE_FLAG, str(journal_dir), "--worker-id", worker_id,
+             "--lease-ttl", repr(SERVE_TTL), "--poll-interval", "0.1", "--idle-timeout", "120", *extra],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        )
+        return proc, time.perf_counter()
+
+    probe = port_sched.Journal(str(journal_dir), worker_id="smoke-probe")
+    procs = []
+    runs = {}
+    try:
+        # the victim: one job a tenant (--max-depth 1), held inside the pack
+        victim, began = launch("wA", f"delay@task.claimed:secs={SERVE_HOLD},times=1", "--max-depth", "1")
+        procs.append(victim)
+        deadline = time.perf_counter() + 120
+        while not any(st.state == "leased" for st in probe.replay()[1].values()):
+            if victim.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"the victim never leased a job: {victim.communicate()[0][-3000:]}")
+            time.sleep(0.05)
+        tasks, states = probe.replay()
+        held = sorted(tasks[tid].name for tid, st in states.items() if st.state == "leased")
+        calibration = ("--calibration-bam", str(WORK / "cell_sorted.bam"), "--drain")
+        survivor, survivor_began = launch("wB", "", *calibration)
+        procs.append(survivor)
+        victim.send_signal(signal.SIGTERM)
+        victim_out, _ = victim.communicate(timeout=60)
+        runs["wA"] = (victim.returncode, victim_out, time.perf_counter() - began)
+        replacement, replacement_began = launch("wC", "", *calibration)
+        procs.append(replacement)
+        for name, proc, start in (("wB", survivor, survivor_began), ("wC", replacement, replacement_began)):
+            out, _ = proc.communicate(timeout=600)
+            runs[name] = (proc.returncode, out, time.perf_counter() - start)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    serve_wall = time.perf_counter() - survivor_began
+    if runs["wA"][0] != -signal.SIGTERM:
+        raise AssertionError(f"the victim should die of SIGTERM: rc {runs['wA'][0]}\n{runs['wA'][1][-3000:]}")
+    summaries = {}
+    for name, (rc, out, wall) in runs.items():
+        reports = [json.loads(line[len("[worker] "):]) for line in out.splitlines() if line.startswith("[worker] ")]
+        if any(any(r["launches"].values()) for r in reports):
+            raise AssertionError(f"worker {name}: hand kernel launches {reports}")
+        if name == "wA":
+            continue
+        if rc != 0 or len(reports) != 2:
+            raise AssertionError(f"worker {name}: rc {rc}\n{out[-3000:]}")
+        summaries[name] = json.loads(next(line for line in out.splitlines() if line.startswith('{"worker"')))
+    log(f"[serve] victim wA leased {held} at --max-depth 1, SIGTERM'd inside its pack "
+        f"(delay@task.claimed): exit {runs['wA'][0]} after {runs['wA'][2]:.2f} s; no hand kernel at its start")
+
+    tasks, states = probe.replay()
+    events = probe.events()
+    probe.close()
+    if sorted(st.state for st in states.values()) != ["committed"] * len(jobs):
+        raise AssertionError(f"not every job committed: { {tasks[t].name: st.state for t, st in states.items()} }")
+    stolen = [e for e in events if e.get("event") == "leased" and e.get("stolen")]
+    if not stolen:
+        raise AssertionError("no lease was stolen from the victim")
+    tenant_of = {tid: task.payload["tenant"] for tid, task in tasks.items()}
+    cross = [e for e in events if e.get("event") == "committed"
+             and len({tenant_of[t] for t in e["pack_members"]}) > 1]
+    packs_run = sum(s["packs_run"] for s in summaries.values())
+    if packs_run < 1 or not cross or any(s["packs_degraded"] for s in summaries.values()):
+        raise AssertionError(f"packs: {summaries}; {len(cross)} jobs committed in cross-tenant packs")
+    for name, summary in summaries.items():
+        graphs = summary["graphs"]
+        if graphs["keys"] != graphs["captures_warmup"] + graphs["captures_serving"]:
+            raise AssertionError(f"worker {name}: a graph key captured twice: {graphs}")
+        log(f"[serve] {stamp} | worker {name}: warmup {summary['warmup_s']:.2f} s "
+            f"({graphs['captures_warmup']} graphs captured on the calibration BAM), first result "
+            f"{summary['first_result_s'] if summary['first_result_s'] is None else round(summary['first_result_s'], 2)} "
+            f"s after its start, {summary['jobs_committed']} jobs in {summary['packs_run']} packs "
+            f"({summary['packs_degraded']} degraded); graphs: {graphs['captures_serving']} captured while "
+            f"serving, {graphs['replays']} replays, {graphs['keys']} keys; exit 0 in {runs[name][2]:.2f} s wall; "
+            f"no hand kernel at its start and its end")
+    name_of = {tid: tasks[tid].name for tid in tasks}
+    commits = [e for e in events if e.get("event") == "committed"]
+    for plan in [e for e in events if e.get("event") == "worker" and e.get("pack_plan")]:
+        log(f"[serve] pack plan of {plan['worker']}: {[name_of.get(t, t) for t in plan['pack_plan']['tids']]}")
+    for commit in sorted(commits, key=lambda e: name_of[e["id"]]):
+        log(f"[serve] {name_of[commit['id']]} committed by {commit['worker']}: pack of "
+            f"{len(commit['pack_members'])}, {commit['pack_rows']} records by member, bucket "
+            f"{commit['pack_bucket']}, audit {commit['audit']}")
+    first = min(e["ts"] for e in events if e.get("event") == "leased" and e.get("worker") in summaries)
+    last = max(e["ts"] for e in commits)
+    records = sum(c["audit"]["records_streamed"] for c in commits)
+    log(f"[serve] {stamp} | {len(jobs)} jobs ({records} records) in {last - first:.2f} s from the first lease "
+        f"of wB or wC to the last commit = {len(jobs) / (last - first):.3f} jobs/s, "
+        f"{records / (last - first):.0f} records/s; {len(cross)} jobs committed in cross-tenant packs; "
+        f"{len(stolen)} leases stolen ({sorted(name_of[e['id']] for e in stolen)}); wB and wC started "
+        f"{serve_wall:.2f} s before both exited")
+
+    # each artifact against its input's solo CalculateCellMetrics on the card
+    for i, (_, bam, stem) in enumerate(jobs):
+        solo = workdir / f"solo{i}"
+        if port_platform.GenericPlatform.calculate_cell_metrics(["-i", str(bam), "-o", str(solo)]) != 0:
+            raise AssertionError(f"CalculateCellMetrics on {bam.name} failed")
+        if read_csv(Path(str(stem) + ".csv.gz"))[0] != read_csv(Path(str(solo) + ".csv.gz"))[0]:
+            raise AssertionError(f"{stem.name}: the served CSV differs from {bam.name}'s solo CSV")
+    # the serve jobs carry no mitochondrial GTF (the JAX payload has none):
+    # the one-shot reference is phase 5's command without -a
+    one_shot = workdir / "one_shot"
+    port_platform.GenericPlatform.calculate_cell_metrics(["-i", str(WORK / "cell_sorted.bam"), "-o", str(one_shot)])
+    rows = port_launch.merge_sorted_csv_parts(str(workdir / "out" / "metrics.part*.csv.gz"),
+                                              str(workdir / "merged.csv.gz"), expected_parts=5)
+    want = read_csv(Path(str(one_shot) + ".csv.gz"))[0]
+    if read_csv(workdir / "merged.csv.gz")[0] != want:
+        raise AssertionError("the merged served CSVs differ from the one-shot CalculateCellMetrics CSV")
+    log(f"[serve] every served CSV equals its input's solo CalculateCellMetrics CSV on the card; the chunks' "
+        f"merge_sorted_csv_parts ({rows} rows) equals the one-shot CSV of phase 5's cell BAM byte for byte "
+        f"({len(want)} bytes, decompressed)")
+
+    status = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.sched", "status", str(journal_dir)],
+                            capture_output=True, text=True, cwd=REPO, timeout=120)
+    lines = [line for line in status.stdout.splitlines() if line.startswith("serve ")]
+    wanted = ("serve tenant t0:", "serve tenant t1:", "serve tenant t2:", "serve admission wB:",
+              "serve steer wB: mode=off", "serve rows: ")
+    if status.returncode != 0 or not all(any(line.startswith(w) for line in lines) for w in wanted) \
+            or not any(line.startswith("serve rows: ") and line.endswith("— balanced") for line in lines):
+        raise AssertionError(f"sched status: rc {status.returncode}\n{status.stdout}{status.stderr}")
+    for line in lines:
+        log(f"[serve] status: {line}")
+
+    # one full 2^20 batch's device pass, eager against graph replay
+    frame = next(packed.iter_frames_from_bam(str(WORK / "cell_sorted.bam"), METRICS_BATCH, want_qname=False))
+    cut = int(np.nonzero(frame.cell[1:] != frame.cell[:-1])[0][-1]) + 1
+    batch = port_gatherer.slice_frame(frame, 0, cut)
+    gatherer = port_gatherer.GatherCellMetrics(str(WORK / "cell_sorted.bam"), str(workdir / "unused"))
+    gatherer.start_stream()
+    int_names, float_names = port_gatherer.wire_result_names(gatherer.columns)
+    k = port_seg.entity_bucket(int(np.count_nonzero(batch.cell[1:] != batch.cell[:-1])) + 1, METRICS_BATCH)
+    graph_set = port_graphs.GraphSet("cuda")
+    for presorted in (True, False):
+        cols, kwargs, decisions = gatherer.pack_batch(batch, pad_to=METRICS_BATCH, presorted=presorted)
+        staged = {name: torch.from_numpy(array).to("cuda") for name, array in cols.items()}
+        passes = {
+            "eager": lambda: port_device.compute_entity_metrics(staged, **kwargs),
+            "graph": lambda: graph_set.run(staged, **kwargs),
+        }
+        blocks, times, host = {}, {}, {}
+        for name, engine in passes.items():
+            def one_batch(engine=engine):
+                return port_device.compact_results_wire(engine(), int_names, float_names, k)
+
+            blocks[name] = one_batch().cpu().numpy()
+            times[name] = cuda_ms(one_batch, repeats=5)
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            for _ in range(5):
+                one_batch()
+            torch.cuda.synchronize()
+            host[name] = (time.perf_counter() - begin) / 5 * 1e3
+        if not np.array_equal(blocks["eager"], blocks["graph"]):
+            raise AssertionError(f"graph replay's block differs from the eager block (presorted={presorted})")
+        log(f"[serve] {stamp} | one full batch ({decisions['records']} records padded to "
+            f"{kwargs['num_segments']}, {'presorted, prepacked' if presorted else 'device-sorted, plain'}"
+            f"{', run-keyed' if decisions['run_keyed'] else ''}) device pass + compaction: eager "
+            f"{times['eager']:.3f} ms, graph replay {times['graph']:.3f} ms (CUDA events, 5 calls queued back "
+            f"to back); host wall a call with a sync after 5: eager {host['eager']:.3f} ms, graph "
+            f"{host['graph']:.3f} ms; blocks equal byte for byte")
+    shutil.rmtree(WORK)
+    log(f"[serve] phase 11 took {time.perf_counter() - phase_start:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2370,6 +2647,7 @@ def main(argv=None) -> int:
     from sctools_tpu_torch.parallel import launch as port_launch
     from sctools_tpu_torch import sched as port_sched
     from sctools_tpu_torch.metrics import collective as port_collective
+    from sctools_tpu_torch.serve import graphs as port_graphs
 
     phase_build(kernels, native)
     rng = np.random.default_rng(args.seed)
@@ -2397,18 +2675,22 @@ def main(argv=None) -> int:
     )
     phase_mesh(stamp, (kernels, port_platform, port_par, port_par_gatherer, port_gatherer, port_gtf, packed))
     phase_sched(stamp, (port_platform, port_sched, port_launch, port_collective))
+    phase_serve(np.random.default_rng(args.seed + 5), stamp,
+                (port_platform, port_sched, port_launch, port_gatherer, port_device, port_seg, port_graphs, packed,
+                 bgzf))
     record = {
         "name": "whitelist_correct",
         "route": "cuda",
         "source": "sctools_tpu_torch/csrc/whitelist_correct.cu",
         "replaces": "sctools_tpu/ops/whitelist.py:125",
         # every main-path run of the smoke: attach, FastqProcess in both
-        # formats, SampleFastq (the metrics, count, sort, mesh and sched paths launch none)
+        # formats, SampleFastq (the metrics, count, sort, mesh, sched and serve
+        # paths launch none)
         "launches": launches["whitelist_correct"] + fastq_launches,
         "verdict": "exact",
         **measured,
     }
-    log(f"[smoke] phases 1-10 took {time.perf_counter() - smoke_start:.1f} s")
+    log(f"[smoke] phases 1-11 took {time.perf_counter() - smoke_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2421,6 +2703,8 @@ def main(argv=None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [WORKER_FLAG]:  # one of phase 10's worker processes
         sys.exit(sched_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [SERVE_FLAG]:  # one of phase 11's worker processes
+        sys.exit(serve_worker(sys.argv[2:]))
     try:
         sys.exit(main())
     except SystemExit:

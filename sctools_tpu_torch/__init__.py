@@ -11,5 +11,7 @@ CUDA kernel (``csrc/whitelist_correct.cu``), the metrics and count passes
 on PyTorch ops on the device, and the sorts, splits, merges and QC
 aggregation on the host. ``--devices N > 1`` runs the metrics, count and
 merge commands on a mesh of N devices driven by one process
-(``parallel``).
+(``parallel``). ``sched`` runs chunked metrics in worker processes over a
+shared journal, and ``serve`` is the resident multi-tenant metrics service
+on that journal (``python -m sctools_tpu_torch.serve``).
 """

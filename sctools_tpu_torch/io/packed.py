@@ -430,6 +430,16 @@ def slice_frame(frame: ReadFrame, start: int, stop: int) -> ReadFrame:
     return frame._view(**kwargs)
 
 
+def take_frame(frame: ReadFrame, index: np.ndarray) -> ReadFrame:
+    """The records at ``index``, in that order, in arrays of their own;
+    vocabularies are shared (codes stay valid)."""
+    kwargs = {name: getattr(frame, name)[index] for name in _PER_RECORD_FIELDS}
+    for name in _CODED_FIELDS:
+        kwargs[f"{name}_names"] = getattr(frame, f"{name}_names")
+    kwargs["extras"] = {k: v[index] for k, v in frame.extras.items()}
+    return ReadFrame(**kwargs)
+
+
 def copy_frame(frame: ReadFrame) -> ReadFrame:
     """Deep-copy every per-record array (vocabulary lists are shared), so a
     carried tail owns its memory instead of viewing the batch it came from.

@@ -306,13 +306,17 @@ class MetricGatherer:
         frame_source=None,
         device: DeviceLike = None,
         backend: str = "device",
+        compress: bool = True,
+        graphs=None,
     ):
         """``frame_source``: optional zero-arg callable yielding sorted
         ReadFrames in place of decoding ``bam_file``; ``bam_file`` is still
         read for its header. ``device``: ``cuda`` unless the caller asks
         for ``cpu``. ``backend``: ``device`` (the engine on ``device``) or
         ``cpu`` (the host aggregators, which take no device and no frame
-        source)."""
+        source). ``compress=False`` writes a plain ``.csv``. ``graphs``: a
+        ``serve.graphs.GraphSet`` that replays the engine's pass from CUDA
+        graphs (the serve worker's); None runs it eagerly."""
         if backend not in ("device", "cpu"):
             raise ValueError(f"unknown backend {backend!r}")
         self._bam_file = bam_file
@@ -321,8 +325,14 @@ class MetricGatherer:
         self._batch_records = batch_records
         self._frame_source = frame_source
         self._backend = backend
+        self._compress = compress
         self._device = resolve(device) if backend == "device" else None
+        self._graphs = graphs
         self.run_keyed_batches = 0
+        # records the device pass streamed (every frame the source handed
+        # over), and the rows its writer published
+        self.records_streamed = 0
+        self.rows_emitted = 0
         # one entry per dispatched batch: records, padded size, entities,
         # schema decisions, and on CUDA the (start, end) events around its
         # upload, device pass and pull
@@ -368,7 +378,7 @@ class MetricGatherer:
             frames = ingest.ring_frames(source=self._frame_source(), stats=ring_stats)
         else:
             frames = ingest.ring_frames(self._bam_file, self._batch_records, stats=ring_stats)
-        out = MetricCSVWriter(self._output_stem)
+        out = self._make_writer()
         try:
             out.write_header({c: None for c in self.columns})
             self._stream_device_batches(self._timed(frames), out)
@@ -378,6 +388,7 @@ class MetricGatherer:
             raise
         else:
             out.close()
+            self.rows_emitted = out.rows_written
         finally:
             # closing the ring joins its thread, which closes the source: a
             # source left open on a failure holds its files (the native
@@ -385,6 +396,12 @@ class MetricGatherer:
             frames.close()
             self.seconds["decode"] = ring_stats["decode"]
             self.ring_batches = ring_stats["batches"]
+
+    def _make_writer(self) -> MetricCSVWriter:
+        """The device pass's output writer. A seam: the serve packer puts a
+        router in its place that splits each result block back out to
+        per-job CSVs by entity membership."""
+        return MetricCSVWriter(self._output_stem, self._compress)
 
     def start_stream(self) -> None:
         """Reset the wire-schema state that must not flip mid-stream: the u8
@@ -417,6 +434,7 @@ class MetricGatherer:
         next_progress = PROGRESS_EVERY
         for frame in frames:
             processed += frame.n_records
+            self.records_streamed += frame.n_records
             if processed >= next_progress:
                 print(f"[{type(self).__name__}] {processed} records decoded", file=sys.stderr)
                 next_progress += PROGRESS_EVERY
@@ -560,7 +578,12 @@ class MetricGatherer:
             events[0].record()
         staged = {name: ingest.upload(array, self._device) for name, array in cols.items()}
         self.run_keyed_batches += batch["run_keyed"]
-        result = device_engine.compute_entity_metrics(staged, **kwargs)
+        # a graph replay returns its static outputs, which the next replay
+        # overwrites: the compaction below reads them first, in stream order
+        if self._graphs is not None:
+            result = self._graphs.run(staged, **kwargs)
+        else:
+            result = device_engine.compute_entity_metrics(staged, **kwargs)
         # the entity count is host-knowable, so the compacting pull is
         # queued here, right behind the batch's device pass
         key = self._entity_key(frame)
@@ -678,7 +701,7 @@ class MetricGatherer:
     # ---- cpu backend (the reference's streaming semantics) ---------------
 
     def _extract_cpu(self) -> None:
-        out = MetricCSVWriter(self._output_stem)
+        out = MetricCSVWriter(self._output_stem, self._compress)
         try:
             with AlignmentReader(self._bam_file) as reader:
                 self._aggregate(iter(reader), out)

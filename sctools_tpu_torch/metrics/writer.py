@@ -1,4 +1,4 @@
-"""Buffered, gzipped metric CSV writer, atomically committed.
+"""Buffered metric CSV writer (gzipped unless asked not to), atomically committed.
 
 The port's own copy of ``sctools_tpu.metrics.writer``. The output format is
 the reference's CSV contract: a header line starting with a bare comma (the
@@ -14,7 +14,8 @@ writer. ``discard()`` abandons the output without publishing (the error
 path). ``write_block`` renders its rows with the native layer's block
 formatter (``native.format_csv_block``), which gives the bytes of the
 ``str()`` path at C++ speed, as the JAX writer does. The JAX writer's
-audit counters are not ported.
+audit ledger is not ported; ``rows_written`` counts the rows instead (the
+serve worker journals it under the ledger's ``rows.emitted`` key).
 """
 
 from __future__ import annotations
@@ -36,17 +37,25 @@ _FLUSH_EVERY = 4096  # rows per underlying write
 class MetricCSVWriter:
     """Accumulates entity rows and writes them through in batches."""
 
-    def __init__(self, output_stem: str):
-        if not output_stem.endswith(".csv.gz"):
-            output_stem += ".csv.gz"
+    def __init__(self, output_stem: str, compress: bool = True):
+        """``compress=False`` writes a plain ``.csv`` with the same commit."""
+        suffix = ".csv.gz" if compress else ".csv"
+        if not output_stem.endswith(suffix):
+            output_stem += suffix
         self._filename = output_stem
         self._inflight = inflight_path(output_stem)
         self._committed = False
-        # level 1: on numeric CSV rows the ratio loss against the default (9)
-        # is small, and the writer shares a host core with decode and dispatch
-        self._sink = gzip.open(self._inflight, "wb", compresslevel=1)
+        if compress:
+            # level 1: on numeric CSV rows the ratio loss against the default
+            # (9) is small, and the writer shares a host core with decode and
+            # dispatch
+            self._sink = gzip.open(self._inflight, "wb", compresslevel=1)
+        else:
+            self._sink = open(self._inflight, "wb")
         self._columns: List[str] = []
         self._rows: List[str] = []
+        #: entity rows written (the header is not a row)
+        self.rows_written = 0
 
     @property
     def filename(self) -> str:
@@ -72,6 +81,7 @@ class MetricCSVWriter:
         if not isinstance(index, str):
             index = repr(index)  # None genes/cells render as 'None'
         values = ",".join(str(record[column]) for column in self._columns)
+        self.rows_written += 1
         self._push(index + "," + values)
 
     def write_block(self, index, columns) -> None:
@@ -98,6 +108,7 @@ class MetricCSVWriter:
             # column of its row (multi-gene "a,b" rows are filtered earlier)
             if "," in name or "\n" in name:
                 raise ValueError(f"index value needs CSV quoting: {name!r}")
+        self.rows_written += len(index)
         self._sink.write(native.format_csv_block(index, columns))
 
     def close(self) -> None:

@@ -27,11 +27,14 @@ The port of ``sctools_tpu.sched.cli``:
   bind to content, and requeueing a changed input would commit an
   artifact under the wrong identity.
 
-``status`` also prints one line per announced device mesh, and the
-poison-record sidecars of the journal's ``quarantine/`` directory when it
-holds any (the JAX package's guard writes them; no port code does). Not
-ported: the serve, slo, efficiency, profile and pulse views, which read
-the JAX package's serving plane and telemetry.
+``status`` also prints one line per announced device mesh, the serve
+view when the journal holds serve jobs (per-tenant counts with the queue
+age of the oldest open job, one admission line and one steer line per
+resident worker, and the rows-balanced line of the committed jobs), and
+the poison-record sidecars of the journal's ``quarantine/`` directory when
+it holds any (the JAX package's guard writes them; no port code does). Not
+ported: the slo, efficiency, profile and pulse views, which read the JAX
+package's telemetry.
 """
 
 from __future__ import annotations
@@ -86,6 +89,7 @@ def _status(journal_dir: str, out, journal: Optional[Journal] = None) -> int:
     summary = ", ".join(f"{k}={v}" for k, v in sorted(totals.items()))
     print(f"total={len(tasks)} ({summary})", file=out)
     _print_mesh_summary(journal, out)
+    _print_serve_summary(journal, tasks, states, out)
     _print_quarantined_records(journal_dir, out)
     if totals.get(QUARANTINED):
         return 2
@@ -122,6 +126,151 @@ def _print_mesh_summary(journal: Journal, out) -> None:
             f"{', '.join(workers)}",
             file=out,
         )
+
+
+def _print_serve_summary(journal: Journal, tasks, states, out) -> None:
+    """Per-tenant serve-plane view when the journal carries serve jobs.
+
+    One line per tenant (queued/running/committed/quarantined, plus the
+    queue age of its oldest open job: the admission-starvation signal),
+    the rows-balanced line, then one admission line per resident worker
+    that announced its AdmissionController snapshot and one steer line
+    per worker that announced its steering mode.
+    """
+    from ..serve.api import SERVE_TASK_KIND
+
+    now = wall_clock()
+    per_tenant = {}
+    oldest_open = {}
+    for tid in sorted(tasks, key=lambda t: tasks[t].name):
+        task = tasks[tid]
+        if task.kind != SERVE_TASK_KIND:
+            continue
+        tenant = str(task.payload.get("tenant", "?"))
+        st = states.get(tid)
+        state = st.state if st else "pending"
+        if state == COMMITTED:
+            bucket = "committed"
+        elif state == QUARANTINED:
+            bucket = "quarantined"
+        elif state == LEASED:
+            bucket = "running"
+        else:
+            bucket = "queued"
+        counts = per_tenant.setdefault(
+            tenant,
+            {"queued": 0, "running": 0, "committed": 0, "quarantined": 0},
+        )
+        counts[bucket] += 1
+        if bucket in ("queued", "running"):
+            submitted = task.payload.get("submitted")
+            if isinstance(submitted, (int, float)):
+                prior = oldest_open.get(tenant)
+                if prior is None or submitted < prior:
+                    oldest_open[tenant] = float(submitted)
+    if not per_tenant:
+        return
+    for tenant, counts in sorted(per_tenant.items()):
+        line = (
+            f"serve tenant {tenant}: queued={counts['queued']} "
+            f"running={counts['running']} committed={counts['committed']}"
+        )
+        if counts["quarantined"]:
+            line += f" quarantined={counts['quarantined']}"
+        if tenant in oldest_open:
+            age = max(now - oldest_open[tenant], 0.0)
+            line += f" queue-age={age:.1f}s"
+        print(line, file=out)
+    _print_serve_rows_line(journal, tasks, out)
+    try:
+        meta = journal.worker_meta()
+    except Exception:  # noqa: BLE001 - status must never die on telemetry
+        return
+    for worker, info in sorted(meta.items()):
+        serve = info.get("serve")
+        if not isinstance(serve, dict):
+            continue
+        in_flight = serve.get("in_flight") or {}
+        depth = sum(in_flight.values()) if in_flight else 0
+        detail = (
+            ", ".join(f"{t}={n}" for t, n in sorted(in_flight.items()))
+            or "idle"
+        )
+        warm = "warm" if info.get("warm") else "warming"
+        print(
+            f"serve admission {worker}: depth={depth} "
+            f"(max {serve.get('max_depth', '?')}/tenant) {detail} [{warm}]",
+            file=out,
+        )
+    for worker, info in sorted(meta.items()):
+        steering = info.get("steer")
+        if not isinstance(steering, dict) or "mode" not in steering:
+            continue
+        mode = steering.get("mode")
+        line = f"serve steer {worker}: mode={mode}"
+        if mode != "off":
+            # a JAX worker with steering armed announces its controller
+            line += (
+                f" bucket={steering.get('bucket', '?')}"
+                f"/{steering.get('static', '?')}"
+            )
+            if steering.get("prefetch_override") is not None:
+                line += f" prefetch={steering['prefetch_override']}"
+            line += (
+                f" decisions={steering.get('decisions', 0)} "
+                f"(applied={steering.get('applied', 0)} "
+                f"refused={steering.get('refused', 0)} "
+                f"held={steering.get('held', 0)} "
+                f"degraded={steering.get('degraded', 0)})"
+            )
+        print(line, file=out)
+
+
+def _print_serve_rows_line(journal: Journal, tasks, out) -> None:
+    """The rows-balanced headline of the serve view.
+
+    Folds the committed serve events' ``audit`` extras (per member
+    ``rows_emitted`` against ``rows_claimed`` from the pack plan) into one
+    line: balanced means every row a tenant's pack membership claimed was
+    emitted into that tenant's output.
+    """
+    from ..serve.api import SERVE_TASK_KIND
+
+    try:
+        events = journal.events()
+    except Exception:  # noqa: BLE001 - status must never die on telemetry
+        return
+    emitted = claimed = audited = 0
+    seen = set()
+    for event in events:
+        tid = event.get("id")
+        if event.get("event") != "committed" or tid in seen:
+            continue
+        seen.add(tid)
+        task = tasks.get(tid)
+        if task is None or task.kind != SERVE_TASK_KIND:
+            continue
+        extra = event.get("audit")
+        if not isinstance(extra, dict):
+            continue
+        audited += 1
+        rows = int(extra.get("rows_emitted") or 0)
+        emitted += rows
+        # solo (unpacked) jobs carry no routing claim: the whole-job
+        # count is the claim, so they balance by construction
+        claim = extra.get("rows_claimed")
+        claimed += int(claim) if claim is not None else rows
+    if not audited:
+        return
+    skew = emitted - claimed
+    verdict = (
+        "balanced" if skew == 0 else f"UNBALANCED (skew={skew:+d})"
+    )
+    print(
+        f"serve rows: emitted={emitted} claimed={claimed} over "
+        f"{audited} audited job(s) — {verdict}",
+        file=out,
+    )
 
 
 def _print_quarantined_records(journal_dir: str, out) -> None:

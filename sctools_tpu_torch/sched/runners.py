@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional
 
 RUNNERS: Dict[str, str] = {
     "cell_metrics": "sctools_tpu_torch.parallel.launch:run_cell_metrics_task",
+    "serve_cell_metrics": "sctools_tpu_torch.serve.engine:run_serve_task",
 }
 
 

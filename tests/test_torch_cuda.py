@@ -33,7 +33,13 @@ cards: those two skip); more devices than cards is JAX's parser error.
 The chunk queue: two chunks through ``run_process_cell_metrics`` on cuda
 (its default) merge to the one-shot card CSV, and ``collective_merge_parts``
 on the card mesh and on a repeated card gives ``merge_sorted_csv_parts``'s
-bytes.
+bytes. The serving plane: the engine's pass captured as a CUDA graph on
+one full 2^20 batch replays a second batch of the same signature with no
+new capture, and each replayed block equals the eager block byte for
+byte, for a presorted and for a device-sorted batch; capturing a key
+twice raises; a worker on cuda warms its graphs on a calibration BAM and
+drains a two-tenant journal in one pack, each artifact equal to the job's
+eager solo CSV; a cuda worker without a GPU raises before any lease.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
@@ -902,3 +908,131 @@ def test_collective_merge_parts_on_the_card_matches_the_text_merge(cuda_device, 
         n = collective_merge_parts(pattern, str(tmp_path / f"{name}.csv.gz"), mesh=mesh, journal_dir=journal,
                                    expected_parts=2)
         assert n == 300 and _gz(tmp_path / f"{name}.csv.gz") == _gz(tmp_path / "text.csv.gz")
+
+
+def _graph_batch(rng, schema: str, n: int):
+    """One batch's engine inputs as the gatherer ships them: the run-keyed
+    prepacked wire of a presorted batch, or the plain columns of a batch
+    the engine sorts on the device."""
+    frame = _synthetic_frame(rng, n)
+    is_mito = np.zeros(len(frame.gene_names), dtype=bool)
+    is_mito[-20:] = True
+    padded = port_seg.bucket_size(n)
+    if schema == "presorted":
+        starts = np.ones(n, dtype=bool)
+        starts[1:] = (np.diff(frame.cell) != 0) | (np.diff(frame.gene) != 0) | (np.diff(frame.umi) != 0)
+        cols, flags = port_gatherer._pad_columns(
+            frame, is_mito, pad_to=padded, prepacked_keys=("cell", "gene", "umi"),
+            pair_mito=True, small_ref=True, run_keys_bucket=port_seg.bucket_size(int(starts.sum())),
+            run_starts=starts,
+        )
+        return {"wire": port_gatherer._pack_wire(cols, flags)}, dict(
+            num_segments=padded, kind="cell", presorted=True, prepacked=True, **flags)
+    cols, _ = port_gatherer._pad_columns(frame, is_mito, pad_to=padded)
+    perm = rng.permutation(padded)
+    return {name: value[perm] for name, value in cols.items()}, dict(
+        num_segments=padded, kind="cell", presorted=False)
+
+
+def _pulled_block(result, kwargs) -> np.ndarray:
+    int_names, float_names = port_gatherer.wire_result_names(port_gatherer.CELL_COLUMNS)
+    k = port_seg.entity_bucket(int(result["n_entities"]), kwargs["num_segments"])
+    return port_device.compact_results_wire(result, int_names, float_names, k).cpu().numpy()
+
+
+@pytest.mark.parametrize("schema", ["presorted", "device_sorted"])
+def test_graph_replay_equals_eager_bytes(cuda_device, schema):
+    """A graph captured on one full 2^20 batch replays a second batch of
+    the same signature with no new capture, and the pulled block of each
+    replay equals the eager block byte for byte, floats included."""
+    from sctools_tpu_torch.serve.graphs import GraphSet
+
+    rng = np.random.default_rng(61)
+    graphs = GraphSet(cuda_device)
+    first_cols, kwargs = _graph_batch(rng, schema, 1 << 20)
+    for _ in range(3):
+        cols, batch_kwargs = _graph_batch(rng, schema, 1 << 20)
+        if batch_kwargs == kwargs:
+            break
+    assert batch_kwargs == kwargs, "no second batch of the same signature"
+    for host in (first_cols, cols):
+        staged = {name: torch.from_numpy(value).to(cuda_device) for name, value in host.items()}
+        eager = _pulled_block(port_device.compute_entity_metrics(staged, **kwargs), kwargs)
+        replayed = _pulled_block(graphs.run(staged, **kwargs), kwargs)
+        np.testing.assert_array_equal(replayed, eager)
+    assert (graphs.captures, graphs.replays, len(graphs)) == (1, 2, 1)
+
+
+def test_graph_key_captured_twice_raises(cuda_device):
+    from sctools_tpu_torch.serve.graphs import GraphCaptureError, GraphSet
+
+    cols, kwargs = _graph_batch(np.random.default_rng(62), "presorted", 5000)
+    staged = {name: torch.from_numpy(value).to(cuda_device) for name, value in cols.items()}
+    graphs = GraphSet(cuda_device)
+    graphs.run(staged, **kwargs)
+    with pytest.raises(GraphCaptureError, match="captured twice"):
+        graphs.capture(staged, **kwargs)
+    assert graphs.captures == 1
+
+
+def test_serve_worker_on_the_card_matches_eager_solo_runs(cuda_device, tmp_path):
+    """A worker on cuda (its default) warms its graph set on a calibration
+    BAM, then drains a two-tenant journal in one pack whose stream is not
+    ascending; each artifact equals the job's eager solo CSV on the card,
+    decompressed, and no hand kernel launches."""
+    from sctools_tpu_torch.sched import Journal
+    from sctools_tpu_torch.serve.api import ServeJob
+    from sctools_tpu_torch.serve.cli import submit_jobs
+    from sctools_tpu_torch.serve.engine import ServeWorker
+
+    header, records = _cell_library(np.random.default_rng(63))
+    cells = sorted({r.get_tag("CB") for r in records})
+    paths = {name: str(tmp_path / f"{name}.bam") for name in ("all", "low", "high")}
+    with AlignmentWriter(paths["all"], header) as whole, AlignmentWriter(paths["low"], header) as low, \
+            AlignmentWriter(paths["high"], header) as high:
+        for record in records:
+            whole.write(record)
+            (low if record.get_tag("CB") < cells[len(cells) // 2] else high).write(record)
+    # tenant "ta" holds the high cells: the packed stream runs high, then low
+    jobs = [ServeJob("ta", paths["high"], str(tmp_path / "out" / "ta")),
+            ServeJob("tb", paths["low"], str(tmp_path / "out" / "tb"))]
+    journal_dir = str(tmp_path / "journal")
+    assert submit_jobs(journal_dir, jobs) == 2
+    before = dict(kernels.launches)
+    # a 2^14 bucket holds both jobs' file-size estimates: one pack
+    with ServeWorker(journal_dir, worker_id="card", batch_records=1 << 14, lease_ttl=30.0,
+                     poll_interval=0.05) as worker:
+        assert worker.device.type == "cuda"
+        worker.warmup(calibration_bam=paths["all"])
+        assert worker.warmup_captures >= 1
+        assert worker.serve_forever(drain=True, idle_timeout_s=60.0) == 2
+    assert worker.packs_run == 1 and worker.packs_degraded == 0
+    assert worker.graph_stats()["replays"] >= 3
+    assert dict(kernels.launches) == before
+    journal = Journal(journal_dir, worker_id="check")
+    _, states = journal.replay()
+    assert sorted(st.state for st in states.values()) == ["committed"] * 2
+    assert [len(e["pack_members"]) for e in journal.events() if e.get("event") == "committed"] == [2, 2]
+    for job in jobs:
+        solo = str(tmp_path / f"solo_{job.tenant}")
+        port_gatherer.GatherCellMetrics(job.bam, solo, batch_records=1 << 14).extract_metrics()
+        assert _gz(job.out + ".csv.gz") == _gz(solo + ".csv.gz")
+
+
+def test_cuda_serve_worker_without_a_gpu_raises_before_any_lease(cuda_device, tmp_path, monkeypatch):
+    from sctools_tpu_torch.sched import Journal
+    from sctools_tpu_torch.serve.api import ServeJob
+    from sctools_tpu_torch.serve.cli import main as serve_main
+    from sctools_tpu_torch.serve.cli import submit_jobs
+    from sctools_tpu_torch.serve.engine import ServeWorker
+
+    journal_dir = tmp_path / "journal"
+    submit_jobs(str(journal_dir), [ServeJob("ta", str(tmp_path / "a.bam"), str(tmp_path / "a"))])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device was requested"):
+        ServeWorker(str(journal_dir))
+    with pytest.raises(RuntimeError, match="CUDA device was requested"):
+        serve_main(["worker", str(journal_dir), "--drain"])
+    _, states = Journal(str(journal_dir), worker_id="check").replay()
+    assert [st.state for st in states.values()] == ["pending"]
+    assert not list((journal_dir / "leases").glob("*.lock"))
