@@ -151,7 +151,27 @@ Phases, in order; any failure exits non-zero before the last line:
               pack plans, jobs/s, and one full batch's device pass eager
               against graph replay (presorted and device-sorted); no worker
               may launch a hand kernel;
-12. kernels -- one JSON line per the port's kernel contract; its launches are
+12. dist   -- processes joined into one mesh on the card: two worker
+              processes (``chip_smoke.py --dist-worker``, each its own CUDA
+              context) join one ``torch.distributed`` group with
+              ``initialize_distributed``, on distinct cards over NCCL where
+              the machine has two or more, else both on cuda:0 over gloo
+              (the phase asserts the transport it expects). Tier 1: phase
+              10's five chunks through ``run_process_cell_metrics`` on cuda
+              under the group, ``sync_processes``, rank 0's
+              ``merge_sorted_csv_parts``, equal to phase 5's
+              CalculateCellMetrics CSV byte for byte (decompressed). Tier 2:
+              phase 5's whole cell BAM (1,250,000 records) partitioned by
+              cell into 2 shards of the gatherer's 2^20 width, one a process,
+              through ``host_local_to_global`` into
+              ``distributed_metrics_step`` on the 2-shard ``global_mesh``;
+              every per-shard output must equal this process's in-process
+              ``[cuda:0, cuda:0]`` step on the same stacked columns, bit for
+              bit. Prints the transport, each worker's init seconds, the
+              step's wall and device milliseconds (CUDA events) per process
+              and the bytes its ``all_to_all`` sent across the process
+              boundary; no worker may launch a hand kernel;
+13. kernels -- one JSON line per the port's kernel contract; its launches are
               those of every main-path run (phases 4 and 7).
 
 The last line of standard output is
@@ -2174,9 +2194,12 @@ def phase_mesh(stamp: str, modules) -> None:
     log(f"[mesh] phase 9 took {time.perf_counter() - phase_start:.1f} s")
 
 
+# phase 5's cell BAM, its GTF and its one-shot CSV, and phase 10's chunks:
+# the distributed phase's inputs
+KEPT_FOR_DIST = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz", "chunks")
 # phase 5's cell BAM (the serve workers' calibration BAM) and phase 10's
-# chunks (the serve phase's tenant jobs)
-KEPT_FOR_SERVE = ("cell_sorted.bam", "chunks")
+# chunks (the serve phase's tenant jobs) are among them
+KEPT_FOR_SERVE = KEPT_FOR_DIST
 # phase 5's cell BAM, its GTF and its one-shot CSV, for the chunk queue
 KEPT_FOR_SCHED = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz", *KEPT_FOR_SERVE)
 SCHED_CHUNKS = 4.5  # -s is the BAM's size over this: 5 chunks
@@ -2610,8 +2633,180 @@ def phase_serve(rng, stamp: str, modules) -> None:
             f"{times['eager']:.3f} ms, graph replay {times['graph']:.3f} ms (CUDA events, 5 calls queued back "
             f"to back); host wall a call with a sync after 5: eager {host['eager']:.3f} ms, graph "
             f"{host['graph']:.3f} ms; blocks equal byte for byte")
-    shutil.rmtree(WORK)
+    for path in WORK.iterdir():
+        if path.name not in KEPT_FOR_DIST:
+            shutil.rmtree(path) if path.is_dir() else path.unlink()
     log(f"[serve] phase 11 took {time.perf_counter() - phase_start:.1f} s")
+
+
+DIST_FLAG = "--dist-worker"
+DIST_PROCESSES = 2
+DIST_STEPS = 3  # the step's runs a worker times: the first one cold
+
+
+def dist_worker(argv) -> int:
+    """One process of phase 12, in its own process: joins the group on
+    ``cuda:<card>``, runs the chunk queue over ``<work>/chunks`` (rank 0
+    merges the parts), then its shard of ``<workdir>/stacked.npz`` through
+    ``host_local_to_global`` and ``distributed_metrics_step`` on the global
+    mesh, writing its shard's outputs to ``out<p>.npz``. Prints one
+    ``[worker] {json}`` line: the transport, the seconds of each stage, the
+    step's wall and device milliseconds, the bytes it sent across the
+    process boundary and the hand kernel launches at its start and end."""
+    workdir, process_id, coordinator, card, gtf = Path(argv[0]), int(argv[1]), argv[2], int(argv[3]), argv[4]
+    begin = time.perf_counter()
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    from sctools_tpu_torch import gtf as port_gtf
+    from sctools_tpu_torch import kernels
+    from sctools_tpu_torch import parallel as par
+
+    report = {"launches_start": dict(kernels.launches)}
+    device = torch.device("cuda", card)
+    start = time.perf_counter()
+    report["transport"] = par.initialize_distributed(coordinator, DIST_PROCESSES, process_id, device=device,
+                                                     timeout=300.0)
+    report["init_s"] = time.perf_counter() - start
+
+    start = time.perf_counter()
+    chunks = sorted(str(p) for p in (WORK / "chunks").glob("*.bam"))
+    committed = par.run_process_cell_metrics(
+        chunks, str(workdir / f"proc{process_id}"), DIST_PROCESSES, process_id,
+        frozenset(port_gtf.get_mitochondrial_gene_names(gtf)), mesh=par.make_mesh(devices=[device]))
+    report["tier1_s"], report["committed"] = time.perf_counter() - start, len(committed)
+    par.sync_processes("parts-written")
+    if process_id == 0:
+        start = time.perf_counter()
+        report["rows"] = par.merge_sorted_csv_parts(str(workdir / "metrics.part*.csv.gz"),
+                                                    str(workdir / "merged.csv.gz"), expected_parts=len(chunks))
+        report["merge_s"] = time.perf_counter() - start
+
+    mesh = par.global_mesh(devices=[device])
+    with np.load(workdir / "stacked.npz") as f:
+        local = {name: f[name][mesh.local_shards] for name in f.files}
+    start = time.perf_counter()
+    batch = par.host_local_to_global(local, mesh)
+    torch.cuda.synchronize(device)
+    report["upload_s"] = time.perf_counter() - start
+    report["wall_ms"], report["device_ms"] = [], []
+    for _ in range(DIST_STEPS):
+        par.collective.crossed.clear()
+        with torch.cuda.device(device):
+            torch.cuda.synchronize()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            start = time.perf_counter()
+            events[0].record()
+            cell, gene = par.distributed_metrics_step(batch, mesh)
+            events[1].record()
+            events[1].synchronize()
+        report["wall_ms"].append((time.perf_counter() - start) * 1e3)
+        report["device_ms"].append(events[0].elapsed_time(events[1]))
+    report["crossed"] = dict(par.collective.crossed)
+    out = {}
+    for kind, result in (("cell", cell), ("gene", gene)):
+        for row, columns in par.addressable_to_host(result).items():
+            out.update({f"{kind}/{row}/{name}": value for name, value in columns.items()})
+    np.savez(workdir / f"out{process_id}.npz", **out)
+    par.sync_processes("outputs-written")
+    par.distributed.shutdown()
+    report["launches_end"] = dict(kernels.launches)
+    report["wall_s"] = time.perf_counter() - begin
+    print("[worker] " + json.dumps(report), flush=True)
+    return 0
+
+
+def phase_dist(stamp: str, modules) -> None:
+    """Two processes joined into one mesh on the card: the chunk queue under
+    the group with a rank-0 merge against phase 5's CSV, then the whole cell
+    BAM's cross-process ``distributed_metrics_step`` against the in-process
+    card mesh's, bit for bit."""
+    import socket
+
+    import torch
+
+    kernels, port_par, port_gatherer, port_gtf, packed = modules
+    phase_start = time.perf_counter()
+    launches_before = dict(kernels.launches)
+    workdir = WORK / "dist"
+    workdir.mkdir()
+    n_cards = torch.cuda.device_count()
+    cards, want_transport = ((0, 1), "nccl") if n_cards >= DIST_PROCESSES else ((0, 0), "gloo")
+    mito = str(WORK / "mito.gtf")
+    start = time.perf_counter()
+    frames = packed.iter_frames_from_bam(str(WORK / "cell_sorted.bam"), 2 * METRICS_BATCH, want_qname=False)
+    frame = next(frames)
+    frames.close()
+    if frame.n_records != CELL_RECORDS:
+        raise AssertionError(f"one frame of the cell BAM holds {frame.n_records} records, want {CELL_RECORDS}")
+    names = port_gtf.get_mitochondrial_gene_names(mito)
+    is_mito = np.asarray([name in names for name in frame.gene_names], dtype=bool)
+    cols = port_gatherer._pad_columns(frame, is_mito)[0]
+    stacked = port_par.partition_columns(cols, DIST_PROCESSES, key="cell", shard_size=METRICS_BATCH)
+    np.savez(workdir / "stacked.npz", **stacked)
+    log(f"[dist] phase 5's cell BAM ({frame.n_records} records) partitioned by cell into {DIST_PROCESSES} shards "
+        f"of {METRICS_BATCH} ({', '.join(str(int(v.sum())) for v in stacked['valid'])} valid) in "
+        f"{time.perf_counter() - start:.2f} s")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    begin = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), DIST_FLAG, str(workdir), str(p), coordinator, str(card), mito],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for p, card in enumerate(cards)]
+    try:
+        outputs = [proc.communicate(timeout=600)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    workers_s = time.perf_counter() - begin
+    reports = []
+    for p, (proc, out) in enumerate(zip(procs, outputs)):
+        lines = [line for line in out.splitlines() if line.startswith("[worker] ")]
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"dist worker {p}: rc {proc.returncode}\n{out[-4000:]}")
+        reports.append(json.loads(lines[0][len("[worker] "):]))
+    for p, report in enumerate(reports):
+        if report["transport"] != want_transport:
+            raise AssertionError(f"worker {p} took {report['transport']}, want {want_transport} on {n_cards} card(s)")
+        if any(report["launches_start"].values()) or any(report["launches_end"].values()):
+            raise AssertionError(f"worker {p}: hand kernel launches {report['launches_start']} -> "
+                                 f"{report['launches_end']}")
+    if read_csv(workdir / "merged.csv.gz")[0] != read_csv(WORK / "cli_cell.csv.gz")[0]:
+        raise AssertionError("tier 1: the rank-0 merge differs from phase 5's CalculateCellMetrics CSV")
+    log(f"[dist] {stamp} | {DIST_PROCESSES} workers on {['cuda:%d' % c for c in cards]} over {want_transport} "
+        f"({n_cards} card(s)) in {workers_s:.2f} s; tier 1: "
+        + "; ".join(f"worker {p} init {r['init_s']:.2f} s, {r['committed']} chunks in {r['tier1_s']:.2f} s"
+                    for p, r in enumerate(reports))
+        + f"; rank 0 merged {reports[0]['rows']} rows in {reports[0]['merge_s']:.2f} s, equal to phase 5's "
+        f"CalculateCellMetrics CSV byte for byte (decompressed)")
+
+    card = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    want = [port_par.stack_to_host(result) for result in
+            port_par.distributed_metrics_step(stacked, port_par.make_mesh(devices=[card, card]))]
+    reference_s = time.perf_counter() - start
+    for p in range(DIST_PROCESSES):
+        with np.load(workdir / f"out{p}.npz") as got:
+            for kind, result in zip(("cell", "gene"), want):
+                same_sharded(f"worker {p} {kind}", {name: got[f"{kind}/{p}/{name}"] for name in result},
+                             {name: value[p] for name, value in result.items()})
+    for p, r in enumerate(reports):
+        log(f"[dist] {stamp} | worker {p} on cuda:{cards[p]}: distributed_metrics_step on the global mesh, "
+            f"{METRICS_BATCH} records a shard: wall {', '.join(f'{t:.3f}' for t in r['wall_ms'])} ms, device "
+            f"(CUDA events) {', '.join(f'{t:.3f}' for t in r['device_ms'])} ms ({DIST_STEPS} runs, the first "
+            f"cold); bytes sent across the process boundary a step: {r['crossed']}; upload {r['upload_s']:.2f} s; "
+            f"hand kernel launches 0 at its start and its end; {r['wall_s']:.2f} s in all")
+    log(f"[dist] every per-shard cell and gene output equals the in-process [cuda:0, cuda:0] step's bit for bit "
+        f"(that step {reference_s:.2f} s with its pull)")
+    if dict(kernels.launches) != launches_before:
+        raise AssertionError(f"a hand kernel launched in the dist phase: {kernels.launches}")
+    shutil.rmtree(WORK)
+    log(f"[dist] phase 12 took {time.perf_counter() - phase_start:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2678,19 +2873,20 @@ def main(argv=None) -> int:
     phase_serve(np.random.default_rng(args.seed + 5), stamp,
                 (port_platform, port_sched, port_launch, port_gatherer, port_device, port_seg, port_graphs, packed,
                  bgzf))
+    phase_dist(stamp, (kernels, port_par, port_gatherer, port_gtf, packed))
     record = {
         "name": "whitelist_correct",
         "route": "cuda",
         "source": "sctools_tpu_torch/csrc/whitelist_correct.cu",
         "replaces": "sctools_tpu/ops/whitelist.py:125",
         # every main-path run of the smoke: attach, FastqProcess in both
-        # formats, SampleFastq (the metrics, count, sort, mesh, sched and serve
-        # paths launch none)
+        # formats, SampleFastq (the metrics, count, sort, mesh, sched, serve
+        # and dist paths launch none)
         "launches": launches["whitelist_correct"] + fastq_launches,
         "verdict": "exact",
         **measured,
     }
-    log(f"[smoke] phases 1-11 took {time.perf_counter() - smoke_start:.1f} s")
+    log(f"[smoke] phases 1-12 took {time.perf_counter() - smoke_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2705,6 +2901,8 @@ if __name__ == "__main__":
         sys.exit(sched_worker(sys.argv[2:]))
     if sys.argv[1:2] == [SERVE_FLAG]:  # one of phase 11's worker processes
         sys.exit(serve_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [DIST_FLAG]:  # one of phase 12's worker processes
+        sys.exit(dist_worker(sys.argv[2:]))
     try:
         sys.exit(main())
     except SystemExit:

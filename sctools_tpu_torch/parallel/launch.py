@@ -1,19 +1,30 @@
-"""The chunk queue: per-process chunk metrics over the fault-tolerant scheduler.
+"""Multi-process launch: processes joined into one mesh, and the chunk queue.
 
-The port of the chunk-queue half of ``sctools_tpu.parallel.launch``
-(parallel/launch.py:136-502). The reference's scatter-gather
-(SplitBam cuts a BAM into cell-disjoint chunks, each chunk's metrics run
-in their own process, a merge joins the parts; reference
-src/sctools/metrics/README.md:19-28) becomes one journaled queue: every
-worker process pulls chunks from it (``sched.WorkQueue``), computes their
-metrics with ``ShardedCellMetrics`` on its own devices, and publishes one
-part a chunk, canonically named by the chunk's global index. A dead or
-straggling peer's chunks are stolen after its lease TTL, failing chunks
-retry with backoff and are then quarantined, and a re-launch resumes from
-the journal. ``merge_sorted_csv_parts`` joins the parts into the CSV of a
-one-shot run, byte for byte, after checking that the part sequence has no
-gap or duplicate and equals the journal's committed set
-(``sched.parts``).
+The port of ``sctools_tpu.parallel.launch`` (parallel/launch.py:1-502). The
+cross-VM story has two halves.
+
+1. **The chunk queue.** The reference's scatter-gather (SplitBam cuts a BAM
+   into cell-disjoint chunks, each chunk's metrics run in their own
+   process, a merge joins the parts; reference
+   src/sctools/metrics/README.md:19-28) becomes one journaled queue: every
+   worker process pulls chunks from it (``sched.WorkQueue``), computes their
+   metrics with ``ShardedCellMetrics`` on its own devices, and publishes one
+   part a chunk, canonically named by the chunk's global index. A dead or
+   straggling peer's chunks are stolen after its lease TTL, failing chunks
+   retry with backoff and are then quarantined, and a re-launch resumes from
+   the journal. ``merge_sorted_csv_parts`` joins the parts into the CSV of
+   a one-shot run, byte for byte, after checking that the part sequence has
+   no gap or duplicate and equals the journal's committed set
+   (``sched.parts``).
+2. **The global mesh.** ``initialize_distributed`` joins the processes into
+   one ``torch.distributed`` group (``parallel.distributed``: gloo for
+   control, NCCL or gloo for device tensors); ``global_mesh`` lays N
+   processes x D local devices out process-major (process p owns global
+   shards [p*D, (p+1)*D)); ``host_local_to_global`` feeds each process's
+   shards into one global batch; and ``distributed_metrics_step``'s gene
+   rekey then crosses the process boundary with no change to the step.
+   ``sync_processes`` is the barrier between the halves (before the rank-0
+   merge).
 
 Each entry point here takes ``device``: ``cuda`` (every card of this process)
 unless the caller asks for ``cpu`` (one CPU shard, as JAX's
@@ -23,10 +34,8 @@ must pass it: no environment variable selects the port's device.
 Differs from JAX on purpose: a task whose device dispatch was degraded by
 JAX's guard ladder reruns there on the CPU backend (launch.py:211-226);
 the port has no such fallback, so a failing task retries and is then
-quarantined. Not ported here: the processes joined into one mesh
-(``initialize_distributed``, ``global_mesh``, ``host_local_to_global``,
-``sync_processes``), JAX's observability spans and counters, its flight
-recorder and its merge audit record; ``process_chunks``, the static
+quarantined. Not ported here: JAX's observability spans and counters, its
+flight recorder and its merge audit record; ``process_chunks``, the static
 round-robin share no port caller needs.
 """
 
@@ -35,17 +44,64 @@ from __future__ import annotations
 import gzip
 import heapq
 import os
+import zlib
 from contextlib import ExitStack
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from .. import ingest
 from ..device import DeviceLike, resolve
 from ..sched import QuarantinedTasksError, WorkQueue, atomic_output, faults, make_task
 from ..sched.commit import content_signature
 from ..sched.parts import validated_parts
+from . import distributed
 from .gatherer import ShardedCellMetrics
 from .mesh import DEFAULT_AXIS, Mesh, make_mesh, mesh_fingerprint
+from .metrics import GlobalColumn
+
+# JAX's launch.initialize_distributed and launch.global_mesh
+from .distributed import initialize as initialize_distributed  # noqa: E402,F401
+from .mesh import global_mesh  # noqa: E402,F401
+
+
+def host_local_to_global(
+    stacked_local: Dict[str, np.ndarray], mesh: Mesh, axis_name=DEFAULT_AXIS
+) -> Dict[str, GlobalColumn]:
+    """This process's ``[D, S]`` host columns -> one global ``[n_shards, S]``
+    batch (JAX's ``multihost_utils.host_local_array_to_global_array``).
+
+    Every process calls it with ITS rows, one a local shard of ``mesh`` in
+    ``mesh.local_shards`` order (process-major on ``global_mesh``); each is
+    uploaded to its shard's device, and the other processes' shards stay
+    absent. ``axis_name`` must span the whole mesh. The batch feeds
+    ``distributed_metrics_step`` / ``hybrid_metrics_step`` unchanged.
+    """
+    if mesh.axis_size(axis_name) != mesh.size:
+        raise ValueError(f"axis {axis_name!r} holds {mesh.axis_size(axis_name)} of the mesh's {mesh.size} "
+                         "devices: a global batch shards over all of them")
+    out = {}
+    for name, col in stacked_local.items():
+        col = np.asarray(col)
+        if col.shape[0] != len(mesh.local_shards):
+            raise ValueError(f"{name}: {col.shape[0]} local rows for this process's "
+                             f"{len(mesh.local_shards)} shards")
+        shards = [None] * mesh.size
+        for row, shard in enumerate(mesh.local_shards):
+            shards[shard] = ingest.upload(col[row], mesh.devices[shard])
+        out[name] = GlobalColumn(shards, col, mesh)
+    return out
+
+
+def sync_processes(name: str) -> None:
+    """Barrier across every process (e.g. before the rank-0 merge): JAX's
+    ``sync_global_devices``, which allgathers the CRC-32 of ``name`` and
+    raises on every process when the names differ."""
+    mine = np.uint32(zlib.crc32(name.encode()))
+    everyone = distributed.process_allgather(np.asarray([mine]), tiled=True)
+    if not np.all(everyone == mine):
+        raise AssertionError(f"sync_global_devices name mismatch ('{name}'). Expected: {everyone}; got: {mine}.")
 
 
 def local_mesh(device: DeviceLike = None, axis_name: str = DEFAULT_AXIS) -> Mesh:

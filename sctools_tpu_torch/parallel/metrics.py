@@ -17,6 +17,16 @@ indexing); the one host read is the drop counter, after the step, as in JAX.
 A sharded value is a list in flat mesh order (``collective``); a sharded
 result is a dict of such lists, one tensor per shard, which
 ``stack_to_host`` pulls into JAX's stacked ``[n_shards, ...]`` arrays.
+
+On a mesh that spans processes (``parallel.global_mesh``) the input is a
+global batch (``GlobalColumn``s from ``launch.host_local_to_global``, JAX's
+global ``jax.Array``) or stacked host columns that every process holds
+whole; each process places, computes and returns its own shards only (the
+others' entries are None: JAX's ``addressable_shards``), and
+``addressable_to_host`` pulls them. What every process must agree on is
+allgathered over the control group: the reshard's capacity, the max of
+each process's requirement over its shards, and the drop count, so that
+every process raises together or none does.
 """
 
 from __future__ import annotations
@@ -29,20 +39,55 @@ import torch
 from .. import ingest
 from ..metrics.device import compact_results_wire, compute_entity_metrics
 from ..ops import segments as seg
-from . import collective
+from . import collective, distributed
 from .mesh import DEFAULT_AXIS, Mesh
 
-Sharded = Dict[str, List[torch.Tensor]]
+Sharded = Dict[str, List[Optional[torch.Tensor]]]
 
 
-def place(stacked_cols: Dict[str, np.ndarray], mesh: Mesh, axis_name=DEFAULT_AXIS) -> List[Dict[str, torch.Tensor]]:
+class GlobalColumn:
+    """One column of a global batch, ``[n_shards, ...]`` over a mesh that
+    may span processes (JAX's global ``jax.Array``): ``shards[i]`` is flat
+    shard *i*'s row on its device where this process owns it, else None;
+    ``host`` keeps this process's rows as they were given, in
+    ``mesh.local_shards`` order."""
+
+    def __init__(self, shards: List[Optional[torch.Tensor]], host: np.ndarray, mesh: Mesh):
+        self.shards = shards
+        self.host = host
+        self.shape = (mesh.size,) + tuple(host.shape[1:])
+        self.is_fully_addressable = mesh.is_fully_addressable
+
+    def __array__(self, dtype=None, copy=None):
+        """The stacked rows, where this process holds them all; else JAX's
+        ``RuntimeError`` for a ``jax.Array`` over other processes' devices."""
+        if not self.is_fully_addressable:
+            raise RuntimeError(
+                "Fetching value for a global batch that spans non-addressable (non process local) "
+                "shards is not possible: use parallel.process_allgather, or its local rows (.host)"
+            )
+        return self.host if dtype is None else self.host.astype(dtype)
+
+
+def _is_global(stacked_cols) -> bool:
+    return isinstance(next(iter(stacked_cols.values())), GlobalColumn)
+
+
+def place(stacked_cols, mesh: Mesh, axis_name=DEFAULT_AXIS) -> List[Optional[Dict[str, torch.Tensor]]]:
     """Stacked ``[n_shards, ...]`` host columns -> one dict of tensors per
-    mesh shard, row ``axis_index`` on the shard's device (JAX's
-    ``PartitionSpec(axis_name)`` placement: replicated along other axes)."""
+    local mesh shard, row ``axis_index`` on the shard's device (JAX's
+    ``PartitionSpec(axis_name)`` placement: replicated along other axes),
+    None for a shard another process owns. A global batch is placed already."""
+    if _is_global(stacked_cols):
+        return [
+            {name: col.shards[i] for name, col in stacked_cols.items()} if i in mesh.local_shards else None
+            for i in range(mesh.size)
+        ]
     index = collective.axis_index(mesh, axis_name)
     return [
-        {name: ingest.upload(np.asarray(col)[i], device) for name, col in stacked_cols.items()}
-        for i, device in zip(index, mesh.devices)
+        {name: ingest.upload(np.asarray(col)[index[i]], mesh.devices[i]) for name, col in stacked_cols.items()}
+        if i in mesh.local_shards else None
+        for i in range(mesh.size)
     ]
 
 
@@ -51,15 +96,27 @@ def _first_group(mesh: Mesh, axis_name) -> List[int]:
     return mesh.groups(axis_name)[0]
 
 
-def _by_name(shards: Sequence[Dict[str, torch.Tensor]]) -> Sharded:
-    return {name: [shard[name] for shard in shards] for name in shards[0]}
+def _by_name(shards: Sequence[Optional[Dict[str, torch.Tensor]]]) -> Sharded:
+    names = next(shard for shard in shards if shard is not None)
+    return {name: [shard[name] if shard is not None else None for shard in shards] for name in names}
 
 
 def stack_to_host(result: Sharded) -> Dict[str, np.ndarray]:
     """A sharded result pulled into stacked ``[n_shards, ...]`` arrays, all
-    shards' pulls queued before the first is read."""
+    shards' pulls queued before the first is read. Every shard must be this
+    process's (``addressable_to_host`` pulls a global result's)."""
+    if any(t is None for tensors in result.values() for t in tensors):
+        raise ValueError("the result spans other processes' shards: pull it with addressable_to_host")
     pulls = {name: [ingest.pull(t) for t in tensors] for name, tensors in result.items()}
     return {name: np.stack([p.numpy() for p in pulled]) for name, pulled in pulls.items()}
+
+
+def addressable_to_host(result: Sharded) -> Dict[int, Dict[str, np.ndarray]]:
+    """This process's shards of a sharded result, by row: JAX's
+    ``addressable_shards``, pulled to the host."""
+    rows = [row for row, tensor in enumerate(next(iter(result.values()))) if tensor is not None]
+    pulls = {row: {name: ingest.pull(tensors[row]) for name, tensors in result.items()} for row in rows}
+    return {row: {name: p.numpy() for name, p in pulled.items()} for row, pulled in pulls.items()}
 
 
 def reshard_by_key(
@@ -72,7 +129,8 @@ def reshard_by_key(
 ) -> Tuple[List[Dict[str, torch.Tensor]], List[torch.Tensor]]:
     """Move every record to shard ``code % n_shards`` via all_to_all.
 
-    ``shards`` are the per-shard local [S] columns, one dict per mesh shard.
+    ``shards`` are the per-shard local [S] columns, one dict per mesh shard
+    (None for a shard another process owns).
     Each source packs its records into an [n_shards, capacity] send buffer
     (row = destination), the buffers are exchanged over ``axis_name``, and
     the received [n_shards, capacity] block (row = source) flattens into the
@@ -90,13 +148,18 @@ def reshard_by_key(
     writes a buffer it reads, on distinct or repeated devices.
     """
     n_shards = mesh.axis_size(axis_name)
-    local_size = shards[0][key].shape[0]
+    first = next(local for local in shards if local is not None)
+    local_size = first[key].shape[0]
     if capacity is None:
         capacity = local_size
-    names = [n for n in shards[0] if not (drop_key and n == key)]
-    sends: List[Dict[str, torch.Tensor]] = []
-    dropped: List[torch.Tensor] = []
+    names = [n for n in first if not (drop_key and n == key)]
+    sends: List[Optional[Dict[str, torch.Tensor]]] = []
+    dropped: List[Optional[torch.Tensor]] = []
     for local in shards:
+        if local is None:
+            sends.append(None)
+            dropped.append(None)
+            continue
         device = local[key].device
         valid = local["valid"].to(torch.bool)
         dest = torch.where(valid, local[key].to(torch.int32) % n_shards, n_shards)
@@ -122,18 +185,20 @@ def reshard_by_key(
             buffers[name] = base[:n_shards]
         sends.append(buffers)
 
-    out: List[Dict[str, torch.Tensor]] = [{} for _ in shards]
+    out: List[Optional[Dict[str, torch.Tensor]]] = [{} if send is not None else None for send in sends]
     by_dtype: Dict[torch.dtype, list] = {}
+    mine = next(send for send in sends if send is not None)
     for name in names:
-        by_dtype.setdefault(sends[0][name].dtype, []).append(name)
+        by_dtype.setdefault(mine[name].dtype, []).append(name)
     for group in by_dtype.values():
-        stacked = [torch.stack([send[n] for n in group]) for send in sends]  # [C, n_shards, cap]
+        stacked = [torch.stack([send[n] for n in group]) if send is not None else None
+                   for send in sends]  # [C, n_shards, cap]
         received = collective.all_to_all(stacked, mesh, axis_name, split_axis=1, concat_axis=1, tiled=True)
         for shard, block in zip(out, received):
-            for i, name in enumerate(group):
+            for i, name in enumerate(group if shard is not None else ()):
                 shard[name] = block[i].reshape(n_shards * capacity)
     # the caller's column order, whatever the dtype grouping
-    out = [{name: shard[name] for name in names} for shard in out]
+    out = [{name: shard[name] for name in names} if shard is not None else None for shard in out]
     return out, dropped
 
 
@@ -171,19 +236,22 @@ def run_sharded_metrics(
     **engine_flags,
 ):
     """The engine on each placed shard (``num_segments=shard_size``), queued
-    shard after shard; with ``compact=(int_names, float_names, k)`` each
-    result is compacted on its device into the fused column-major
-    ``[ints + floats, k]`` int32 block. Returns the per-shard result dicts,
-    or ``(blocks, n_entities)`` lists with ``compact``."""
+    shard after shard (None, another process's shard, stays None); with
+    ``compact=(int_names, float_names, k)`` each result is compacted on its
+    device into the fused column-major ``[ints + floats, k]`` int32 block.
+    Returns the per-shard result dicts, or ``(blocks, n_entities)`` lists
+    with ``compact``."""
     results = [
         compute_entity_metrics(local, num_segments=shard_size, kind=kind, **engine_flags)
+        if local is not None else None
         for local in shards
     ]
     if compact is None:
         return results
     int_names, float_names, k = compact
-    blocks = [compact_results_wire(result, int_names, float_names, k) for result in results]
-    return blocks, [result["n_entities"] for result in results]
+    blocks = [compact_results_wire(result, int_names, float_names, k) if result is not None else None
+              for result in results]
+    return blocks, [result["n_entities"] if result is not None else None for result in results]
 
 
 def sharded_entity_metrics(
@@ -232,10 +300,21 @@ def distributed_metrics_step(
     bucketed requirement of the input; an explicit one below the
     requirement raises ``ValueError`` before any device work, and records
     dropped in the exchange raise ``RuntimeError`` after it.
+
+    On a mesh that spans processes, a global batch's requirement is each
+    process's over its own rows, allgathered to their max, and the drop
+    count each process's, allgathered to their sum: every process builds
+    the same capacity, and every one raises, or none does.
     """
     n_shards, shard_size = stacked_cols["cell"].shape
     _check_shard_count(n_shards, mesh, axis_name)
-    required = required_reshard_capacity(stacked_cols, "gene", n_shards)
+    if _is_global(stacked_cols):
+        local = {name: stacked_cols[name].host for name in ("gene", "valid")}
+        required = required_reshard_capacity(local, "gene", n_shards)
+        if not mesh.is_fully_addressable:
+            required = int(distributed.process_allgather(np.asarray([required]), tiled=True).max())
+    else:
+        required = required_reshard_capacity(stacked_cols, "gene", n_shards)
     if capacity is None:
         cap = seg.bucket_size(max(required, 1), minimum=8)
     elif capacity < required:
@@ -250,7 +329,7 @@ def distributed_metrics_step(
     regene, dropped = reshard_by_key(shards, "gene", mesh, axis_name, capacity=cap)
     gene_out = run_sharded_metrics(regene, n_shards * cap, "gene")
     rows = _first_group(mesh, axis_name)
-    n_dropped = int(sum(ingest.pull(dropped[i]).numpy() for i in rows))
+    n_dropped = _dropped_count(dropped, rows, mesh)
     if n_dropped:
         raise RuntimeError(
             f"reshard capacity={cap} too small: {n_dropped} records "
@@ -258,6 +337,16 @@ def distributed_metrics_step(
             "capacity (see required_reshard_capacity)"
         )
     return _by_name([cell_out[i] for i in rows]), _by_name([gene_out[i] for i in rows])
+
+
+def _dropped_count(dropped, rows, mesh: Mesh) -> int:
+    """The records dropped by the rows' shards, summed over every process
+    of a mesh that spans processes."""
+    pulls = [ingest.pull(dropped[i]) for i in rows if dropped[i] is not None]
+    count = sum(int(p.numpy()) for p in pulls)
+    if not mesh.is_fully_addressable:
+        count = int(distributed.process_allgather(np.asarray([count], dtype=np.int64), tiled=True).sum())
+    return count
 
 
 def hybrid_metrics_step(

@@ -19,6 +19,14 @@ distribution. ``required_sort_capacity`` mirrors the device's pivots on the
 host (same sample and pivot positions) for a tight capacity; an undersized
 one raises ``ValueError`` before the step, and dropped records raise
 ``RuntimeError`` after it.
+
+That mirror reads every shard's keys, so on a mesh that spans processes the
+input is stacked host columns that every process holds whole; each process
+sorts its own shards and returns them (the others' entries are None). A
+global batch (``launch.host_local_to_global``) that is not fully
+addressable raises ``RuntimeError`` before any collective, on every
+process, as ``np.asarray`` of such a ``jax.Array`` does in JAX's
+``required_sort_capacity``.
 """
 
 from __future__ import annotations
@@ -28,11 +36,18 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import ingest
 from ..ops import segments as seg
 from . import collective
 from .mesh import DEFAULT_AXIS, Mesh
-from .metrics import Sharded, _by_name, _check_shard_count, _first_group, place, reshard_by_key
+from .metrics import (
+    Sharded,
+    _by_name,
+    _check_shard_count,
+    _dropped_count,
+    _first_group,
+    place,
+    reshard_by_key,
+)
 
 _I32_MAX = np.iinfo(np.int32).max
 
@@ -134,17 +149,23 @@ def required_sort_capacity(stacked_cols: Dict[str, np.ndarray], key_names: List[
 
 def _sample_sort(shards, key_names, mesh: Mesh, axis_name, n_shards: int, capacity: int):
     """Steps 1-4 over the placed shards; returns (shards, n_dropped)."""
-    local_size = shards[0][key_names[0]].shape[0]
+    local_size = next(local for local in shards if local is not None)[key_names[0]].shape[0]
     index = collective.axis_index(mesh, axis_name)
 
-    # 1. local sort (the payload rides the permutation once)
-    sorted_shards = []
-    for local in shards:
+    def each(fn, values):  # another process's shard stays None
+        return [fn(value) if value is not None else None for value in values]
+
+    def local_sort(local):  # the payload rides the permutation once
         perm = seg.sort_permutation(_masked_keys(local, key_names))
-        sorted_shards.append({k: v[perm] for k, v in local.items()})
-    shards = sorted_shards
+        return {k: v[perm] for k, v in local.items()}
+
+    # 1. local sort
+    shards = each(local_sort, shards)
     route_keys = []
     for position, local in zip(index, shards):
+        if local is None:
+            route_keys.append(None)
+            continue
         device = local[key_names[0]].device
         # routing tiebreaker: global position in locally sorted shard-major
         # order, unique per record
@@ -153,13 +174,16 @@ def _sample_sort(shards, key_names, mesh: Mesh, axis_name, n_shards: int, capaci
 
     # 2. pooled samples -> the same pivots on every shard
     pools = [
-        [p.reshape(-1) for p in collective.all_gather(
-            [keys[j][_positions_on(keys[j].device, local_size, n_shards)] for keys in route_keys],
-            mesh, axis_name)]
+        each(lambda p: p.reshape(-1), collective.all_gather(
+            each(lambda keys: keys[j][_positions_on(keys[j].device, local_size, n_shards)], route_keys),
+            mesh, axis_name))
         for j in range(len(key_names) + 1)
     ]
     routed = []
     for s, local in enumerate(shards):
+        if local is None:
+            routed.append(None)
+            continue
         pool = [column[s] for column in pools]
         perm = seg.sort_permutation(pool)
         at = _positions_on(pool[0].device, pool[0].shape[0], n_shards)
@@ -169,11 +193,7 @@ def _sample_sort(shards, key_names, mesh: Mesh, axis_name, n_shards: int, capaci
     exchanged, dropped = reshard_by_key(routed, "_dest", mesh, axis_name, capacity=capacity, drop_key=True)
 
     # 4. local re-sort of the received records
-    out = []
-    for local in exchanged:
-        perm = seg.sort_permutation(_masked_keys(local, key_names))
-        out.append({k: v[perm] for k, v in local.items()})
-    return out, dropped
+    return each(local_sort, exchanged), dropped
 
 
 def distributed_sort(
@@ -205,7 +225,7 @@ def distributed_sort(
     shards = place(stacked_cols, mesh, axis_name)
     out, dropped = _sample_sort(shards, list(key_names), mesh, axis_name, n_shards, capacity)
     rows = _first_group(mesh, axis_name)
-    n_dropped = int(sum(ingest.pull(dropped[i]).numpy() for i in rows))
+    n_dropped = _dropped_count(dropped, rows, mesh)
     if n_dropped:
         raise RuntimeError(
             f"distributed sort dropped {n_dropped} records: raise "

@@ -39,7 +39,12 @@ new capture, and each replayed block equals the eager block byte for
 byte, for a presorted and for a device-sorted batch; capturing a key
 twice raises; a worker on cuda warms its graphs on a calibration BAM and
 drains a two-tenant journal in one pack, each artifact equal to the job's
-eager solo CSV; a cuda worker without a GPU raises before any lease.
+eager solo CSV; a cuda worker without a GPU raises before any lease. The
+global mesh: two processes joined by ``initialize_distributed``, one shard
+each, on one card (both on cuda:0, exchanging over gloo) and on two
+distinct cards (over NCCL; a machine with one card skips it), give the
+in-process ``[cuda:0, cuda:0]`` mesh's ``distributed_metrics_step`` bit for
+bit.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
@@ -1036,3 +1041,91 @@ def test_cuda_serve_worker_without_a_gpu_raises_before_any_lease(cuda_device, tm
     _, states = Journal(str(journal_dir), worker_id="check").replay()
     assert [st.state for st in states.values()] == ["pending"]
     assert not list((journal_dir / "leases").glob("*.lock"))
+
+
+# ------------------------------------------------------------ global mesh
+
+# One process of a global mesh on the card: argv = process_id coordinator
+# workdir card. Joins the group on cuda:<card>, feeds its row of
+# <workdir>/stacked.npz through host_local_to_global into
+# distributed_metrics_step and writes its shard's outputs to out<p>.npz.
+DIST_WORKER = """
+import json, os, sys
+import numpy as np
+import torch
+from sctools_tpu_torch import kernels
+from sctools_tpu_torch import parallel as par
+
+pid, coordinator, workdir, card = int(sys.argv[1]), sys.argv[2], sys.argv[3], int(sys.argv[4])
+device = torch.device("cuda", card)
+transport = par.initialize_distributed(coordinator, 2, pid, device=device, timeout=120.0)
+mesh = par.global_mesh(devices=[device])
+with np.load(os.path.join(workdir, "stacked.npz")) as f:
+    local = {k: f[k][mesh.local_shards] for k in f.files}
+cell, gene = par.distributed_metrics_step(par.host_local_to_global(local, mesh), mesh)
+out = {}
+for kind, result in (("cell", cell), ("gene", gene)):
+    for row, columns in par.addressable_to_host(result).items():
+        out.update({f"{kind}/{row}/{name}": value for name, value in columns.items()})
+np.savez(os.path.join(workdir, f"out{pid}.npz"), **out)
+par.sync_processes("written")
+par.distributed.shutdown()
+print("REPORT " + json.dumps({"transport": transport, "shards": mesh.local_shards,
+                              "crossed": dict(par.collective.crossed), "launches": dict(kernels.launches)}),
+      flush=True)
+"""
+
+
+@pytest.mark.parametrize("cards,transport", [((0, 0), "gloo"), ((0, 1), "nccl")], ids=["one-card", "two-cards"])
+def test_two_processes_on_the_card_match_the_in_process_mesh(cuda_device, tmp_path, cards, transport):
+    """Two processes joined into one global mesh, one shard each: on one
+    card (both on cuda:0) their exchange goes over gloo, on two distinct
+    cards over NCCL (a machine with one card skips that case); every
+    per-shard output equals the in-process [cuda:0, cuda:0] mesh's step,
+    bit for bit, and no hand kernel launches."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from sctools_tpu_torch import parallel as port_par
+
+    if torch.cuda.device_count() <= max(cards):
+        pytest.skip(f"needs {max(cards) + 1} CUDA devices, this machine has {torch.cuda.device_count()}")
+    frame = _synthetic_frame(np.random.default_rng(15), 6000)
+    cols = port_gatherer._pad_columns(frame, np.zeros(len(frame.gene_names), bool))[0]
+    stacked = port_par.partition_columns(cols, 2, key="cell")
+    np.savez(tmp_path / "stacked.npz", **stacked)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen([sys.executable, "-c", DIST_WORKER, str(p), coordinator, str(tmp_path), str(card)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+             for p, card in enumerate(cards)]
+    try:
+        outputs = [proc.communicate(timeout=240)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    reports = []
+    for proc, out in zip(procs, outputs):
+        assert proc.returncode == 0, out[-4000:]
+        reports.append(json.loads(next(line for line in out.splitlines() if line.startswith("REPORT "))[7:]))
+    assert [r["shards"] for r in reports] == [[0], [1]]
+    assert all(r["transport"] == transport and r["crossed"]["all_to_all"] > 0 for r in reports)
+    assert all(not any(r["launches"].values()) for r in reports)
+    card = torch.device("cuda", 0)
+    want = [port_par.stack_to_host(result)
+            for result in port_par.distributed_metrics_step(stacked, port_par.make_mesh(devices=[card, card]))]
+    for p in range(2):
+        with np.load(tmp_path / f"out{p}.npz") as got:
+            for kind, result in zip(("cell", "gene"), want):
+                for name, value in result.items():
+                    np.testing.assert_array_equal(_bits(torch.from_numpy(got[f"{kind}/{p}/{name}"])),
+                                                  _bits(torch.from_numpy(np.asarray(value[p]))), err_msg=f"{kind} {name}")
