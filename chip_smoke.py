@@ -171,8 +171,27 @@ Phases, in order; any failure exits non-zero before the last line:
               step's wall and device milliseconds (CUDA events) per process
               and the bytes its ``all_to_all`` sent across the process
               boundary; no worker may launch a hand kernel;
-13. kernels -- one JSON line per the port's kernel contract; its launches are
-              those of every main-path run (phases 4 and 7).
+13. analysis -- the port's static checks and its runtime lock witness on
+              this machine: ``python -m sctools_tpu_torch.analysis
+              sctools_tpu_torch chip_smoke.py --json`` must exit 0 with no
+              finding, and ``--emit-lock-graph`` writes the static lock
+              graph. Two worker processes (``chip_smoke.py
+              --analysis-worker``), unwitnessed and then under
+              ``SCTOOLS_TPU_LOCK_DEBUG=1`` (with that graph),
+              ``SCTOOLS_TPU_FRAME_DEBUG=1`` and ``SCTOOLS_TPU_TRACE``, each
+              run attach -w on 131,072 new synthetic reads (2 kernel
+              batches; the witnessed one's launches must equal its batches)
+              and one sched worker draining phase 10's five chunks. The
+              witnessed BAM must equal the unwitnessed one byte for byte and
+              each merged CSV phase 5's (decompressed); the witnessed
+              worker's ``locks.*.json`` must hold no violation, only
+              blocking edges of the static graph, and an acquisition of
+              every lock in it; the frame witness must have stamped frames
+              and seen no stale read. Prints the passes' seconds and files,
+              the locks, edges and entries, each lock's acquisitions and
+              the witnessed walls beside the unwitnessed ones;
+14. kernels -- one JSON line per the port's kernel contract; its launches are
+              those of every main-path run (phases 4, 7 and 13).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -229,6 +248,15 @@ def nvidia_smi(query: str) -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return result.stdout.strip().splitlines()[0]
+
+
+def to_card(array: np.ndarray, device):
+    """``array`` on ``device`` through the port's host->device seam."""
+    import torch
+
+    from sctools_tpu_torch import ingest
+
+    return ingest.upload(array, torch.device(device))
 
 
 def cuda_ms(fn, repeats: int, warmup: int = 2, groups: int = 3) -> float:
@@ -659,9 +687,9 @@ def edge_case(wl_ops, device, wl_ascii, q_ascii, q_len):
     import torch
 
     length = wl_ascii.shape[1]
-    table = wl_ops.make_table(torch.from_numpy(wl_ops.barcode_codes(
-        as_bytes(wl_ascii, np.full(len(wl_ascii), length)), length)).to(device))
-    q = torch.from_numpy(wl_ops.barcode_codes(as_bytes(q_ascii, q_len), length)).to(device)
+    table = wl_ops.make_table(to_card(wl_ops.barcode_codes(
+        as_bytes(wl_ascii, np.full(len(wl_ascii), length)), length), device))
+    q = to_card(wl_ops.barcode_codes(as_bytes(q_ascii, q_len), length), device)
     got, plain = wl_ops.correct_codes(q, table), wl_ops.correct_plain(q, table)
     torch.cuda.synchronize()
     return got, plain
@@ -672,10 +700,10 @@ def phase_kernel(rng, whitelist_ascii, sms, clock_hz, wl_ops):
 
     device = torch.device("cuda")
     table = wl_ops.make_table(
-        torch.from_numpy(wl_ops.barcode_codes(as_bytes(whitelist_ascii, np.full(len(whitelist_ascii), CB_LEN)), CB_LEN)).to(device)
+        to_card(wl_ops.barcode_codes(as_bytes(whitelist_ascii, np.full(len(whitelist_ascii), CB_LEN)), CB_LEN), device)
     )
     q_ascii, q_len, _ = make_queries(rng, whitelist_ascii, BATCH)
-    queries = torch.from_numpy(wl_ops.barcode_codes(as_bytes(q_ascii, q_len), CB_LEN)).to(device)
+    queries = to_card(wl_ops.barcode_codes(as_bytes(q_ascii, q_len), CB_LEN), device)
 
     got = wl_ops.correct_codes(queries, table)
     plain = wl_ops.correct_plain(queries, table)
@@ -778,6 +806,32 @@ def check_calls(native, what: str, **want) -> None:
         raise AssertionError(f"{what} took another native route too: {native.calls}")
 
 
+def write_attach_inputs(rng, whitelist_ascii, n_reads: int, bgzf, directory: Path):
+    """Attach's inputs in ``directory``: the whitelist, ``n_reads`` synthetic
+    10x v2 R1 and I1 reads (gz FASTQ) and a u2 BAM. Returns the R1 and I1
+    sequences and qualities and the u2 record bodies."""
+    newline = np.full((whitelist_ascii.shape[0], 1), ord("\n"), dtype=np.uint8)
+    (directory / "whitelist.txt").write_bytes(np.concatenate([whitelist_ascii, newline], axis=1).tobytes())
+    cb_ascii, cb_len, _ = make_queries(rng, whitelist_ascii, n_reads)
+    tail = LETTERS[rng.integers(0, 4, size=(n_reads, R1_LEN - CB_LEN))]
+    r1_ascii = np.concatenate([cb_ascii, tail], axis=1)
+    r1_len = np.where(cb_len < CB_LEN, cb_len, R1_LEN)  # a short barcode is a short read
+    r1_seq = as_bytes(r1_ascii, r1_len)
+    r1_qual = as_bytes(rng.integers(35, 75, size=(n_reads, R1_LEN), dtype=np.uint8), r1_len)
+    i1_seq = as_bytes(LETTERS[rng.integers(0, 4, size=(n_reads, SAMPLE_LEN))], np.full(n_reads, SAMPLE_LEN))
+    i1_qual = as_bytes(rng.integers(35, 75, size=(n_reads, SAMPLE_LEN), dtype=np.uint8), np.full(n_reads, SAMPLE_LEN))
+    write_fastq_gz(directory / "r1.fastq.gz", r1_seq, r1_qual)
+    write_fastq_gz(directory / "i1.fastq.gz", i1_seq, i1_qual)
+    u2_bodies = write_u2(directory / "u2.bam", rng, n_reads, bgzf)
+    return r1_seq, r1_qual, i1_seq, i1_qual, u2_bodies
+
+
+def attach_args(directory: Path, output: Path) -> list:
+    """``Attach10xBarcodes -w`` over ``write_attach_inputs``' files."""
+    return ["--r1", str(directory / "r1.fastq.gz"), "--u2", str(directory / "u2.bam"),
+            "--i1", str(directory / "i1.fastq.gz"), "-o", str(output), "-w", str(directory / "whitelist.txt")]
+
+
 def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, stamp: str, modules):
     import torch
 
@@ -786,28 +840,13 @@ def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, stamp: str, mo
         shutil.rmtree(WORK)
     WORK.mkdir()
     start = time.perf_counter()
-    wl_path = WORK / "whitelist.txt"
-    newline = np.full((whitelist_ascii.shape[0], 1), ord("\n"), dtype=np.uint8)
-    wl_path.write_bytes(np.concatenate([whitelist_ascii, newline], axis=1).tobytes())
-
-    cb_ascii, cb_len, kinds = make_queries(rng, whitelist_ascii, n_reads)
-    tail = LETTERS[rng.integers(0, 4, size=(n_reads, R1_LEN - CB_LEN))]
-    r1_ascii = np.concatenate([cb_ascii, tail], axis=1)
-    r1_len = np.where(cb_len < CB_LEN, cb_len, R1_LEN)  # a short barcode is a short read
-    r1_seq = as_bytes(r1_ascii, r1_len)
-    r1_qual = as_bytes(rng.integers(35, 75, size=(n_reads, R1_LEN), dtype=np.uint8), r1_len)
-    i1_seq = as_bytes(LETTERS[rng.integers(0, 4, size=(n_reads, SAMPLE_LEN))], np.full(n_reads, SAMPLE_LEN))
-    i1_qual = as_bytes(rng.integers(35, 75, size=(n_reads, SAMPLE_LEN), dtype=np.uint8), np.full(n_reads, SAMPLE_LEN))
-    write_fastq_gz(WORK / "r1.fastq.gz", r1_seq, r1_qual)
-    write_fastq_gz(WORK / "i1.fastq.gz", i1_seq, i1_qual)
-    u2_bodies = write_u2(WORK / "u2.bam", rng, n_reads, bgzf)
+    r1_seq, r1_qual, i1_seq, i1_qual, u2_bodies = write_attach_inputs(rng, whitelist_ascii, n_reads, bgzf, WORK)
     log(f"[attach] inputs: {n_reads} reads (R1 {R1_LEN} bp gz, I1 {SAMPLE_LEN} bp gz, "
         f"u2 {R2_LEN} bp BAM), whitelist {whitelist_ascii.shape[0]} x {CB_LEN}, "
         f"made in {time.perf_counter() - start:.1f} s")
 
     output = WORK / "tagged.bam"
-    args = ["--r1", str(WORK / "r1.fastq.gz"), "--u2", str(WORK / "u2.bam"),
-            "--i1", str(WORK / "i1.fastq.gz"), "-o", str(output), "-w", str(wl_path)]
+    args = attach_args(WORK, output)
     stderr = io.StringIO()
     torch.cuda.synchronize()
     native.reset_calls()
@@ -835,7 +874,7 @@ def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, stamp: str, mo
     cr = [s[:CB_LEN] for s in r1_seq]
     expected = []
     for lo in range(0, n_reads, BATCH):
-        q = torch.from_numpy(wl_ops.barcode_codes(cr[lo : lo + BATCH], CB_LEN)).to(table.codes.device)
+        q = to_card(wl_ops.barcode_codes(cr[lo : lo + BATCH], CB_LEN), table.codes.device)
         expected.append(wl_ops.correct_plain(q, table).cpu().numpy())
     expected = np.concatenate(expected)
     expected[np.array([len(c) for c in cr]) != CB_LEN] = -1
@@ -1149,7 +1188,7 @@ def phase_metrics(rng, stamp: str, modules) -> None:
             str(paths[axis]), str(WORK / "unused"), mito if axis == "cell" else set(), device="cuda")
         gatherer.start_stream()
         cols, kwargs, decisions = gatherer.pack_batch(batch, pad_to=METRICS_BATCH)
-        staged = {name: torch.from_numpy(array).to(gatherer._device) for name, array in cols.items()}
+        staged = {name: to_card(array, gatherer._device) for name, array in cols.items()}
         int_names, float_names = port_gatherer.wire_result_names(gatherer.columns)
         n_entities = int(np.count_nonzero(key[1:cut] != key[: cut - 1])) + 1
         k = port_seg.entity_bucket(n_entities, METRICS_BATCH)
@@ -1456,7 +1495,7 @@ def phase_count(rng, stamp: str, modules, csvs: dict) -> None:
     frame = kept[0]
     cut = int(np.nonzero(frame.qname[1:] != frame.qname[:-1])[0][-1]) + 1
     block = port_count.pack_count_block(packed.slice_frame(frame, 0, cut), pad_to=COUNT_BATCH)
-    staged = torch.from_numpy(block).to("cuda")
+    staged = to_card(block, "cuda")
 
     def one_pass():
         return port_counting.count_molecules(dict(zip(port_count.UPLOAD_COLUMNS, staged)),
@@ -1517,11 +1556,9 @@ def write_fastq_files(paths, names, sequences, qualities, cuts) -> None:
 def expected_indices(wl_ops, table, barcodes, length) -> np.ndarray:
     """The plain version's whitelist index per barcode, on the card, batch by
     batch; -1 for a barcode of another length."""
-    import torch
-
     out = []
     for lo in range(0, len(barcodes), BATCH):
-        q = torch.from_numpy(wl_ops.barcode_codes(barcodes[lo : lo + BATCH], length)).to(table.codes.device)
+        q = to_card(wl_ops.barcode_codes(barcodes[lo : lo + BATCH], length), table.codes.device)
         out.append(wl_ops.correct_plain(q, table).cpu().numpy())
     out = np.concatenate(out)
     out[np.array([len(b) for b in barcodes]) != length] = -1
@@ -1576,8 +1613,6 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
     the generator and the plain version; returns the kernel launches of
     the phase's main-path runs and the BAM shards, which stay for the sort
     phase."""
-    import torch
-
     kernels, native, wl_ops, port_platform, port_fqp, port_sample, bgzf, sam = modules
     phase_start = start = time.perf_counter()
     WORK.mkdir(exist_ok=True)
@@ -1726,7 +1761,7 @@ def phase_fastq(rng, whitelist_ascii, table, stamp: str, modules):
     write_fastq_files(s_paths["r2"], s_names, s2_seq, s2_qual, ((0, m // 2 + 17), (m // 2 + 17, m)))
     barcodes = [s[:8] + s[26:32] if len(s) == 42 else s for s in s1_seq]
     table14 = wl_ops.make_table(
-        torch.from_numpy(wl_ops.barcode_codes(full_rows(wl14), 14)).to(table.codes.device))
+        to_card(wl_ops.barcode_codes(full_rows(wl14), 14), table.codes.device))
     kept_rows = np.flatnonzero(expected_indices(wl_ops, table14, barcodes, 14) >= 0)
     log(f"[fastq] SampleFastq inputs: {m} {SLIDESEQ_STRUCTURE} pairs (R1 42 bp, R2 {R2_LEN} bp; R1 and R2 in "
         f"two files each, cut at different reads), whitelist {SLIDESEQ_WHITELIST} x 14; made in "
@@ -2607,7 +2642,7 @@ def phase_serve(rng, stamp: str, modules) -> None:
     graph_set = port_graphs.GraphSet("cuda")
     for presorted in (True, False):
         cols, kwargs, decisions = gatherer.pack_batch(batch, pad_to=METRICS_BATCH, presorted=presorted)
-        staged = {name: torch.from_numpy(array).to("cuda") for name, array in cols.items()}
+        staged = {name: to_card(array, "cuda") for name, array in cols.items()}
         passes = {
             "eager": lambda: port_device.compute_entity_metrics(staged, **kwargs),
             "graph": lambda: graph_set.run(staged, **kwargs),
@@ -2805,8 +2840,183 @@ def phase_dist(stamp: str, modules) -> None:
         f"(that step {reference_s:.2f} s with its pull)")
     if dict(kernels.launches) != launches_before:
         raise AssertionError(f"a hand kernel launched in the dist phase: {kernels.launches}")
-    shutil.rmtree(WORK)
+    for path in WORK.iterdir():
+        if path.name not in KEPT_FOR_ANALYSIS:
+            shutil.rmtree(path) if path.is_dir() else path.unlink()
     log(f"[dist] phase 12 took {time.perf_counter() - phase_start:.1f} s")
+
+
+# phase 10's chunks, phase 5's GTF and one-shot CSV: the witnessed sched
+# worker's inputs and its reference
+KEPT_FOR_ANALYSIS = ("mito.gtf", "cli_cell.csv.gz", "chunks")
+ANALYSIS_FLAG = "--analysis-worker"
+ANALYSIS_READS = 2 * BATCH  # the witnessed attach: two kernel batches
+# the witness's and the frame witness's variables, set on the witnessed
+# worker only
+WITNESS_VARS = ("SCTOOLS_TPU_LOCK_DEBUG", "SCTOOLS_TPU_LOCK_GRAPH", "SCTOOLS_TPU_FRAME_DEBUG",
+                "SCTOOLS_TPU_TRACE", "SCTOOLS_TPU_TRACE_WORKER")
+
+
+def analysis_worker(argv) -> int:
+    """One worker of phase 13, in its own process, witnessed or not as its
+    environment says: attach -w on ``<workdir>``'s inputs into
+    ``<workdir>/<tag>.bam``, then one sched worker draining
+    ``<work>/chunks`` into ``<workdir>/<tag>/``, on cuda. Prints one
+    ``[worker] {json}`` line: each stage's seconds and the hand kernel
+    launches, each counted from 0 at the stage's start, and the frame
+    witness's stamped frames and violations."""
+    workdir, tag = Path(argv[0]), argv[1]
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from sctools_tpu_torch import gtf as port_gtf
+    from sctools_tpu_torch import kernels
+    from sctools_tpu_torch import platform as port_platform
+    from sctools_tpu_torch.analysis import witness
+    from sctools_tpu_torch.ingest import framedebug
+    from sctools_tpu_torch.parallel import launch
+
+    report = {"witness": witness.enabled(), "frame_debug": framedebug.enabled()}
+    kernels.reset_launches()  # this slice's path: the witnessed attach
+    start = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = port_platform.TenXV2.attach_barcodes(attach_args(workdir, workdir / f"{tag}.bam"))
+    torch.cuda.synchronize()
+    report["attach"] = {"rc": rc, "seconds": time.perf_counter() - start, "launches": dict(kernels.launches)}
+    kernels.reset_launches()
+    start = time.perf_counter()
+    committed = launch.run_process_cell_metrics(
+        sorted(str(p) for p in (WORK / "chunks").glob("*.bam")), str(workdir / tag / "proc0"), 1, 0,
+        frozenset(port_gtf.get_mitochondrial_gene_names(str(WORK / "mito.gtf"))), lease_ttl=SCHED_TTL,
+        backoff_base=0.1,
+    )
+    torch.cuda.synchronize()
+    report["sched"] = {"committed": len(committed), "seconds": time.perf_counter() - start,
+                       "launches": dict(kernels.launches)}
+    report["stamped"] = framedebug.stamped_count()
+    report["frame_violations"] = framedebug.violations()
+    print("[worker] " + json.dumps(report), flush=True)
+    return 0
+
+
+def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
+    """The port's static checks on this machine, then attach and a sched
+    worker under the runtime lock witness and the frame witness, each
+    against the same run unwitnessed; every lock dump against the static
+    lock graph. Returns the witnessed attach's kernel launches."""
+    import os
+
+    kernels, port_launch, bgzf = modules
+    phase_start = time.perf_counter()
+    workdir = WORK / "analysis"
+    trace = workdir / "trace"
+    trace.mkdir(parents=True)
+    graph_path = workdir / "lock-graph.json"
+    env = {k: v for k, v in os.environ.items() if k not in WITNESS_VARS}
+    env["SCTOOLS_TPU_SCX_CACHE"] = "0"  # no parse store left in the checkout
+
+    # (a) the passes, as a user runs them
+    start = time.perf_counter()
+    gate = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", "sctools_tpu_torch", "chip_smoke.py",
+                           "--json"], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    passes_s = time.perf_counter() - start
+    if gate.returncode != 0:
+        raise AssertionError(f"the static checks: rc {gate.returncode}\n{gate.stdout[-4000:]}{gate.stderr[-2000:]}")
+    result = json.loads(gate.stdout)
+    if result["findings"]:
+        raise AssertionError(f"the static checks found {result['findings']}")
+    start = time.perf_counter()
+    emitted = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", "--emit-lock-graph",
+                              str(graph_path), "sctools_tpu_torch"],
+                             cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    graph_s = time.perf_counter() - start
+    if emitted.returncode != 0:
+        raise AssertionError(f"--emit-lock-graph: rc {emitted.returncode}\n{emitted.stdout}{emitted.stderr}")
+    graph = json.loads(graph_path.read_text())
+    static_edges = {(e["from"], e["to"]) for e in graph["edges"]}
+    log(f"[analysis] {stamp} | python -m sctools_tpu_torch.analysis sctools_tpu_torch chip_smoke.py --json: "
+        f"exit 0, {len(result['findings'])} findings over {result['checked_files']} files in {passes_s:.2f} s "
+        f"(lint, abi, race, life; no parse store); --emit-lock-graph in {graph_s:.2f} s: "
+        f"{len(graph['locks'])} locks {sorted(graph['locks'])}, {len(graph['edges'])} order edges, "
+        f"{len(graph['entries'])} entries {[e['site'] for e in graph['entries']]}")
+
+    # (b) + (c) the workers, unwitnessed then witnessed
+    start = time.perf_counter()
+    write_attach_inputs(rng, whitelist_ascii, ANALYSIS_READS, bgzf, workdir)
+    log(f"[analysis] attach inputs: {ANALYSIS_READS} reads, whitelist {whitelist_ascii.shape[0]} x {CB_LEN}, "
+        f"made in {time.perf_counter() - start:.1f} s")
+    witnessed_env = dict(env, SCTOOLS_TPU_LOCK_DEBUG="1", SCTOOLS_TPU_LOCK_GRAPH=str(graph_path),
+                         SCTOOLS_TPU_FRAME_DEBUG="1", SCTOOLS_TPU_TRACE=str(trace),
+                         SCTOOLS_TPU_TRACE_WORKER="witnessed")
+    reports, walls = {}, {}
+    for tag, worker_env in (("plain", env), ("witnessed", witnessed_env)):
+        begin = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), ANALYSIS_FLAG, str(workdir), tag],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=worker_env)
+        try:
+            out = proc.communicate(timeout=600)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        walls[tag] = time.perf_counter() - begin
+        lines = [line for line in out.splitlines() if line.startswith("[worker] ")]
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"{tag} worker: rc {proc.returncode}\n{out[-4000:]}")
+        reports[tag] = json.loads(lines[0][len("[worker] "):])
+    batches = -(-ANALYSIS_READS // BATCH)
+    n_chunks = len(list((WORK / "chunks").glob("*.bam")))
+    for tag, report in reports.items():
+        if report["witness"] != (tag == "witnessed") or report["frame_debug"] != (tag == "witnessed"):
+            raise AssertionError(f"{tag} worker: witness {report['witness']}, frame witness {report['frame_debug']}")
+        if report["attach"]["rc"] != 0 or report["attach"]["launches"] != {"whitelist_correct": batches}:
+            raise AssertionError(f"{tag} attach: rc {report['attach']['rc']}, launches {report['attach']['launches']}, "
+                                 f"want {batches} (one a batch)")
+        if any(report["sched"]["launches"].values()):
+            raise AssertionError(f"{tag} sched worker launched a hand kernel: {report['sched']['launches']}")
+        if report["sched"]["committed"] != n_chunks:
+            raise AssertionError(f"{tag} sched worker committed {report['sched']['committed']} of {n_chunks} chunks")
+        merged = workdir / tag / "merged.csv.gz"
+        port_launch.merge_sorted_csv_parts(str(workdir / tag / "metrics.part*.csv.gz"), str(merged),
+                                           journal_dir=str(workdir / tag / "sched-journal"), expected_parts=n_chunks)
+        if read_csv(merged)[0] != read_csv(WORK / "cli_cell.csv.gz")[0]:
+            raise AssertionError(f"{tag} sched worker: the merged CSV differs from phase 5's CalculateCellMetrics CSV")
+    if (workdir / "witnessed.bam").read_bytes() != (workdir / "plain.bam").read_bytes():
+        raise AssertionError("the witnessed attach's BAM differs from the unwitnessed one's")
+    witnessed = reports["witnessed"]
+    if witnessed["frame_violations"] or not witnessed["stamped"]:
+        raise AssertionError(f"frame witness: {witnessed['stamped']} frames stamped, violations "
+                             f"{witnessed['frame_violations']}")
+
+    # (d) the dump: the witnessed worker's, at its exit
+    dumps = sorted(path.name for path in trace.glob("locks.*.json"))
+    if dumps != ["locks.witnessed.json"]:
+        raise AssertionError(f"lock dumps: {dumps}")
+    dump = json.loads((trace / "locks.witnessed.json").read_text())
+    if not dump["enabled"] or dump["violations"] or dump["static_graph"] != str(graph_path):
+        raise AssertionError(f"lock dump: enabled {dump['enabled']}, static graph {dump['static_graph']}, "
+                             f"violations {dump['violations']}")
+    blocking = {(e["from"], e["to"]) for e in dump["edges"] if not e["bounded"]}
+    if not blocking <= static_edges:
+        raise AssertionError(f"observed edges {sorted(blocking - static_edges)} are not in the static graph")
+    missing = set(graph["locks"]) - set(dump["acquires"])
+    if missing:
+        raise AssertionError(f"locks never acquired under the witness: {sorted(missing)}")
+    log(f"[analysis] {stamp} | witnessed worker (SCTOOLS_TPU_LOCK_DEBUG=1 with the static graph, "
+        f"SCTOOLS_TPU_FRAME_DEBUG=1): attach of {ANALYSIS_READS} reads {witnessed['attach']['seconds']:.2f} s "
+        f"(unwitnessed {reports['plain']['attach']['seconds']:.2f} s), {witnessed['attach']['launches']} "
+        f"launches = {batches} batches, BAM equal to the unwitnessed one's byte for byte; one sched worker "
+        f"drained {witnessed['sched']['committed']} chunks in {witnessed['sched']['seconds']:.2f} s (unwitnessed "
+        f"{reports['plain']['sched']['seconds']:.2f} s), merged CSV equal to phase 5's byte for byte "
+        f"(decompressed), both runs; process walls: unwitnessed {walls['plain']:.2f} s, then witnessed "
+        f"{walls['witnessed']:.2f} s")
+    edges = [(e["from"], e["to"], "bounded" if e["bounded"] else "blocking") for e in dump["edges"]]
+    log(f"[analysis] {stamp} | locks.witnessed.json: 0 violations; acquisitions {dict(sorted(dump['acquires'].items()))}; "
+        f"observed edges {edges or 'none'} (every blocking one in the static graph); {witnessed['stamped']} frames "
+        f"stamped, 0 stale reads")
+    shutil.rmtree(WORK)
+    log(f"[analysis] phase 13 took {time.perf_counter() - phase_start:.1f} s")
+    return witnessed["attach"]["launches"]["whitelist_correct"]
 
 
 def main(argv=None) -> int:
@@ -2874,19 +3084,21 @@ def main(argv=None) -> int:
                 (port_platform, port_sched, port_launch, port_gatherer, port_device, port_seg, port_graphs, packed,
                  bgzf))
     phase_dist(stamp, (kernels, port_par, port_gatherer, port_gtf, packed))
+    analysis_launches = phase_analysis(np.random.default_rng(args.seed + 6), whitelist_ascii, stamp,
+                                       (kernels, port_launch, bgzf))
     record = {
         "name": "whitelist_correct",
         "route": "cuda",
         "source": "sctools_tpu_torch/csrc/whitelist_correct.cu",
         "replaces": "sctools_tpu/ops/whitelist.py:125",
         # every main-path run of the smoke: attach, FastqProcess in both
-        # formats, SampleFastq (the metrics, count, sort, mesh, sched, serve
-        # and dist paths launch none)
-        "launches": launches["whitelist_correct"] + fastq_launches,
+        # formats, SampleFastq and the analysis phase's witnessed attach (the
+        # metrics, count, sort, mesh, sched, serve and dist paths launch none)
+        "launches": launches["whitelist_correct"] + fastq_launches + analysis_launches,
         "verdict": "exact",
         **measured,
     }
-    log(f"[smoke] phases 1-12 took {time.perf_counter() - smoke_start:.1f} s")
+    log(f"[smoke] phases 1-13 took {time.perf_counter() - smoke_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -2903,6 +3115,8 @@ if __name__ == "__main__":
         sys.exit(serve_worker(sys.argv[2:]))
     if sys.argv[1:2] == [DIST_FLAG]:  # one of phase 12's worker processes
         sys.exit(dist_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [ANALYSIS_FLAG]:  # one of phase 13's worker processes
+        sys.exit(analysis_worker(sys.argv[2:]))
     try:
         sys.exit(main())
     except SystemExit:

@@ -25,10 +25,10 @@ The tests use it to prove a consumer's retention window.
 from __future__ import annotations
 
 import os
-import threading
 import traceback
 from typing import Any, Dict, List, Optional
 
+from ..analysis.witness import make_lock
 from ..io.packed import _PER_RECORD_FIELDS, ReadFrame
 
 ENV_FLAG = "SCTOOLS_TPU_FRAME_DEBUG"
@@ -38,7 +38,7 @@ ENV_FLAG = "SCTOOLS_TPU_FRAME_DEBUG"
 # gives as a whole column
 POISON_BYTE = 0xAB
 
-_lock = threading.Lock()
+_lock = make_lock("ingest.framedebug")
 _stamped = 0
 _violations: List[Dict[str, Any]] = []
 

@@ -25,9 +25,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict
+
+from .analysis.witness import make_lock
 
 _PACKAGE = Path(__file__).resolve().parent
 SOURCE_DIR = _PACKAGE / "csrc"
@@ -43,7 +44,7 @@ launches: Dict[str, int] = {"whitelist_correct": 0}
 # kernel this process built
 build_output: Dict[str, str] = {}
 
-_lock = threading.Lock()
+_lock = make_lock("kernels.loader")
 _libraries: Dict[str, ctypes.CDLL] = {}
 
 

@@ -51,13 +51,13 @@ import os
 import shutil
 import subprocess
 import sys
-import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..analysis.witness import make_lock
 from ..io.packed import ReadFrame
 
 _SOURCE_DIR = Path(__file__).resolve().parent
@@ -77,7 +77,7 @@ calls: Dict[str, int] = {
 COMPRESS_LEVEL = 6  # the FASTQ loops' BGZF level, the JAX package's
 PROGRESS_EVERY = 10_000_000  # the reference's cadence (fastq_common.cpp:340)
 
-_lock = threading.Lock()
+_lock = make_lock("native.loader")
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -174,7 +174,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "scx_fqm": (c_long, [c_char_p, p, c_int, p, c_int, c_int, c_char_p, c_char_p, c_int]),
         "scx_sfq_open": (p, [c_char_p, c_char_p, p, c_int, p, c_int, c_char_p, c_char_p, c_int]),
         "scx_sfq_next": (c_long, [p, c_long]),
-        "scx_sfq_buf": (p, [p, c_char_p]),
+        "scx_sfq_buf": (ctypes.POINTER(ctypes.c_char), [p, c_char_p]),
         "scx_sfq_len": (c_int, [p, c_char_p]),
         "scx_sfq_write": (c_long, [p, c_long, p]),
         "scx_sfq_close": (c_int, [p]),
@@ -183,7 +183,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "scx_fqp_open": (p, [c_char_p, c_char_p, c_char_p, c_char_p, c_int, c_int, c_char_p,
                              p, c_int, p, c_int, p, c_int, c_int, c_char_p, c_int]),
         "scx_fqp_next": (c_long, [p, c_long]),
-        "scx_fqp_buf": (p, [p, c_char_p]),
+        "scx_fqp_buf": (ctypes.POINTER(ctypes.c_char), [p, c_char_p]),
         "scx_fqp_len": (c_int, [p, c_char_p]),
         "scx_fqp_write": (c_long, [p, c_long, p, p]),
         "scx_fqp_stats": (None, [p, ctypes.POINTER(c_long)]),
@@ -194,7 +194,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "scx_attach_open": (p, [c_char_p, c_char_p, c_char_p, c_char_p, p, c_int, p, c_int,
                                 p, c_int, c_char_p, c_int]),
         "scx_attach_next": (c_long, [p, c_long]),
-        "scx_attach_buf": (p, [p, c_char_p]),
+        "scx_attach_buf": (ctypes.POINTER(ctypes.c_char), [p, c_char_p]),
         "scx_attach_len": (c_int, [p, c_char_p]),
         "scx_attach_write": (c_long, [p, c_long, p, p]),
         "scx_attach_close": (c_int, [p]),
@@ -582,7 +582,7 @@ def _pointer(array: Optional[np.ndarray]) -> Optional[int]:
     return None if array is None else array.ctypes.data
 
 
-def _barcodes(pointer: int, n: int, width: int) -> np.ndarray:
+def _barcodes(pointer, n: int, width: int) -> np.ndarray:
     """A handle's fixed-width barcode buffer as an ``[n, width]`` uint8 view;
     valid until the handle's next batch."""
     return np.ctypeslib.as_array(ctypes.cast(pointer, ctypes.POINTER(ctypes.c_uint8)), shape=(n, width))

@@ -37,13 +37,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import threading
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import ingest, kernels
+from ..analysis.witness import make_lock
 from ..device import DeviceLike, resolve
 
 Barcodes = Sequence[Union[str, bytes]]
@@ -220,7 +220,7 @@ def correct_codes(queries: torch.Tensor, table: WhitelistTable) -> torch.Tensor:
 # correctors rebuilt over the same whitelist reuse the uploaded table.
 # Bounded small; the oldest entry goes first.
 _TABLE_CACHE_MAX = 4
-_table_lock = threading.Lock()
+_table_lock = make_lock("ops.whitelist_table")
 _table_cache: dict = {}
 
 

@@ -51,10 +51,11 @@ from __future__ import annotations
 
 import os
 import sys
-import threading
 import time
 from dataclasses import dataclass
 from typing import List, Optional
+
+from ..analysis.witness import make_lock
 
 ENV_VAR = "SCTOOLS_TPU_FAULTS"
 KINDS = (
@@ -139,7 +140,7 @@ def parse_spec(text: str) -> List[Clause]:
     return clauses
 
 
-_lock = threading.Lock()
+_lock = make_lock("sched.faults")
 _clauses: Optional[List[Clause]] = None  # None = env not parsed yet
 
 

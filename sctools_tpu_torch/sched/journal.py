@@ -41,10 +41,11 @@ import hashlib
 import json
 import os
 import socket
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+from ..analysis.witness import make_lock
 
 # journal event kinds, in the order a task typically sees them
 EVENTS = ("leased", "failed", "committed", "quarantined", "requeued")
@@ -66,7 +67,7 @@ def wall_clock() -> float:
     deadlines must be comparable across processes, which perf_counter is
     not. It is never used for duration math.
     """
-    return time.time()
+    return time.time()  # scx-lint: disable=SCX109 -- cross-process timestamp, not a duration
 
 
 @dataclass(frozen=True)
@@ -167,7 +168,7 @@ class Journal:
     def __init__(self, root: str, worker_id: Optional[str] = None):
         self.root = os.path.abspath(root)
         self.worker_id = worker_id or default_worker_id()
-        self._lock = threading.Lock()
+        self._lock = make_lock("sched.journal")
         self._seq = 0
         self._events_file = None
         self._tasks_file = None
