@@ -229,8 +229,8 @@ Phases, in order; any failure exits non-zero before the last line:
               ``--sched-worker``, each claim delayed 0.5 s so that both take
               chunks) drain phase 10's five chunks at the 2^20 batch width,
               then again with worker A crashed at its first batch of
-              chunk0000 and B stealing it (the port has no flight record:
-              A's capture is its torn sink); attach -w on phase 13's
+              chunk0000 and B stealing it (A's registry is the one its
+              flight record carries); attach -w on phase 13's
               131,072 reads (2 batches of 65,536) against the
               737,280-barcode whitelist; CreateCountMatrix on phase 6's BAM;
               one serve worker warmed on its CUDA graphs (phase 14's steps).
@@ -252,7 +252,39 @@ Phases, in order; any failure exits non-zero before the last line:
               transfers. Prints each site's calls, compiles, dispatches,
               rows and occupancy, the bytes per direction and site, the
               memory peak, the recording calls' cost and the device line;
-16. kernels -- one JSON line per the port's kernel contract; its launches are
+16. audit  -- the flight recorder and the record-conservation ledger
+              (``obs.flight_dump``, ``obs.audit``) on the card, each worker
+              traced (``SCTOOLS_TPU_TRACE``, ``SCTOOLS_TPU_PULSE=1``) in a
+              process of its own: sched worker A (phase 10's
+              ``--sched-worker``) commits chunk0000 of phase 10's five chunks
+              and is crashed at chunk0001's first batch, B steals chunk0001
+              and drains the queue; ``merge_sorted_csv_parts`` joins the
+              parts, which must equal phase 5's CalculateCellMetrics CSV
+              (decompressed). A's ``flight.<worker>.jsonl`` must name the
+              crash and the open ``sched:task`` span and carry the ``pulse``
+              (its last heartbeats) and ``ring_slots`` sections and a
+              registry with ``parallel.sharded_metrics``, which ``obs
+              timeline`` and ``obs efficiency`` read (``from_flight``).
+              ``python -m sctools_tpu_torch.obs audit`` must exit 0 with
+              ``RESULT: EXACT`` over the 1,250,000 records (ingested =
+              decoded = computed, counted once over the committed attempts;
+              rows computed = emitted + filtered; the merge's rows in =
+              out); ``obs explain --job chunk0001`` must narrate both
+              attempts and the steal, ``--barcode`` resolve a cell to its
+              part's and the merged CSV's rows; a fabricated quarantine
+              sidecar line must make the same journal audit UNBALANCED
+              (exit 1). A worker SIGTERM'd inside its task must leave a
+              flight record (``signal:SIGTERM``, its ring slots) and still
+              die of the signal; a rerun in this process steals and commits
+              the chunk, EXACT. Phase 11's serve journal must audit EXACT,
+              each pack's routed rows equal its emitted rows, and the
+              exporter's body hold every tenant's ``sctools_tpu_audit_``
+              gauges; an ABBA cycle in a child process under the lock
+              witness must write a flight record ``lock-witness:cycle``
+              beside the witness's snapshot. Prints the workers, the
+              records, one ``flight_dump``'s and one ``audit.add``'s cost;
+              no worker may launch a hand kernel;
+17. kernels -- one JSON line per the port's kernel contract; its launches are
               those of every main-path run (phases 4, 7, 13, 14 and 15).
 
 The last line of standard output is
@@ -2295,8 +2327,10 @@ def phase_mesh(stamp: str, modules) -> None:
 # phase 5's cell BAM, its GTF and its one-shot CSV, and phase 10's chunks:
 # the distributed phase's inputs
 # phase 5's cell BAM and GTF, phase 6's count BAM and GTF and phase 10's
-# chunks: the tracing phase's inputs
-KEPT_FOR_TRACING = ("cell_sorted.bam", "mito.gtf", "count.bam", "genes.gtf", "chunks")
+# chunks: the tracing phase's inputs; phase 11's serve journal: the audit
+# phase's
+SERVE_AUDIT = "serve_audit"
+KEPT_FOR_TRACING = ("cell_sorted.bam", "mito.gtf", "count.bam", "genes.gtf", "chunks", SERVE_AUDIT)
 KEPT_FOR_DIST = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz", "chunks", *KEPT_FOR_TRACING)
 # phase 5's cell BAM (the serve workers' calibration BAM) and phase 10's
 # chunks (the serve phase's tenant jobs) are among them
@@ -2734,6 +2768,9 @@ def phase_serve(rng, stamp: str, modules) -> None:
             f"{times['eager']:.3f} ms, graph replay {times['graph']:.3f} ms (CUDA events, 5 calls queued back "
             f"to back); host wall a call with a sync after 5: eager {host['eager']:.3f} ms, graph "
             f"{host['graph']:.3f} ms; blocks equal byte for byte")
+    # its journal (commit events, pack executions and their audit ledgers)
+    # stays for the audit phase, which folds it
+    shutil.copytree(journal_dir, WORK / SERVE_AUDIT / "journal")
     for path in WORK.iterdir():
         if path.name not in KEPT_FOR_DIST:
             shutil.rmtree(path) if path.is_dir() else path.unlink()
@@ -2999,8 +3036,9 @@ def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
     if emitted.returncode != 0:
         raise AssertionError(f"--emit-lock-graph: rc {emitted.returncode}\n{emitted.stdout}{emitted.stderr}")
     graph = json.loads(graph_path.read_text())
-    if len(graph["locks"]) != 10 or "obs.xprof" not in graph["locks"]:
-        raise AssertionError(f"the static lock graph names {sorted(graph['locks'])}, want ten with obs.xprof")
+    if len(graph["locks"]) != 12 or not {"obs.xprof", "obs.audit", "ingest.ring_state"} <= set(graph["locks"]):
+        raise AssertionError(f"the static lock graph names {sorted(graph['locks'])}, want twelve with obs.xprof, "
+                             f"obs.audit and ingest.ring_state")
     static_edges = {(e["from"], e["to"]) for e in graph["edges"]}
     log(f"[analysis] {stamp} | python -m sctools_tpu_torch.analysis sctools_tpu_torch chip_smoke.py --json: "
         f"exit 0, {len(result['findings'])} findings over {result['checked_files']} files in {passes_s:.2f} s "
@@ -3549,11 +3587,13 @@ def phase_efficiency(stamp: str, modules, traced: dict) -> None:
             data = json.loads(path.read_text())
             registries[run_dir.name, worker] = (run_dir, data, ledger_against_captures(
                 run_dir, worker, data, ANALYSIS_READS if run_dir.name == "attach" else 0))
-    # the crashed worker dumps none: its capture is its torn sink
+    # the crashed worker dumps none at exit: its registry is the one its
+    # flight record carries, which the merged report reads (from_flight)
     want = {("sched", "A"), ("sched", "B"), ("sched_crash", "B"), ("attach", "traced-attach"),
             ("count", "traced-count"), ("serve", "traced-serve")}
     if set(registries) != want:
         raise AssertionError(f"registries {sorted(registries)}, want {sorted(want)}")
+    crashed_id = sched_runs["sched_crash"][0]["A"][2]
 
     # the merged report, as a user asks for it
     done = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.obs", "efficiency", str(root), "--json"],
@@ -3567,8 +3607,11 @@ def phase_efficiency(stamp: str, modules, traced: dict) -> None:
         raise AssertionError(f"obs efficiency: rc {text.returncode}\n{text.stdout[-2000:]}{text.stderr[-2000:]}")
     sites = report["sites"]
     declared = {name for _, data, _ in registries.values() for name in data["declared_sites"]}
-    if not declared or not declared <= set(sites) or len(report["registries"]) != len(registries):
+    if not declared or not declared <= set(sites) or len(report["registries"]) != len(registries) + 1:
         raise AssertionError(f"declared sites {sorted(declared)} against the report's {sorted(sites)}")
+    from_flight = [r["worker"] for r in report["registries"] if r.get("from_flight")]
+    if from_flight != [crashed_id]:
+        raise AssertionError(f"registries read from flight records: {from_flight}, want A's ({crashed_id})")
     if report["totals"]["retraces"] != 0 or any(row["retraces"] for row in sites.values()):
         raise AssertionError(f"retraces: {report['totals']['retraces']}")
     serve_site = registries["serve", "traced-serve"][1]["sites"]["metrics.compute_entity_metrics"]
@@ -3673,8 +3716,358 @@ def phase_efficiency(stamp: str, modules, traced: dict) -> None:
         f"whitelist.correct_pallas {pallas['dispatches']} dispatches = launches = batches, every worker's ledger = "
         f"its spans' and heartbeats' bytes; obs delta: sites only in the "
         f"cell run {structural['sites_only_a']}, only in the sched run {structural['sites_only_b']}")
-    shutil.rmtree(WORK)
+    # phase 10's chunks, phase 5's GTF and CSV and phase 11's serve journal
+    # stay for the audit phase
+    shutil.rmtree(root)
+    shutil.rmtree(WORK / "tracing")
     log(f"[efficiency] phase 15 took {time.perf_counter() - phase_start:.1f} s")
+
+
+AUDIT_ROOT = "audit"
+AUDIT_CRASH = "chunk0001"  # A commits chunk0000, then dies at chunk0001's first batch
+AUDIT_HOLD = 120.0  # the SIGTERM'd worker's delay in its ring's second decode: it is killed inside it
+AUDIT_ADD_N = 200_000  # audit.add calls the cost line times
+AUDIT_TAPS = 5  # ledger adds a sharded chunk batch makes: ingested, decoded, computed, rows computed, emitted
+FLIGHT_SPANS = 1_000  # spans in the ring of the timed flight dump
+FLIGHT_DUMPS = 20
+# a child process that provokes an ABBA cycle under the lock witness
+CYCLE_CHILD = """
+from sctools_tpu_torch.analysis import witness
+
+a, b = witness.make_lock("smoke.cycle_a"), witness.make_lock("smoke.cycle_b")
+with a:
+    with b:
+        pass
+with b:
+    with a:
+        pass
+print([v["kind"] for v in witness.violations()])
+"""
+
+
+def obs_cli(env: dict, *args) -> subprocess.CompletedProcess:
+    """``python -m sctools_tpu_torch.obs <args>``, as a user runs it."""
+    return subprocess.run([sys.executable, "-m", "sctools_tpu_torch.obs", *args], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def audit_worker(run_dir: Path, name: str, process_id: int, n_processes: int, env: dict, spec: str):
+    """One traced sched worker (phase 10's ``--sched-worker``) into
+    ``run_dir``, faults from ``spec``."""
+    env = dict(efficiency_env(env, run_dir, name), SCTOOLS_TPU_FAULTS=spec)
+    return subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), WORKER_FLAG, str(run_dir), str(process_id), str(n_processes),
+         str(WORK / "mito.gtf")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+
+
+def worker_reports(name: str, out: str, want: int) -> list:
+    """A sched worker's ``[worker]`` lines: ``want`` of them, none with a
+    hand kernel launch."""
+    reports = [json.loads(line[len("[worker] "):]) for line in out.splitlines() if line.startswith("[worker] ")]
+    if len(reports) != want or any(any(r["launches"].values()) for r in reports):
+        raise AssertionError(f"worker {name}: reports {reports}, want {want} without a hand kernel launch\n"
+                             f"{out[-3000:]}")
+    return reports
+
+
+def decoded_a_batch(sink: Path) -> bool:
+    """Whether a traced worker's sink holds a ``decode`` span with records."""
+    if not sink.is_file():
+        return False
+    for line in sink.read_text().splitlines():
+        try:
+            record = json.loads(line)
+        except ValueError:  # a line being written
+            continue
+        if record.get("name") == "decode" and (record.get("attrs") or {}).get("records"):
+            return True
+    return False
+
+
+def flight_meta(path: Path) -> dict:
+    """A flight record's meta line; every later line must parse too."""
+    lines = path.read_text().splitlines()
+    meta = json.loads(lines[0])
+    for line in lines[1:]:
+        json.loads(line)
+    if meta.get("meta") != "flight":
+        raise AssertionError(f"{path.name}: not a flight record: {lines[0][:200]}")
+    return meta
+
+
+def phase_audit(stamp: str, modules) -> None:
+    """The flight recorder and the record-conservation ledger on the card:
+    a traced sched worker crashed mid-chunk and its chunk stolen, the merge,
+    ``obs audit`` / ``obs explain`` on the run and a negative control, a
+    SIGTERM'd worker and its rerun, phase 11's serve journal and the
+    exporter's audit gauges, and a lock-witness cycle in a child process."""
+    import os
+    import signal
+
+    from sctools_tpu_torch.obs.serve import PulseExporter
+
+    kernels, port_obs, port_audit, port_sched, port_launch, port_gtf = modules
+    phase_start = time.perf_counter()
+    root = WORK / AUDIT_ROOT
+    base_env = {k: v for k, v in os.environ.items()
+                if k not in TRACE_VARS and k not in WITNESS_VARS and k != "SCTOOLS_TPU_FAULTS"}
+    launches_before = dict(kernels.launches)
+    chunks = sorted((WORK / "chunks").glob("chunk*.bam"))
+    n_records = bam_records(WORK / "cell_sorted.bam")
+
+    # (a) A commits chunk0000 and dies at chunk0001's first batch, holding
+    # its lease; B waits out the TTL, steals chunk0001 and drains the queue
+    run = root / "run"
+    run.mkdir(parents=True)
+    (run / "chunks").symlink_to(WORK / "chunks")
+    workers = {}
+    procs = []
+    try:
+        for name, process_id, spec in (("A", 0, f"crash@gatherer.batch:match={AUDIT_CRASH},times=1"),
+                                       ("B", 1, "")):
+            begin = time.perf_counter()
+            proc = audit_worker(run, name, process_id, 2, base_env, spec)
+            procs.append(proc)
+            out = proc.communicate(timeout=300)[0]
+            workers[name] = (proc.returncode, out, f"proc{process_id}-of-2-{proc.pid}", time.perf_counter() - begin)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if workers["A"][0] != 86 or workers["B"][0] != 0:
+        raise AssertionError(f"worker A: rc {workers['A'][0]} (want 86)\n{workers['A'][1][-2000:]}\n"
+                             f"worker B: rc {workers['B'][0]} (want 0)\n{workers['B'][1][-2000:]}")
+    worker_reports("A", workers["A"][1], 1)
+    b_end = worker_reports("B", workers["B"][1], 2)[1]
+    tasks, states = port_sched.Journal(str(run / "sched-journal"), worker_id="smoke-probe").replay()
+    by_name = {tasks[tid].name: st for tid, st in states.items()}
+    if len(by_name) != len(chunks) or any(st.state != port_sched.COMMITTED for st in by_name.values()) or \
+            (by_name[AUDIT_CRASH].attempts, by_name[AUDIT_CRASH].steals) != (2, 1) or \
+            by_name[AUDIT_CRASH].worker != workers["B"][2] or by_name["chunk0000"].worker != workers["A"][2]:
+        raise AssertionError(f"the crash run's journal: { {n: vars(st) for n, st in by_name.items()} }")
+
+    # (b) A's flight record: where it died, its pulse, its ring, its registry
+    flight_path = run / f"flight.{workers['A'][2]}.jsonl"
+    meta = flight_meta(flight_path)
+    sections = meta.get("sections") or {}
+    pulse_section, rings = sections.get("pulse") or {}, sections.get("ring_slots") or []
+    sharded = ((meta.get("xprof") or {}).get("sites") or {}).get("parallel.sharded_metrics") or {}
+    # (the ring of chunk0001 may have reached its end before the crash: its
+    # slots are the SIGTERM case's to show)
+    if not (meta["reason"].startswith("crash@gatherer.batch:") and AUDIT_CRASH in meta["reason"]) or \
+            "sched:task" not in meta["open_spans"] or not pulse_section.get("recent") or \
+            "ring_slots" not in sections or not all("phase" in ring for ring in rings) or \
+            sharded.get("dispatches", 0) < 1:
+        raise AssertionError(f"A's flight record: reason {meta['reason']!r}, open spans {meta['open_spans']}, "
+                             f"sections {sorted(sections)} (pulse {pulse_section}, rings {rings}), "
+                             f"parallel.sharded_metrics {sharded}")
+    timeline = obs_cli(base_env, "timeline", str(run), "--json")
+    efficiency = obs_cli(base_env, "efficiency", str(run), "--json")
+    if timeline.returncode != 0 or efficiency.returncode != 0:
+        raise AssertionError(f"obs timeline / efficiency: rc {timeline.returncode} / {efficiency.returncode}\n"
+                             f"{timeline.stderr[-2000:]}{efficiency.stderr[-2000:]}")
+    flights = [(f["worker"], f["reason"]) for f in json.loads(timeline.stdout)["flight_records"]]
+    from_flight = [r["worker"] for r in json.loads(efficiency.stdout)["registries"] if r["from_flight"]]
+    if flights != [(workers["A"][2], meta["reason"])] or from_flight != [workers["A"][2]]:
+        raise AssertionError(f"obs timeline's flight records {flights}, efficiency's from_flight {from_flight}")
+
+    # (c) the journal-checked merge, against phase 5's one-shot CSV
+    merged = run / "merged.csv.gz"
+    n_rows = port_launch.merge_sorted_csv_parts(str(run / "metrics.part*.csv.gz"), str(merged),
+                                                journal_dir=str(run / "sched-journal"), expected_parts=len(chunks))
+    if read_csv(merged)[0] != read_csv(WORK / "cli_cell.csv.gz")[0]:
+        raise AssertionError("the crash run's merged CSV differs from phase 5's CalculateCellMetrics CSV")
+
+    # (d) obs audit: EXACT, every record counted once over the committed attempts
+    audit_text, audit_json = obs_cli(base_env, "audit", str(run)), obs_cli(base_env, "audit", str(run), "--json")
+    if audit_text.returncode != 0 or "RESULT: EXACT — 0 unexplained records" not in audit_text.stdout or \
+            audit_json.returncode != 0:
+        raise AssertionError(f"obs audit: rc {audit_text.returncode}\n{audit_text.stdout}{audit_text.stderr}")
+    report = json.loads(audit_json.stdout)
+    fleet, (merge_entry,) = report["fleet"], report["merges"]
+    records, rows = fleet["records"], fleet["rows"]
+    if not (records["ingested"] == records["decoded"] == records["computed"] == n_records) or \
+            records["quarantined"] or rows["computed"] != rows["emitted"] + rows["filtered"] or \
+            rows["emitted"] != n_rows or fleet["tasks_audited"] != len(chunks) or \
+            not (merge_entry["rows_in"] == merge_entry["rows_out"] == n_rows) or merge_entry["merged:collision"]:
+        raise AssertionError(f"obs audit: fleet {fleet}, merge {merge_entry}, want {n_records} records and "
+                             f"{n_rows} rows")
+
+    # (e) the explains: the stolen task's story, one emitted cell's rows
+    job = obs_cli(base_env, "explain", str(run), "--job", AUDIT_CRASH)
+    story = job.stdout
+    if job.returncode != 0 or f"task {AUDIT_CRASH}" not in story or "2 attempt(s), 1 steal(s)" not in story or \
+            "(stolen)" not in story or "committed on" not in story or "artifact:" not in story or \
+            "ledger:" not in story:
+        raise AssertionError(f"obs explain --job {AUDIT_CRASH}: rc {job.returncode}\n{story}{job.stderr}")
+    merged_names = list(read_csv(merged)[2])
+    barcode = next(name for name in merged_names[len(merged_names) // 2:] if set(name) <= set("ACGT"))
+    want = [f"-> {run / 'merged.csv.gz'}:row {merged_names.index(barcode) + 1}"]
+    for part in sorted(run.glob("metrics.part*.csv.gz")):
+        names = list(read_csv(part)[2])
+        if barcode in names:
+            want.append(f"-> {part}:row {names.index(barcode) + 1}")
+    found = obs_cli(base_env, "explain", str(run), "--barcode", barcode)
+    if found.returncode != 0 or len(want) != 2 or not all(line in found.stdout for line in want):
+        raise AssertionError(f"obs explain --barcode {barcode}: rc {found.returncode}, want {want}\n{found.stdout}")
+
+    # (f) negative control: a sidecar range the ledger never counted
+    negative = root / "negative"
+    shutil.copytree(run / "sched-journal", negative / "sched-journal")
+    (negative / "sched-journal" / "quarantine").mkdir(exist_ok=True)
+    victim = next(tid for tid, task in tasks.items() if task.name == "chunk0002")
+    with open(negative / "sched-journal" / "quarantine" / "records-fabricated.jsonl", "a") as f:
+        f.write(json.dumps({"task": "chunk0002", "task_id": victim, "worker": "fabricated",
+                            "site": "gatherer.dispatch", "name": "chunk0002.bam", "record_start": 0,
+                            "record_stop": 7, "reason": "Fabricated", "ts": 0.0}) + "\n")
+    unbalanced = obs_cli(base_env, "audit", str(negative))
+    if unbalanced.returncode != 1 or "RESULT: UNBALANCED — 7 unexplained record(s)" not in unbalanced.stdout:
+        raise AssertionError(f"the negative control: rc {unbalanced.returncode}\n{unbalanced.stdout}")
+
+    # (g) SIGTERM inside a task: a flight record, and the process still dies
+    # of the signal; an in-process rerun steals and commits the chunk
+    term = root / "term"
+    (term / "chunks").mkdir(parents=True)
+    (term / "chunks" / chunks[0].name).symlink_to(chunks[0])
+    begin = time.perf_counter()
+    # the ring's producer holds in its second decode (``ingest.decode``,
+    # batch 1: the chunk's end-of-stream poll) with its slots live, while
+    # this thread waits on the queue inside the task
+    proc = audit_worker(term, "T", 0, 1, base_env, f"delay@ingest.decode:match=1,secs={AUDIT_HOLD},times=1")
+    try:
+        deadline = time.perf_counter() + 120
+        while not decoded_a_batch(term / "trace.T.jsonl"):
+            if proc.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"the SIGTERM worker never decoded a batch: {proc.communicate()[0][-3000:]}")
+            time.sleep(0.05)
+        time.sleep(0.5)  # into the injected delay of the next decode
+        proc.send_signal(signal.SIGTERM)
+        term_out = proc.communicate(timeout=60)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    term_wall = time.perf_counter() - begin
+    (term_flight,) = term.glob("flight.*.jsonl")
+    term_meta = flight_meta(term_flight)
+    if proc.returncode != -signal.SIGTERM or term_meta["reason"] != "signal:SIGTERM" or \
+            not (term_meta.get("sections") or {}).get("ring_slots") or "sched:task" not in term_meta["open_spans"]:
+        raise AssertionError(f"the SIGTERM worker: rc {proc.returncode}, flight {term_meta['reason']!r}, open spans "
+                             f"{term_meta['open_spans']}, sections {term_meta.get('sections')}\n{term_out[-2000:]}")
+    worker_reports("T", term_out, 1)
+    begin = time.perf_counter()
+    committed = port_launch.run_process_cell_metrics(
+        [str(term / "chunks" / chunks[0].name)], str(term / "proc0"), 1, 0,
+        frozenset(port_gtf.get_mitochondrial_gene_names(str(WORK / "mito.gtf"))), lease_ttl=SCHED_TTL,
+        backoff_base=0.1,
+    )
+    rerun_wall = time.perf_counter() - begin
+    term_audit = obs_cli(base_env, "audit", str(term), "--json")
+    term_fleet = json.loads(term_audit.stdout)["fleet"] if term_audit.returncode == 0 else {}
+    if len(committed) != 1 or not term_fleet.get("exact") or term_fleet["tasks_audited"] != 1 or \
+            term_fleet["records"]["decoded"] != bam_records(chunks[0]):
+        raise AssertionError(f"the SIGTERM rerun: committed {committed}, audit rc {term_audit.returncode} "
+                             f"{term_fleet}{term_audit.stderr}")
+
+    # (h) phase 11's serve journal: EXACT, each pack's routed rows its
+    # emitted rows, and the exporter's per-tenant audit gauges
+    serve_run = WORK / SERVE_AUDIT
+    served = obs_cli(base_env, "audit", str(serve_run), "--json")
+    serve_report = json.loads(served.stdout) if served.returncode == 0 else {"fleet": {}}
+    if served.returncode != 0 or not serve_report["fleet"].get("exact"):
+        raise AssertionError(f"obs audit of phase 11's journal: rc {served.returncode}\n{served.stdout[-3000:]}")
+    journal = port_sched.Journal(str(serve_run / "journal"), worker_id="smoke-probe")
+    try:
+        serve_tasks = journal.replay()[0]
+        segments = {}
+        for event in journal.events():
+            if event.get("event") == "committed":
+                for segment in event.get("pack_execs") or ():
+                    if not segment.get("aborted") and segment.get("ledger") is not None:
+                        segments[segment["exec_id"]] = segment
+    finally:
+        journal.close()
+    packs = [seg for seg in segments.values() if seg.get("rows_routed") is not None]
+    for segment in packs:
+        if sum(segment["rows_routed"]) != segment["ledger"]["rows.emitted"] or \
+                segment["rows_routed"] != segment["rows_claimed"]:
+            raise AssertionError(f"pack {segment['exec_id']}: routed {segment['rows_routed']}, claimed "
+                                 f"{segment['rows_claimed']}, ledger {segment['ledger']}")
+    tenants = sorted({task.payload["tenant"] for task in serve_tasks.values()})
+    body = PulseExporter(run_dir=str(serve_run)).render()
+    missing = [f'sctools_tpu_audit_rows_emitted_total{{tenant="{t}"}}' for t in tenants
+               if f'sctools_tpu_audit_rows_emitted_total{{tenant="{t}"}}' not in body]
+    if not packs or len(serve_report["serve_jobs"]) != len(serve_tasks) or missing or \
+            "sctools_tpu_audit_unexplained_records 0" not in body:
+        raise AssertionError(f"serve audit: {len(packs)} packs, {len(serve_report['serve_jobs'])} jobs of "
+                             f"{len(serve_tasks)}, gauges missing {missing}\n{body[-2000:]}")
+
+    # (i) a lock-witness cycle in a child process: a flight record
+    witness_dir = root / "witness"
+    done = subprocess.run([sys.executable, "-c", CYCLE_CHILD], cwd=REPO, capture_output=True, text=True, timeout=120,
+                          env=dict(base_env, PYTHONPATH=str(REPO), SCTOOLS_TPU_LOCK_DEBUG="1",
+                                   SCTOOLS_TPU_TRACE=str(witness_dir), SCTOOLS_TPU_TRACE_WORKER="cycle"))
+    cycle_meta = flight_meta(witness_dir / "flight.cycle.jsonl") if done.returncode == 0 else {}
+    snapshot = json.loads((witness_dir / "locks.cycle.json").read_text()) if done.returncode == 0 else {}
+    if done.returncode != 0 or cycle_meta.get("reason") != "lock-witness:cycle" or \
+            [v["kind"] for v in snapshot.get("violations", ())] != ["cycle"]:
+        raise AssertionError(f"the witness child: rc {done.returncode}, flight {cycle_meta.get('reason')!r}, "
+                             f"snapshot violations {snapshot.get('violations')}\n{done.stdout}{done.stderr}")
+
+    # (j) what a dump and a ledger add cost on this host
+    port_obs.reset()
+    port_obs.enable()
+    try:
+        for _ in range(FLIGHT_SPANS):
+            with port_obs.span("timing"):
+                pass
+        target = root / "timing.flight.jsonl"
+        begin = time.perf_counter()
+        for _ in range(FLIGHT_DUMPS):
+            port_obs.flight_dump(reason="timing", path=str(target))
+        dump_ms = (time.perf_counter() - begin) / FLIGHT_DUMPS * 1e3
+    finally:
+        port_obs.disable()
+        port_obs.reset()
+    begin = time.perf_counter()
+    for _ in range(AUDIT_ADD_N):
+        port_audit.add("records.decoded", 1, task_id="smoke-timing")
+    add_us = (time.perf_counter() - begin) / AUDIT_ADD_N * 1e6
+    port_audit.discard("smoke-timing")
+    chunk_s = b_end["wall"] / max(b_end["committed"], 1)
+    if dict(kernels.launches) != launches_before:
+        raise AssertionError(f"a hand kernel launched in the audit phase: {kernels.launches}")
+
+    log(f"[audit] {stamp} | crash run: A ({workers['A'][2]}) exit 86 in {workers['A'][3]:.2f} s, B "
+        f"({workers['B'][2]}) exit 0 in {workers['B'][3]:.2f} s, {AUDIT_CRASH} stolen (2 attempts); hand kernel "
+        f"launches 0 in every worker")
+    log(f"[audit] {stamp} | A's flight record {flight_path.name}: {flight_path.stat().st_size} bytes, reason "
+        f"{meta['reason'].rsplit('/', 1)[-1]!r}, open spans {meta['open_spans']}, pulse seq "
+        f"{pulse_section.get('seq')} with {len(pulse_section['recent'])} recent heartbeat(s), ring_slots "
+        f"{[(r.get('phase'), r.get('batches')) for r in rings]}, parallel.sharded_metrics {sharded['dispatches']} "
+        f"dispatch(es); obs timeline and obs efficiency read it (from_flight)")
+    log(f"[audit] {stamp} | obs audit: EXACT, {records['decoded']} records ingested = decoded = computed, "
+        f"{rows['computed']} rows computed = {rows['emitted']} emitted + {rows['filtered']} filtered over "
+        f"{fleet['tasks_audited']} committed tasks; merge {merge_entry['rows_in']} rows in = "
+        f"{merge_entry['rows_out']} out, merged CSV equal to phase 5's byte for byte (decompressed); the "
+        f"fabricated sidecar line: UNBALANCED, exit 1")
+    log(f"[audit] {stamp} | obs explain --job {AUDIT_CRASH}: both attempts, the steal and its part; --barcode "
+        f"{barcode}: {'; '.join(line[3:] for line in want)}")
+    log(f"[audit] {stamp} | SIGTERM: worker T died of the signal (rc {proc.returncode}) after {term_wall:.2f} s with "
+        f"flight record {term_flight.name} (signal:SIGTERM, open spans {term_meta['open_spans']}, ring_slots "
+        f"{[(r.get('phase'), r.get('batches')) for r in term_meta['sections']['ring_slots']]}); the rerun in "
+        f"this process stole and committed its chunk in {rerun_wall:.2f} s, obs audit EXACT")
+    log(f"[audit] {stamp} | phase 11's serve journal: EXACT, {len(serve_report['serve_jobs'])} jobs, "
+        f"{len(packs)} pack(s) with routed rows = emitted rows; the exporter's audit gauges for {tenants}")
+    log(f"[audit] {stamp} | the witness child's ABBA cycle: flight record reason lock-witness:cycle, "
+        f"locks.cycle.json with the cycle violation")
+    log(f"[audit] {stamp} | one flight_dump {dump_ms:.3f} ms ({FLIGHT_SPANS} spans in the ring, fsync included, "
+        f"mean of {FLIGHT_DUMPS}); one audit.add {add_us:.3f} us (mean of {AUDIT_ADD_N}): {AUDIT_TAPS} a chunk batch "
+        f"= {AUDIT_TAPS * add_us:.3f} us against B's {chunk_s:.3f} s a chunk "
+        f"({100 * AUDIT_TAPS * add_us * 1e-6 / chunk_s:.6f}%)")
+    shutil.rmtree(WORK)
+    log(f"[audit] phase 16 took {time.perf_counter() - phase_start:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -3754,6 +4147,9 @@ def main(argv=None) -> int:
     from sctools_tpu_torch.obs import fleet as port_fleet
 
     phase_efficiency(stamp, (kernels, port_obs, port_pulse, port_delta, port_sched, port_fleet), traced)
+    from sctools_tpu_torch.obs import audit as port_audit
+
+    phase_audit(stamp, (kernels, port_obs, port_audit, port_sched, port_launch, port_gtf))
     record = {
         "name": "whitelist_correct",
         "route": "cuda",
@@ -3767,7 +4163,7 @@ def main(argv=None) -> int:
         "verdict": "exact",
         **measured,
     }
-    log(f"[smoke] phases 1-15 took {time.perf_counter() - smoke_start:.1f} s")
+    log(f"[smoke] phases 1-16 took {time.perf_counter() - smoke_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,12 +1,14 @@
 """Static concurrency & death-path analysis (SCX4xx) of the port.
 
 The port's counterpart of ``sctools_tpu.analysis.racecheck``. The port
-holds a handful of named locks (the native and kernel loaders, the
-whitelist table cache, the fault registry, the scheduler journal, the
-frame witness) and three thread entries (the scheduler's and the serve
-worker's lease heartbeats and the prefetch producer). This pass checks
-their invariants over a whole-package model. Every ``.py`` file under the
-given paths is parsed into one model:
+holds a dozen named locks (the native and kernel loaders, the whitelist
+table cache, the fault registry, the scheduler journal, the frame
+witness, the obs ring, sink, pulse, xprof and audit locks, the ingest
+ring's state) and four kinds of thread entry (the scheduler's and the
+serve worker's lease heartbeats, the prefetch producer, the SIGTERM
+flight recorder and the flight-section providers it calls). This pass
+checks their invariants over a whole-package model. Every ``.py`` file
+under the given paths is parsed into one model:
 
 1. a **lock inventory**: module-global, class-instance, and
    function-local locks, created raw (``threading.Lock()``) or named
@@ -14,8 +16,9 @@ given paths is parsed into one model:
    string argument is the lock's stable identity shared with the runtime
    witness);
 2. a **thread-entry inventory**: ``threading.Thread(target=...)``
-   producers, ``threading.Timer`` callbacks and ``signal.signal``
-   handlers;
+   producers, ``threading.Timer`` callbacks, ``signal.signal``
+   handlers, and flight-section providers
+   (``obs.register_flight_section`` / ``obs.bounded_snapshot``);
 3. an **interprocedural call graph** (name-based, best effort — see
    `Model limits` below) over which per-function *locksets* and a
    global lock **acquisition-order graph** are computed.
@@ -28,9 +31,10 @@ Rules:
   (``acquire(timeout=...)``) cannot deadlock permanently and are
   excluded from cycle detection (but kept in the emitted graph).
 - **SCX402 blocking-lock-on-death-path** — a function reachable from a
-  signal handler takes a blocking ``with lock:`` / ``lock.acquire()``.
-  The signal may have interrupted the holder of that very lock on the
-  same thread; use a bounded acquire.
+  signal handler, ``flight_dump``, or a flight-section provider takes a
+  blocking ``with lock:`` / ``lock.acquire()``. The signal may have
+  interrupted the holder of that very lock on the same thread; use a
+  bounded acquire or ``obs.bounded_snapshot``.
 - **SCX403 unlocked-cross-thread-write** — a mutable module-global is
   written from >= 2 distinct entry roots (main + a thread/timer/signal
   entry) with no common lock held across the write sites. Heuristic by
@@ -43,11 +47,10 @@ Rules:
   abandonment; bound the wait and leave a counter, as
   ``utils/prefetch.py`` does.
 
-The JAX package's pass models more death roots than this one: its
-flight recorder (``obs.flight_dump``), the flight-section providers it
-calls (``obs.register_flight_section``, ``obs.bounded_snapshot``) and a
-SIGTERM handler. The port has none of them, so its death roots are
-``signal.signal`` handlers only, and on the port's tree there are none.
+The death roots are JAX's: every ``signal.signal`` handler (the SIGTERM
+flight recorder), ``obs.flight_dump`` itself, and every registered
+flight-section provider as its callee (the registry is global, so each
+provider is modelled as called by every ``flight_dump``).
 
 Model limits (documented, deliberate): calls are resolved by name
 through package-internal imports, ``self.method``, and module-level
@@ -117,6 +120,14 @@ _MUTABLE_CTORS = frozenset(
     ("dict", "list", "set", "deque", "defaultdict", "OrderedDict", "Counter")
 )
 
+# dynamic dispatch the model cannot see but the runtime provably does:
+# obs.flight_dump reaches the xprof registry via sys.modules (a lazy
+# lookup so obs stays importable without xprof). Without this edge the
+# static graph would under-approximate the witness's observed edges.
+_KNOWN_DYNAMIC_CALLS = (
+    (".obs.flight_dump", (".obs.xprof.snapshot", ".obs.xprof.has_data")),
+)
+
 
 # --------------------------------------------------------------- records
 
@@ -168,6 +179,7 @@ class FuncInfo:
     line: int
     cls: Optional[str] = None
     parent: Optional[str] = None  # enclosing function qual (closures)
+    synthetic: bool = False  # bounded_snapshot provider model
     acqs: List[Acq] = field(default_factory=list)
     calls: List[CallSite] = field(default_factory=list)
     writes: List[Write] = field(default_factory=list)
@@ -193,13 +205,14 @@ class ModuleInfo:
     global_vars: Set[str] = field(default_factory=set)
     mutable_globals: Set[str] = field(default_factory=set)
     safe_globals: Set[str] = field(default_factory=set)
+    provider_vars: Dict[str, str] = field(default_factory=dict)  # var -> synth
     def_index: Dict[str, List[str]] = field(default_factory=dict)
     functions: List[FuncInfo] = field(default_factory=list)
 
 
 @dataclass
 class Registration:
-    kind: str  # "thread" | "timer" | "signal"
+    kind: str  # "thread" | "timer" | "signal" | "provider"
     targets: Tuple[str, ...]
     path: str
     line: int
@@ -396,6 +409,8 @@ def _local_binds(node: ast.AST) -> Set[str]:
 class _Analyzer:
     def __init__(self) -> None:
         self.model = RaceModel()
+        # synthetic counter for bounded_snapshot providers
+        self._synth = 0
 
     # ---------------------------------------------------------- phase A
 
@@ -483,6 +498,11 @@ class _Analyzer:
                             "path": mod.path, "line": stmt.lineno,
                         }
                         continue
+                    if _terminal_name(value.func) == "bounded_snapshot":
+                        synth = self._make_snapshot_provider(mod, value)
+                        if synth is not None:
+                            mod.provider_vars[var] = synth
+                        continue
                     terminal = _ctor_terminal(mod, value)
                     if terminal in _THREAD_SAFE_CTORS:
                         mod.safe_globals.add(var)
@@ -501,6 +521,57 @@ class _Analyzer:
                             ast.ListComp, ast.SetComp)
                 ):
                     mod.mutable_globals.add(var)
+
+    def _make_snapshot_provider(
+        self, mod: ModuleInfo, call: ast.Call
+    ) -> Optional[str]:
+        """Model one ``obs.bounded_snapshot(lock, fn, default)`` call.
+
+        The returned provider bounded-acquires ``lock`` and calls ``fn``
+        — exactly the sanctioned death-path shape, so the synthetic
+        function it becomes carries a bounded acquisition (never an
+        SCX402) and is itself a death root.
+        """
+        if len(call.args) < 2:
+            return None
+        self._synth += 1
+        qual = f"{mod.name}.<bounded_snapshot@{call.lineno}>"
+        info = FuncInfo(
+            qual=qual, module=mod.name, path=mod.path,
+            name="<bounded_snapshot>", line=call.lineno, synthetic=True,
+        )
+        lock_id = self._resolve_lock_expr(mod, call.args[0], info, None)
+        if lock_id is not None:
+            info.acqs.append(
+                Acq(
+                    lock_id=lock_id, path=mod.path, line=call.lineno,
+                    end_line=getattr(call, "end_lineno", call.lineno)
+                    or call.lineno,
+                    bounded=True, held=(),
+                )
+            )
+        fn = call.args[1]
+        targets: Tuple[str, ...] = ()
+        if isinstance(fn, ast.Lambda):
+            inner: List[str] = []
+            for sub in ast.walk(fn.body):
+                if isinstance(sub, ast.Call):
+                    inner.extend(self._resolve_call(mod, sub.func, None))
+            targets = tuple(inner)
+        else:
+            targets = self._resolve_call(mod, fn, None)
+        if targets:
+            info.calls.append(
+                CallSite(
+                    targets=targets, path=mod.path, line=call.lineno,
+                    held=(lock_id,) if lock_id else (), in_finally=False,
+                )
+            )
+        self.model.functions[qual] = info
+        self.model.registrations.append(
+            Registration("provider", (qual,), mod.path, call.lineno)
+        )
+        return qual
 
     def _index_functions(self, mod: ModuleInfo) -> None:
         def index(node, prefix: str, cls: Optional[str], parent: Optional[str]):
@@ -577,6 +648,8 @@ class _Analyzer:
                 qual = f"{fmod}.{attr}"
                 if qual in self.model.functions:
                     return (qual,)
+            if name in mod.provider_vars:
+                return (mod.provider_vars[name],)
             return ()
         if isinstance(func, ast.Attribute):
             root, chain = _root_chain(func)
@@ -592,6 +665,11 @@ class _Analyzer:
                 qual = ".".join([base] + chain)
                 if qual in self.model.functions:
                     return (qual,)
+                # provider var in another module (degrade.degraded_sites)
+                if len(chain) == 1:
+                    other = self.model.modules.get(base)
+                    if other is not None and chain[0] in other.provider_vars:
+                        return (other.provider_vars[chain[0]],)
         return ()
 
     def _resolve_lock_expr(
@@ -821,7 +899,7 @@ class _Analyzer:
             return  # module-level init is single-threaded import time
         if var not in mod.global_vars or var in mod.safe_globals:
             return
-        if var in mod.global_locks:
+        if var in mod.global_locks or var in mod.provider_vars:
             return
         info.writes.append(
             Write(
@@ -871,6 +949,18 @@ class _Analyzer:
         # lock constructor: a declaration, not a call edge
         if _lock_ctor(mod, node) is not None:
             return
+        # bounded_snapshot used inline (not assigned): still modeled
+        if terminal == "bounded_snapshot":
+            # assignment-form snapshots were modeled in phase A; an
+            # inline form (argument position) gets modeled here
+            already = any(
+                reg.kind == "provider" and reg.line == node.lineno
+                and reg.path == mod.path
+                for reg in self.model.registrations
+            )
+            if not already:
+                self._make_snapshot_provider(mod, node)
+            return
         # registrations ---------------------------------------------------
         if terminal in ("Thread", "Timer"):
             root, chain = _root_chain(func)
@@ -914,6 +1004,13 @@ class _Analyzer:
                         Registration("signal", targets, mod.path, node.lineno)
                     )
                 return
+        if terminal == "register_flight_section" and len(node.args) >= 2:
+            targets = self._resolve_call(mod, node.args[1], info.cls)
+            if targets:
+                self.model.registrations.append(
+                    Registration("provider", targets, mod.path, node.lineno)
+                )
+            return
         # lock.acquire() --------------------------------------------------
         if terminal == "acquire" and isinstance(func, ast.Attribute):
             lock_id = self._resolve_lock_expr(mod, func.value, info, info.cls)
@@ -999,15 +1096,66 @@ class _Analyzer:
                     held=held, in_finally=in_finally,
                 )
             )
+            # `with obs.span(...)` and friends: the span records (and
+            # takes the obs ring lock) at __exit__, which the call graph
+            # cannot see through the context-manager protocol — model it
+            # as a call to the module's _record_span
+            for qual in targets:
+                if qual.endswith(".span"):
+                    record = qual.rsplit(".", 1)[0] + "._record_span"
+                    if record in self.model.functions:
+                        info.calls.append(
+                            CallSite(
+                                targets=(record,), path=mod.path,
+                                line=node.lineno, held=held,
+                                in_finally=in_finally,
+                            )
+                        )
 
     # ---------------------------------------------------------- phase C
 
     def finish(self) -> None:
+        self._add_dynamic_calls()
         self._build_edges()
         self._check_cycles()
         self._check_death_paths()
         self._check_cross_thread_writes()
         self._check_teardown_waits()
+
+    def _add_dynamic_calls(self) -> None:
+        funcs = self.model.functions
+        for suffix, callee_suffixes in _KNOWN_DYNAMIC_CALLS:
+            callers = [q for q in funcs if q.endswith(suffix)]
+            for caller in callers:
+                info = funcs[caller]
+                for callee_suffix in callee_suffixes:
+                    for qual in funcs:
+                        if qual.endswith(callee_suffix):
+                            info.calls.append(
+                                CallSite(
+                                    targets=(qual,), path=info.path,
+                                    line=info.line, held=(),
+                                    in_finally=False,
+                                )
+                            )
+        # flight_dump iterates the registered providers: every provider
+        # is a callee of every flight_dump (the registry is global)
+        providers: List[str] = []
+        for reg in self.model.registrations:
+            if reg.kind == "provider":
+                providers.extend(reg.targets)
+        if providers:
+            for qual, info in funcs.items():
+                if qual.endswith(".flight_dump") or (
+                    info.name == "flight_dump" and not info.synthetic
+                ):
+                    info.calls.append(
+                        CallSite(
+                            targets=tuple(sorted(set(providers))),
+                            path=info.path, line=info.line, held=(),
+                            in_finally=False,
+                        )
+                    )
 
     def _acq_closures(self) -> Dict[str, Set[Tuple[str, bool]]]:
         funcs = self.model.functions
@@ -1140,8 +1288,11 @@ class _Analyzer:
     def _death_roots(self) -> Set[str]:
         roots: Set[str] = set()
         for reg in self.model.registrations:
-            if reg.kind == "signal":
+            if reg.kind in ("signal", "provider"):
                 roots.update(reg.targets)
+        for qual, info in self.model.functions.items():
+            if info.name == "flight_dump" or qual.endswith(".flight_dump"):
+                roots.add(qual)
         return roots
 
     def _reachable(self, roots: Set[str]) -> Set[str]:
@@ -1168,7 +1319,7 @@ class _Analyzer:
         reported: Set[Tuple[str, int]] = set()
         for qual in sorted(reachable):
             info = self.model.functions.get(qual)
-            if info is None:
+            if info is None or info.synthetic:
                 continue
             for acq in info.acqs:
                 if acq.bounded:
@@ -1181,10 +1332,11 @@ class _Analyzer:
                         "SCX402", acq.path, acq.line,
                         f"blocking acquire of `{acq.lock_id}` in "
                         f"`{qual}`, which is reachable from a signal "
-                        "handler: the signal may have interrupted this "
-                        "very lock's holder on the same thread, "
-                        "deadlocking the death path — use a bounded "
-                        "acquire (timeout=...)",
+                        "handler / flight-record provider: the signal may "
+                        "have interrupted this very lock's holder on the "
+                        "same thread, deadlocking the death path — use a "
+                        "bounded acquire (timeout=...) or "
+                        "obs.bounded_snapshot",
                         acq.end_line,
                     )
                 )
@@ -1208,6 +1360,8 @@ class _Analyzer:
             for call in info.calls:
                 called.update(call.targets)
         for qual, info in funcs.items():
+            if info.synthetic:
+                continue
             if qual not in called and qual not in entry_targets:
                 roots[qual].add("main")
             if info.name == "<module>":

@@ -22,7 +22,7 @@ With ``SCTOOLS_TPU_LOCK_DEBUG=1`` each factory returns a
   graph);
 - a **cycle check**: a BLOCKING edge that closes a cycle of blocking
   edges in the observed graph is a real ABBA interleaving — recorded as
-  a violation, announced on stderr, and dumped at once (see below);
+  a violation, announced on stderr, and flight-dumped at once (see below);
 - a **static-graph check**: when ``SCTOOLS_TPU_LOCK_GRAPH`` points at a
   graph emitted by ``python -m sctools_tpu_torch.analysis
   --emit-lock-graph``, any observed BLOCKING edge missing from the static
@@ -31,7 +31,7 @@ With ``SCTOOLS_TPU_LOCK_DEBUG=1`` each factory returns a
   static SCX401 semantics: they cannot deadlock permanently;
 - a **stall check**: a blocking acquire that waits longer than
   ``SCTOOLS_TPU_LOCK_DEBUG_STALL_S`` (default 30) records a violation
-  and dumps before continuing to wait, so a real deadlock leaves a
+  and flight-dumps before continuing to wait, so a real deadlock leaves a
   diagnosis instead of a hung process.
 
 The dump is ``$SCTOOLS_TPU_TRACE/locks.<worker>.json``, where the
@@ -39,9 +39,12 @@ directory and ``<worker>`` are :func:`sctools_tpu_torch.obs.configured_trace_dir
 and :func:`~sctools_tpu_torch.obs.configured_worker_name` (the scheduler's
 worker id, else ``SCTOOLS_TPU_TRACE_WORKER``, else ``<hostname>-<pid>``):
 ``{"edges": [...], "violations": [...], "acquires": {...}, ...}``. It is
-written at interpreter exit (when ``SCTOOLS_TPU_TRACE`` is set) and at
-once on a cycle or a stall: the port has no flight recorder yet, which is
-where the JAX package's witness sends those two.
+written at interpreter exit (when ``SCTOOLS_TPU_TRACE`` is set). A cycle
+or a stall persists its postmortem at once, as a flight record
+(``obs.flight_dump(reason="lock-witness:<kind>")``: the span ring, the
+open spans and the registered sections of a process that may be about to
+deadlock); the dump's own acquisitions are witnessed too, and a
+thread-local guard stops a violation found there from recursing.
 
 Like the rest of the analysis package this module is pure stdlib.
 """
@@ -98,10 +101,11 @@ def stall_seconds() -> float:
 
 # witness bookkeeping state. _meta is a RAW lock (never witnessed, held
 # only for dict/set updates, never while acquiring a witnessed lock or
-# writing a dump) so the witness itself cannot deadlock the code it
-# observes. The WRITE paths (_record_acquired/_record_violation) take
-# _meta with a bounded acquire and drop the record on timeout, as the
-# JAX package's witness does.
+# firing a flight dump) so the witness itself cannot deadlock the code it
+# observes. The WRITE paths (_record_acquired/_record_violation, which a
+# signal handler's flight dump re-enters through its bounded WitnessLock
+# acquires) take _meta with a bounded acquire and drop the record on
+# timeout, as the JAX package's witness does.
 _meta = threading.Lock()
 _META_TIMEOUT_S = 1.0
 _edges: Dict[Tuple[str, str], Dict[str, Any]] = {}
@@ -193,11 +197,20 @@ def _record_violation(kind: str, detail: Dict[str, Any]) -> None:
         pass
     if kind in ("cycle", "stall"):
         # a real inversion or a wedged blocking acquire: persist the
-        # snapshot NOW (the process may be about to deadlock)
+        # postmortem NOW (the process may be about to deadlock). The
+        # flight dump's own acquisitions are re-witnessed; the guard
+        # below stops a violation found there from recursing.
+        if getattr(_tls, "announcing", False):
+            return
+        _tls.announcing = True
         try:
-            dump()
+            from .. import obs
+
+            obs.flight_dump(reason=f"lock-witness:{kind}")
         except Exception:  # noqa: BLE001 - diagnosis must never be fatal
             pass
+        finally:
+            _tls.announcing = False
 
 
 def _record_acquired(proxy: "WitnessLock", bounded: bool) -> None:
@@ -295,7 +308,7 @@ class WitnessLock:
     Same acquire/release/context-manager surface as the wrapped lock;
     every successful acquisition records order edges against the locks
     the thread already holds. Blocking acquires probe with a bounded
-    wait first so a wedged lock is diagnosed (violation + dump) instead
+    wait first so a wedged lock is diagnosed (violation + flight dump) instead
     of silently hanging.
     """
 
@@ -316,8 +329,8 @@ class WitnessLock:
             bounded = True
         else:
             # bounded probe first: a wait past the stall threshold is a
-            # diagnosable event, not a silent hang — record it, dump, THEN
-            # block for real (semantics unchanged)
+            # diagnosable event, not a silent hang — record it, dump a
+            # flight record, THEN block for real (semantics unchanged)
             got = self._inner.acquire(True, stall_seconds())
             if not got:
                 _record_violation(

@@ -36,12 +36,15 @@ back to batch positions, accumulate as above.
 Each device batch is one pulse heartbeat on stage ``count`` (``count.sharded``
 with a mesh), as in JAX: its h2d leg is the host packing of its block,
 its compute leg the upload, pass and queued pull (``dispatch``), its d2h
-leg the wait on the pull. Not ported: the accumulator's one-batch
-``add_batch`` (the streaming loop queues and finishes each batch itself
-through ``dispatch`` and ``finish``), the guard ladder (a failed batch
-fails the command), and the JAX package's dispatch records and audit
-counters. A matrix built by the device backend also keeps plain records:
-``batches`` and ``seconds``.
+leg the wait on the pull. The audit ledger (``obs.audit``) counts each
+ring frame's records as ``records.decoded`` and each batch's as
+``records.computed`` once its pass (either route) has been issued without
+error; a carried tail counts once, in the batch that dispatches it. JAX
+counts ``records.computed`` in its guard ladder. Not ported: the
+accumulator's one-batch ``add_batch`` (the streaming loop queues and
+finishes each batch itself through ``dispatch`` and ``finish``) and the
+guard ladder (a failed batch fails the command). A matrix built by the
+device backend also keeps plain records: ``batches`` and ``seconds``.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ import torch
 
 from . import consts, ingest
 from .bam import get_tag_or_default
-from .obs import pulse, xprof
+from .obs import audit, pulse, xprof
 from .device import DeviceLike, resolve
 from .io.packed import (
     IRREGULAR_BARCODE_BASE,
@@ -426,6 +429,8 @@ class CountMatrix:
                 pulled = dispatch_sharded_count(stacked, orig, mesh)
             hb.end("compute")
             seconds["dispatch"] += time.perf_counter() - start
+            # conservation ledger: the batch's pass was issued without error
+            audit.add("records.computed", int(batch_frame.n_records))
             hb.add(real_rows=batch_frame.n_records, padded_rows=padded, bytes_h2d=h2d_bytes)
             batch = dict(records=batch_frame.n_records, padded=padded, h2d_bytes=h2d_bytes)
             batches.append(batch)
@@ -453,6 +458,11 @@ class CountMatrix:
                 seconds["decode_wait"] += time.perf_counter() - start
                 if decoded is None:
                     return
+                # conservation ledger: each ring frame enters the counting
+                # path exactly once here (carry/slice below conserve), so
+                # the audit balances decoded == computed + quarantined;
+                # int() detaches the count from the frame
+                audit.add("records.decoded", int(decoded.n_records))
                 yield decoded
 
         ring_stats: Dict[str, float] = {}

@@ -4,8 +4,9 @@ The port's copy of the part of ``sctools_tpu.guard.quarantine`` that the
 scheduler calls (guard/quarantine.py:140-168). The JAX guard appends one
 JSONL line per isolated poison-record range to a per-worker
 ``records-<worker>.jsonl`` under the run's quarantine directory (by
-convention ``<journal_dir>/quarantine/``); ``sched status`` reads them with
-:func:`load_quarantine`. The writer, ``record_quarantine``, and the
+convention ``<journal_dir>/quarantine/``); ``sched status`` and ``obs
+audit`` (which holds each range against the ledger's
+``records.quarantined``) read them with :func:`load_quarantine`. The writer, ``record_quarantine``, and the
 directory's setting (``set_quarantine_dir``, ``quarantine_dir``,
 ``SCTOOLS_TPU_GUARD_QUARANTINE``) are not ported: only the guard's
 recovery ladder, which the port does not have, writes sidecars.

@@ -19,8 +19,8 @@ depth and, through ``ring_slots``, the slot count (depth + 3).
 
 The JAX package's ``WritebackRing`` (ingest/wire.py) is not ported as a
 module: its asynchronous device-to-host copy is ``pull``'s pinned block and
-CUDA event, and its slot states fed the JAX flight recorder, which the port
-does not carry.
+CUDA event, so the flight records carry no ``writeback_slots`` section (the
+arena ring's ``ring_slots`` is ``.ring``'s).
 """
 
 from __future__ import annotations

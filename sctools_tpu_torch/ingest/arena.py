@@ -90,8 +90,10 @@ class ColumnArena:
         self.nbytes = arena_nbytes(capacity)  # validates the capacity
         self.buf = np.empty(self.nbytes, dtype=np.uint8)
         # ``generation`` counts reclaims; ``slot`` is the ring's index of
-        # this arena (the witness's label)
+        # this arena (the witness's label); ``poisoned`` marks a refill
+        # window under the witness (both read by the ring's flight section)
         self.generation = 0
+        self.poisoned = False
         self.slot: Optional[int] = None
         # the witness mode is read once, here, not once a batch
         self._debug = framedebug.enabled()
@@ -116,6 +118,7 @@ class ColumnArena:
         self.generation += 1
         if self._debug:
             self.buf[:] = framedebug.POISON_BYTE
+            self.poisoned = True
 
     def fill(self, stream) -> int:
         """Write ``stream``'s current batch into this arena; returns its
@@ -123,7 +126,9 @@ class ColumnArena:
         ``next()`` decoded a batch. A refill is a recycle: the slot is
         reclaimed first."""
         self.reclaim()
-        return stream.fill_arena(self.buf, self.capacity)
+        n = stream.fill_arena(self.buf, self.capacity)
+        self.poisoned = False
+        return n
 
     def pad_in_place(self, n: int, padded: int) -> None:
         """Fill rows [n:padded) of every section with its PAD_FILLS sentinel

@@ -39,7 +39,11 @@ the producer's thread (the terminating poll one with ``eof=1``), its wall
 interval a ``pulse.note_decode`` that the consuming batch's heartbeat
 adopts, and each arena batch counts ``ingest_arena_batches``; the Python
 decoder and a ``source`` go through ``obs.iter_spans`` and
-``pulse.iter_decode`` instead.
+``pulse.iter_decode`` instead. Every frame handed off adds its records to
+the audit ledger's ``records.ingested`` (``audited=False`` keeps an inner
+ring that feeds another one off it), and the arena ring's live slot state
+is the ``ring_slots`` flight section: a crash or SIGTERM postmortem shows
+which slot was filling and how far each slot rotated.
 """
 
 from __future__ import annotations
@@ -49,14 +53,44 @@ import time
 from typing import Dict, Iterable, Iterator, Optional
 
 from .. import obs
+from ..analysis.witness import make_lock
 from ..io import bgzf
 from ..io.packed import DEFAULT_TAG_KEYS, ReadFrame, _python_frames
-from ..obs import pulse
+from ..obs import audit, pulse
+from ..sched import faults
 from ..utils.prefetch import prefetch_depth, prefetch_iterator
 from .arena import ColumnArena, arena_capacity
 
 # frames the consumer may hold: the current one and one look-ahead
 _CONSUMER_SLOTS = 2
+
+# live ring state for flight records: ring id -> {slot, batches, phase, ...},
+# updated by the producer (dict stores under one lock) and read through the
+# obs flight-section registry
+_state_lock = make_lock("ingest.ring_state")
+_ring_state: dict = {}
+_ring_ids = itertools.count()
+
+# death-path safe (obs.bounded_snapshot): the dump may run inside a signal
+# handler that interrupted a _set_ring_state holder on this very thread (the
+# head probe fills on the consumer's thread)
+_ring_snapshot = obs.bounded_snapshot(
+    _state_lock,
+    lambda: [dict(v, ring=k) for k, v in sorted(_ring_state.items())],
+    [],
+)
+
+obs.register_flight_section("ring_slots", _ring_snapshot)
+
+
+def _set_ring_state(ring_id: int, **fields) -> None:
+    with _state_lock:
+        _ring_state.setdefault(ring_id, {}).update(fields)
+
+
+def _drop_ring_state(ring_id: int) -> None:
+    with _state_lock:
+        _ring_state.pop(ring_id, None)
 
 
 class NativeDecodeError(RuntimeError):
@@ -83,10 +117,13 @@ def _new_stats(stats: Optional[Dict[str, float]]) -> Dict[str, float]:
     return stats
 
 
-def _timed_source(source: Iterable[ReadFrame], stats: Dict[str, float]) -> Iterator[ReadFrame]:
+def _timed_source(
+    source: Iterable[ReadFrame], stats: Dict[str, float], audited: bool = True
+) -> Iterator[ReadFrame]:
     """``source``'s frames, each ``next()`` timed on the thread that runs
-    it (a ``decode`` span and a pulse decode note when those are on);
-    closing this generator closes the source."""
+    it (a ``decode`` span and a pulse decode note when those are on) and,
+    when ``audited``, added to ``records.ingested``; closing this generator
+    closes the source."""
     iterator = iter(pulse.iter_decode(obs.iter_spans("decode", source, records=lambda f: f.n_records)))
     try:
         while True:
@@ -96,6 +133,8 @@ def _timed_source(source: Iterable[ReadFrame], stats: Dict[str, float]) -> Itera
                 return
             stats["decode"] += time.perf_counter() - start
             stats["batches"] += 1
+            if audited:
+                audit.add("records.ingested", frame.n_records)
             yield frame
     finally:
         close = getattr(iterator, "close", None)
@@ -104,29 +143,51 @@ def _timed_source(source: Iterable[ReadFrame], stats: Dict[str, float]) -> Itera
 
 
 def _produce_arena_frames(
-    stream, arenas, batch_records: int, want_qname: bool, stats: Dict[str, float]
+    stream, arenas, batch_records: int, want_qname: bool, stats: Dict[str, float],
+    audited: bool = True,
 ) -> Iterator[ReadFrame]:
     """Decode batch after batch, each into the next arena of the ring.
 
     Runs on the producer thread (the first batch on the consumer's, as the
     ring's head probe). A native failure raises NativeDecodeError with the
     batch index and the records yielded before it. Closes ``stream`` at the
-    end, on a failure and when closed.
+    end, on a failure and when closed. The ring's slot state is kept for
+    the ``ring_slots`` flight section while it runs.
     """
     n_slots = len(arenas)
+    ring_id = next(_ring_ids)
     for index, arena in enumerate(arenas):
         arena.slot = index
+    _set_ring_state(ring_id, slots=n_slots, batches=0, phase="starting")
     consumed = 0
+
+    def _slot_state():
+        # how far each slot rotated, and whether a FRAME_DEBUG run died
+        # inside a poisoned refill window
+        return {
+            "generations": [a.generation for a in arenas],
+            "poisoned": [a.poisoned for a in arenas],
+        }
+
     try:
         for k in itertools.count():
             arena = arenas[k % n_slots]
+            _set_ring_state(
+                ring_id, slot=k % n_slots, batches=k, phase="filling",
+                record_offset=consumed, **_slot_state(),
+            )
             start = time.perf_counter()
             decode_start = pulse.clock() if pulse.enabled() else 0.0
             with obs.span("decode", slot=k % n_slots) as sp:
+                # the fault site inside the timed decode window, as in JAX: a
+                # delay here is the decode leg's, and a postmortem taken in it
+                # finds the ring filling
+                faults.fire("ingest.decode", name=str(k))
                 try:
                     n = stream.next(batch_records)
                     if n == 0:
                         sp.add(eof=1)  # the terminating poll, not a batch
+                        _set_ring_state(ring_id, phase="eof")
                         return
                     arena.fill(stream)
                     frame = arena.frame(
@@ -138,19 +199,26 @@ def _produce_arena_frames(
                         batch_index=k,
                     )
                 except RuntimeError as error:
+                    _set_ring_state(ring_id, phase="failed")
                     raise NativeDecodeError(str(error), batch_index=k, record_offset=consumed) from error
                 sp.add(records=n)
             stats["decode"] += time.perf_counter() - start
             stats["batches"] += 1
+            # the records the ring hands off: the consumer's records.decoded
+            # must match exactly (a dropped or duplicated frame is audit skew)
+            if audited:
+                audit.add("records.ingested", n)
             if pulse.enabled():
                 # the heartbeat of the batch that consumes this frame adopts
                 # the interval (pulse.Heartbeat.decode_from_ring)
                 pulse.note_decode(decode_start, pulse.clock(), slot=k % n_slots)
             obs.count("ingest_arena_batches")
+            _set_ring_state(ring_id, phase="queued", **_slot_state())
             consumed += n
             yield frame
     finally:
         stream.close()
+        _drop_ring_state(ring_id)
 
 
 def ring_frames(
@@ -160,6 +228,7 @@ def ring_frames(
     tag_keys: Optional[tuple] = None,
     source: Optional[Iterable[ReadFrame]] = None,
     stats: Optional[Dict[str, float]] = None,
+    audited: bool = True,
 ) -> Iterator[ReadFrame]:
     """ReadFrames of ``bam_path`` (or of ``source``) through the ring.
 
@@ -175,6 +244,10 @@ def ring_frames(
     (``decode``, timed on its thread) and the frames it made (``batches``).
     Nothing is opened until the first ``next()``; a failed build of the
     native layer raises.
+
+    ``audited=False`` keeps this ring's frames off the audit ledger's
+    ``records.ingested``: pass it when the frames feed another ring, so
+    the handoff to the consumer is counted once, at the outer ring.
     """
     if source is not None and bam_path is not None:
         raise ValueError("pass bam_path or source, not both")
@@ -185,14 +258,14 @@ def ring_frames(
     depth = prefetch_depth()
     stats = _new_stats(stats)
     if source is not None:
-        return prefetch_iterator(_timed_source(source, stats), depth)
+        return prefetch_iterator(_timed_source(source, stats, audited), depth)
     keys = tuple(tag_keys) if tag_keys is not None else DEFAULT_TAG_KEYS
-    return _ring(bam_path, batch_records, want_qname, keys, depth, stats)
+    return _ring(bam_path, batch_records, want_qname, keys, depth, stats, audited)
 
 
-def _ring(bam_path, batch_records, want_qname, keys, depth, stats) -> Iterator[ReadFrame]:
+def _ring(bam_path, batch_records, want_qname, keys, depth, stats, audited) -> Iterator[ReadFrame]:
     def python_frames():
-        return _timed_source(_python_frames(bam_path, batch_records, keys), stats)
+        return _timed_source(_python_frames(bam_path, batch_records, keys), stats, audited)
 
     if keys != DEFAULT_TAG_KEYS or not bgzf.is_gzip(bam_path):
         yield from prefetch_iterator(python_frames(), depth)
@@ -207,7 +280,7 @@ def _ring(bam_path, batch_records, want_qname, keys, depth, stats) -> Iterator[R
     first = None
     if stream is not None:
         arenas = [ColumnArena(arena_capacity(batch_records)) for _ in range(ring_slots(depth))]
-        produced = _produce_arena_frames(stream, arenas, batch_records, want_qname, stats)
+        produced = _produce_arena_frames(stream, arenas, batch_records, want_qname, stats, audited)
         # the head probe, on this thread: a native failure before the first
         # batch (a malformed BGZF container, gzip that is not BGZF) decodes
         # the file with the Python reader instead, which gives its records

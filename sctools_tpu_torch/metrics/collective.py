@@ -27,8 +27,12 @@ One difference from the JAX package: a gene whose name reads as NA
 (``None``, which the gatherer writes for records without GE) makes JAX's
 vocabulary sort raise ``TypeError``; here it joins no count slot and the
 fold drops it, as ``MergeGeneMetrics`` does. The ``merge:collective`` and
-``distributed:merge_parts`` spans are JAX's. Not ported: the merges' audit
-records.
+``distributed:merge_parts`` spans are JAX's, and so are the merges' audit
+records (``obs.audit.record_merge``, ``.audit`` on the two classes): the
+gene merge counts its collisions as the file-level fold does, ``before -
+after`` of each pair merge, so a dropped NA row is one of its
+``merged:collision`` and ``rows_in == rows_out + merged:collision`` still
+holds; the part merge is fold-free, ``rows_in == rows_out``.
 
 ``collective_merge_parts`` (metrics/collective.py:288-450) is the
 gatherer-part merge of ``parallel.launch.merge_sorted_csv_parts`` with the
@@ -48,7 +52,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import ingest, obs
-from ..obs import xprof
+from ..obs import audit, xprof
 from ..ops import segments as seg
 from ..parallel import collective
 from ..parallel.mesh import Mesh, make_mesh
@@ -281,6 +285,13 @@ def collective_merge_parts(
             for name, part_index, row_index in order:
                 out.write(f"{name},{rendered[part_index][row_index]}\n")
         merge_span.add(records=len(order))
+    # merge accounting: the collective part merge is fold-free by
+    # construction (parts hold disjoint entities), so rows_in must equal
+    # rows_out — any skew is loss, not a collision
+    audit.record_merge(
+        journal_dir, "collective_merge_parts", output_path,
+        len(paths), sum(len(names) for names in part_names), len(order),
+    )
     return len(order)
 
 
@@ -322,15 +333,24 @@ class CollectiveMergeCellMetrics(MergeMetrics):
     """``MergeCellMetrics`` with the concatenation's data plane on the mesh:
     cells are disjoint across inputs, so the merge is the gather."""
 
-    def __init__(self, metric_files, output_file: str, mesh: Optional[Mesh] = None):
-        super().__init__(metric_files, output_file)
+    def __init__(
+        self, metric_files, output_file: str, mesh: Optional[Mesh] = None,
+        journal_dir: Optional[str] = None,
+    ):
+        super().__init__(metric_files, output_file, journal_dir=journal_dir)
         self._mesh = mesh
 
     def execute(self) -> None:
         tables, names = _unified_tables(self._metric_files)
         mesh = _merge_mesh(self._mesh)
         gathered, _ = _device_gather_parts(mesh, [[c.values for c in t.columns] for t in tables])
-        _Table.concat(_rebuilt(tables, names, gathered)).write(self._output_file)
+        merged = _Table.concat(_rebuilt(tables, names, gathered))
+        merged.write(self._output_file)
+        self._record_audit(
+            "collective_merge_cell_metrics",
+            rows_in=sum(len(table) for table in tables),
+            rows_out=len(merged),
+        )
 
 
 class CollectiveMergeGeneMetrics(MergeMetrics):
@@ -340,8 +360,11 @@ class CollectiveMergeGeneMetrics(MergeMetrics):
     the read-weighted moments and ratios come from the host fold over the
     gathered rows, whose count sums must equal the device's."""
 
-    def __init__(self, metric_files, output_file: str, mesh: Optional[Mesh] = None):
-        super().__init__(metric_files, output_file)
+    def __init__(
+        self, metric_files, output_file: str, mesh: Optional[Mesh] = None,
+        journal_dir: Optional[str] = None,
+    ):
+        super().__init__(metric_files, output_file, journal_dir=journal_dir)
         self._mesh = mesh
 
     def execute(self) -> None:
@@ -378,8 +401,13 @@ class CollectiveMergeGeneMetrics(MergeMetrics):
         )
         rebuilt = _rebuilt(tables, names, gathered)
         nucleus = rebuilt[0]
+        collisions = 0
         for leaf in rebuilt[1:]:
+            before = len(nucleus) + len(leaf)
             nucleus = legacy._merge_pair(nucleus, leaf)
+            # the file-level fold's telescoped collision count: gene rows
+            # present on both sides combine into one, an NA row drops
+            collisions += before - len(nucleus)
         if count_columns:
             named = [i for i, name in enumerate(nucleus.index) if name is not None]
             at = np.asarray([slot[nucleus.index[i]] for i in named], dtype=np.int64)
@@ -395,3 +423,9 @@ class CollectiveMergeGeneMetrics(MergeMetrics):
                 values[named] = device_sums
                 nucleus.columns[nucleus.names.index(column)] = _Column("i", values)
         nucleus.write(self._output_file)
+        self._record_audit(
+            "collective_merge_gene_metrics",
+            rows_in=sum(len(table) for table in tables),
+            rows_out=len(nucleus),
+            collisions=collisions,
+        )

@@ -38,11 +38,17 @@ and is emitted at the end of its finalize. Its legs: h2d the packing and
 upload, compute the dispatch, d2h the wait on the pull; its writeback
 phase is ``staged`` once the pull is queued and ``draining`` in the wait.
 
+The audit ledger's taps (``obs.audit``) are JAX's but one:
+``records.decoded`` per frame, ``rows.computed`` per finalized batch's
+entities and ``rows.filtered:multi_gene`` for the gene axis's skipped
+rows (device mask and host loop alike); ``records.computed`` counts a
+batch's records once its device pass has been issued without error, in
+``_dispatch_device_batch``, where JAX counts it in its guard ladder.
+
 Not ported: the writeback ring (``ingest.pull`` does its asynchronous
-copy), the guard ladder (a failed batch fails the command, and the writer
-discards its temp file), and the xprof dispatch records. Each gatherer
-also keeps plain records (``batches``, ``seconds``, ``ring_batches``,
-``run_keyed_batches``).
+copy) and the guard ladder (a failed batch fails the command, and the
+writer discards its temp file). Each gatherer also keeps plain records
+(``batches``, ``seconds``, ``ring_batches``, ``run_keyed_batches``).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import numpy as np
 import torch
 
 from .. import ingest, obs
+from ..obs import audit
 from ..bam import iter_cell_barcodes, iter_genes, iter_molecule_barcodes
 from ..device import DeviceLike, resolve
 from ..io.packed import (
@@ -453,6 +460,12 @@ class MetricGatherer:
             processed += frame.n_records
             self.records_streamed += frame.n_records
             obs.count("records_decoded", frame.n_records)
+            # conservation ledger: each record enters the compute path
+            # exactly once here (carry/slice/concat below conserve), so
+            # decoded == computed + quarantined is the task's invariant.
+            # int() detaches the scalar from the frame: the ledger keeps a
+            # count, never a view
+            audit.add("records.decoded", int(frame.n_records))
             if processed >= next_progress:
                 print(f"[{type(self).__name__}] {processed} records decoded", file=sys.stderr)
                 next_progress += PROGRESS_EVERY
@@ -652,6 +665,9 @@ class MetricGatherer:
                wb_phase=pulse.WB_PHASES["staged"])
         self.batches.append(dict(batch, entities=n_entities, events=events))
         self.seconds["dispatch"] += time.perf_counter() - start_time
+        # conservation ledger: the batch's device pass was issued without
+        # error (JAX counts this in its guard ladder, after the dispatch)
+        audit.add("records.computed", int(frame.n_records))
         # keep only what finalize reads, not the frame or the result dict
         return (self._entity_names(frame), pulled, n_entities, int_names, float_names,
                 frame.n_records, hb)
@@ -674,6 +690,7 @@ class MetricGatherer:
             xprof.sample_memory(devices=(self._device,))
             obs.count("d2h_bytes", block.nbytes)
             obs.count("entities_written", n_entities)
+            audit.add("rows.computed", n_entities)
             start = time.perf_counter()
             self._do_finalize_device_batch(
                 entity_names, block, n_entities, int_names, float_names, out
@@ -693,6 +710,9 @@ class MetricGatherer:
 
     def _entity_names(self, frame: ReadFrame) -> List[str]:
         return frame.cell_names if self.entity_kind == "cell" else frame.gene_names
+
+    #: audit-ledger reason for rows _filter_rows drops (subclass-named)
+    _filter_reason = "filtered"
 
     def _filter_rows(self, names: np.ndarray):
         """Vectorized row mask (None = keep all); the gene axis drops multi-genes."""
@@ -721,6 +741,12 @@ class MetricGatherer:
         keep = self._filter_rows(row_names)
         if keep is None:
             keep = slice(None)
+        else:
+            dropped = n_entities - int(np.count_nonzero(keep))
+            if dropped:
+                # conservation ledger: deliberately skipped rows are a
+                # NAMED fold (multi-gene groups), never silent loss
+                audit.add("rows.filtered", dropped, reason=self._filter_reason)
         index = np.where(row_names == "", "None", row_names)[keep]
 
         def int_col(column):
@@ -806,6 +832,7 @@ class GatherGeneMetrics(MetricGatherer):
 
     entity_kind = "gene"
     columns = GENE_COLUMNS
+    _filter_reason = "multi_gene"
 
     def _filter_rows(self, names: np.ndarray):
         # multi-gene "a,b" groups are skipped entirely, like the counting stage
@@ -815,7 +842,9 @@ class GatherGeneMetrics(MetricGatherer):
         out.write_header(vars(GeneMetrics()))
         for gene_iterator, gene_tag in iter_genes(records):
             if gene_tag and len(gene_tag.split(",")) > 1:
-                continue  # multi-gene groups are skipped, as on the device path
+                # multi-gene groups are skipped, as on the device path
+                audit.add("rows.filtered", 1, reason="multi_gene")
+                continue
             aggregator = GeneMetrics()
             for cell_iterator, cell_tag in iter_cell_barcodes(gene_iterator):
                 for molecule_iterator, molecule_tag in iter_molecule_barcodes(cell_iterator):

@@ -24,8 +24,14 @@ bytes it writes with ``csv``, ``gzip`` and numpy:
   agrees on it, else empty.
 
 Index values are kept as text (an all-integer index, which pandas would
-parse as numbers, does not occur in barcode or gene names). The JAX merge's
-audit record is observability that the port does not have.
+parse as numbers, does not occur in barcode or gene names).
+
+Each merge records its accounting as JAX's does (``obs.audit.record_merge``,
+exposed as ``.audit`` and appended to ``<journal_dir>/audit-merge.jsonl``
+when a ``journal_dir`` is given): ``rows_in == rows_out +
+merged:collision``, where a gene present in several parts folds into one
+row, and a gene row dropped because its name reads as NA counts among the
+folds too (``before - after`` of each pair merge, as JAX counts it).
 """
 
 from __future__ import annotations
@@ -34,9 +40,11 @@ import csv
 import gzip
 import io
 import re
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..obs import audit as _audit
 
 # pandas.read_csv's default NA spellings
 _NA_VALUES = frozenset((
@@ -205,11 +213,28 @@ class _Table:
 class MergeMetrics:
     """Merges multiple metrics files into one gzip-compressed csv."""
 
-    def __init__(self, metric_files: Sequence[str], output_file: str):
+    def __init__(
+        self,
+        metric_files: Sequence[str],
+        output_file: str,
+        journal_dir: Optional[str] = None,
+    ):
         self._metric_files = metric_files
         if not output_file.endswith(".csv.gz"):
             output_file += ".csv.gz"
         self._output_file = output_file
+        self._journal_dir = journal_dir
+        # merge accounting: rows_in == rows_out + merged:collision, so a gene
+        # fold reads as a fold in the conservation report, never as loss
+        self.audit: Optional[Dict[str, Any]] = None
+
+    def _record_audit(
+        self, op: str, rows_in: int, rows_out: int, collisions: int = 0
+    ) -> None:
+        self.audit = _audit.record_merge(
+            self._journal_dir, op, self._output_file,
+            len(self._metric_files), rows_in, rows_out, collisions,
+        )
 
     def execute(self) -> None:
         raise NotImplementedError
@@ -218,7 +243,14 @@ class MergeMetrics:
 class MergeCellMetrics(MergeMetrics):
     def execute(self) -> None:
         """Concatenate cell metric files (cell sets are disjoint by construction)."""
-        _Table.concat([_Table.read(f) for f in self._metric_files]).write(self._output_file)
+        tables = [_Table.read(f) for f in self._metric_files]
+        concatenated = _Table.concat(tables)
+        concatenated.write(self._output_file)
+        self._record_audit(
+            "merge_cell_metrics",
+            rows_in=sum(len(table) for table in tables),
+            rows_out=len(concatenated),
+        )
 
 
 class MergeGeneMetrics(MergeMetrics):
@@ -281,9 +313,23 @@ class MergeGeneMetrics(MergeMetrics):
     def execute(self) -> None:
         """Incrementally fold each chunk file into the merged result."""
         nucleus = _Table.read(self._metric_files[0])
+        rows_in = len(nucleus)
+        collisions = 0
         for filename in self._metric_files[1:]:
-            nucleus = self._merge_pair(nucleus, _Table.read(filename))
+            leaf = _Table.read(filename)
+            rows_in += len(leaf)
+            before = len(nucleus) + len(leaf)
+            nucleus = self._merge_pair(nucleus, leaf)
+            # each gene present in both sides folds two rows into one: the
+            # telescoped per-fold deltas are exactly the collision count
+            collisions += before - len(nucleus)
         nucleus.write(self._output_file)
+        self._record_audit(
+            "merge_gene_metrics",
+            rows_in=rows_in,
+            rows_out=len(nucleus),
+            collisions=collisions,
+        )
 
 
 def _groups(index: list) -> List[Tuple[str, np.ndarray]]:

@@ -13,9 +13,10 @@ fault site (``sched.faults``) sits just before the rename, as in the JAX
 writer. ``discard()`` abandons the output without publishing (the error
 path). ``write_block`` renders its rows with the native layer's block
 formatter (``native.format_csv_block``), which gives the bytes of the
-``str()`` path at C++ speed, as the JAX writer does. The JAX writer's
-audit ledger is not ported; ``rows_written`` counts the rows instead (the
-serve worker journals it under the ledger's ``rows.emitted`` key).
+``str()`` path at C++ speed, as the JAX writer does. The writer is the one
+emission point of metric rows (solo and packed), so it adds each row to
+the audit ledger's ``rows.emitted`` (``obs.audit``); ``rows_written``
+counts them too, for the gatherers' own records.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Any, List, Mapping
 import numpy as np
 
 from .. import native
+from ..obs import audit as _audit
 from ..sched import faults
 from ..sched.commit import inflight_path
 
@@ -82,6 +84,9 @@ class MetricCSVWriter:
             index = repr(index)  # None genes/cells render as 'None'
         values = ",".join(str(record[column]) for column in self._columns)
         self.rows_written += 1
+        # conservation ledger: this writer is the ONE emission point for
+        # metric rows (solo and packed), so rows.emitted counts here
+        _audit.add("rows.emitted", 1)
         self._push(index + "," + values)
 
     def write_block(self, index, columns) -> None:
@@ -109,6 +114,8 @@ class MetricCSVWriter:
             if "," in name or "\n" in name:
                 raise ValueError(f"index value needs CSV quoting: {name!r}")
         self.rows_written += len(index)
+        # conservation ledger: one integer add for the whole block
+        _audit.add("rows.emitted", len(index))
         self._sink.write(native.format_csv_block(index, columns))
 
     def close(self) -> None:

@@ -38,11 +38,18 @@ occupancy, the transfer ledger, memory watermarks; dumped to
 worker's capture and the sched journal of a run directory into one
 timeline.
 
-Not ported: the flight recorder (``flight_dump``,
-``install_flight_recorder``, ``register_flight_section``) and the
-``audit`` ledger wait for their own slice; ``install_jax_hooks`` and
-``xla_trace`` observe JAX's compiles and profiler, which the port has
-not (it has no jit).
+A worker that dies mid-task leaves a flight record
+(``flight.<worker>.jsonl``: the span ring, counters, the open span stack,
+the sections subsystems register and the registry), written by
+:func:`flight_dump` from an injected crash, the lock witness or the
+SIGTERM handler of :func:`install_flight_recorder`; JAX's format, so
+each package reads the other's. Where every module above accounts for
+time, :mod:`.audit` accounts for records: a per-task conservation ledger
+carried on the sched journal's commit events, read back by ``python -m
+sctools_tpu_torch.obs audit <run_dir>`` and ``... explain``.
+
+Not ported: ``install_jax_hooks`` and ``xla_trace`` observe JAX's
+compiles and profiler, which the port has not (it has no jit).
 """
 
 from __future__ import annotations
@@ -76,6 +83,11 @@ __all__ = [
     "reset",
     "set_context",
     "get_context",
+    "flight_dump",
+    "flight_path",
+    "register_flight_section",
+    "bounded_snapshot",
+    "install_flight_recorder",
     "configured_trace_dir",
     "configured_worker_name",
     "summarize_records",
@@ -474,6 +486,178 @@ def configured_trace_dir() -> Optional[str]:
     return value or None
 
 
+# extra named sections subsystems contribute to flight records: the ingest
+# ring registers its slot states, the pulse its ring and last heartbeats —
+# so a crash/SIGTERM postmortem shows not just WHERE the process was (open
+# spans) but what the pipeline was doing.
+# Providers must be cheap, lock-light, and safe to call from a signal
+# handler's dump path; a provider that raises is skipped, never fatal.
+_flight_sections: Dict[str, Callable[[], Any]] = {}
+
+
+def register_flight_section(name: str, provider: Callable[[], Any]) -> None:
+    """Attach ``provider()``'s value under ``name`` in every flight record."""
+    _flight_sections[name] = provider
+
+
+def bounded_snapshot(
+    lock: Any, snapshot: Callable[[], Any], default: Any
+) -> Callable[[], Any]:
+    """Wrap a lock-guarded ``snapshot()`` for the flight-dump death path.
+
+    The ONE place the death-path invariant lives: a provider may run
+    inside a signal handler that interrupted a holder of ``lock`` on the
+    same thread, so the acquire is bounded, and on timeout the snapshot
+    degrades to a lockless best effort (``default`` if a concurrent
+    mutation races the read) — never a self-deadlock, never a raise.
+    """
+    def provider():
+        acquired = lock.acquire(timeout=0.5)
+        try:
+            try:
+                return snapshot()
+            except RuntimeError:  # lockless snapshot raced a mutation
+                return default
+        finally:
+            if acquired:
+                lock.release()
+
+    return provider
+
+
+def flight_path() -> Optional[str]:
+    """Where this process's flight record lands (None when no trace dir)."""
+    base = configured_trace_dir()
+    if base is None:
+        return None
+    return os.path.join(base, f"flight.{configured_worker_name()}.jsonl")
+
+
+def flight_dump(reason: str = "", path: Optional[str] = None) -> Optional[str]:
+    """Persist the span ring + counters for a postmortem; returns the path.
+
+    The crashed-worker story: the JSONL sink only holds spans that CLOSED
+    before death, and a worker killed mid-task (``SCTOOLS_TPU_FAULTS``
+    crash injection, preemption SIGTERM) exits with its current span still
+    open. The flight record captures what the sink cannot: the ring buffer
+    (bounded), counter/gauge snapshots, and the dumping thread's OPEN span
+    stack — i.e. where the process actually was when it died. Fault
+    injection calls this just before ``os._exit``;
+    :func:`install_flight_recorder` wires SIGTERM. Written atomically
+    (tmp + replace) so a half-written record never shadows a whole one.
+    """
+    target = path
+    if target is None:
+        target = flight_path()
+    if target is None:
+        return None
+    # the dump may run inside a signal handler that interrupted THIS
+    # thread while it held _lock (e.g. mid-_record_span): a plain `with
+    # _lock` would deadlock the death path and the orchestrator's SIGKILL
+    # escalation would lose the record. Bounded wait, then a lockless
+    # best-effort snapshot.
+    acquired = _lock.acquire(timeout=1.0)
+    try:
+        try:
+            ring = list(_ring)
+            counters_snapshot = dict(_counters)
+            gauges_snapshot = dict(_gauges)
+        except RuntimeError:  # lockless snapshot raced a mutation
+            ring, counters_snapshot, gauges_snapshot = [], {}, {}
+    finally:
+        if acquired:
+            _lock.release()
+    meta = {
+        "meta": "flight",
+        "reason": reason,
+        "worker": _context.get("worker") or configured_worker_name(),
+        "pid": os.getpid(),
+        "wall": round(time.time(), 6),  # scx-lint: disable=SCX109 -- cross-process anchor, not a duration
+        "mono": round(time.perf_counter() - _T0, 6),
+        "open_spans": list(_stack()),
+        "counters": counters_snapshot,
+        "gauges": gauges_snapshot,
+    }
+    sections = {}
+    for section_name, provider in list(_flight_sections.items()):
+        try:
+            sections[section_name] = provider()
+        except Exception:  # noqa: BLE001 - the death path must still write
+            continue
+    if sections:
+        meta["sections"] = sections
+    # a crashed worker's compile/occupancy/ledger registry dies with the
+    # process unless the flight record carries it (the atexit xprof dump
+    # never runs under os._exit); bounded by the registry's own caps
+    xprof = sys.modules.get(__name__ + ".xprof")
+    if xprof is not None:
+        try:
+            if xprof.has_data():  # lockless by design (death path)
+                # bounded lock wait, same reasoning as the obs lock above:
+                # the signal may have interrupted a holder of xprof's lock
+                meta["xprof"] = xprof.snapshot(lock_timeout=1.0)
+        except Exception:  # noqa: BLE001 - the death path must still write
+            pass
+    tmp = f"{target}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(json.dumps(meta, separators=(",", ":")) + "\n")
+            for record in ring:
+                f.write(json.dumps(record, separators=(",", ":")) + "\n")
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, target)
+    except OSError:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        return None
+    return target
+
+
+_flight_signal_installed = False
+
+
+def install_flight_recorder() -> bool:
+    """Dump a flight record on SIGTERM (idempotent; main thread only).
+
+    SIGTERM is what a preempting orchestrator sends before the kill; the
+    handler persists the flight record and then defers to whatever
+    handler/default was installed before, so termination semantics are
+    unchanged. Requires a configured trace dir; returns whether the hook
+    is active.
+    """
+    global _flight_signal_installed
+    if _flight_signal_installed:
+        return True
+    if configured_trace_dir() is None:
+        return False
+    import signal
+
+    previous = signal.getsignal(signal.SIGTERM)
+
+    def _on_sigterm(signum, frame):
+        try:
+            flight_dump(reason="signal:SIGTERM")
+        except Exception:  # noqa: BLE001 - dying anyway; never mask the signal
+            pass
+        if previous == signal.SIG_IGN:
+            return  # SIGTERM was deliberately ignored: keep ignoring it
+        if callable(previous):
+            previous(signum, frame)
+        else:
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    try:
+        signal.signal(signal.SIGTERM, _on_sigterm)
+    except (ValueError, OSError):  # not the main thread / exotic platform
+        return False
+    _flight_signal_installed = True
+    return True
+
+
 
 # ------------------------------------------------------------ summarize
 
@@ -597,6 +781,7 @@ def _activate_from_env() -> None:
             metrics_name = "metrics.prom"
             xprof_name = "xprof.json"
         enable(sink_path=os.path.join(trace_dir, trace_name))
+        install_flight_recorder()
 
         def _dump_metrics() -> None:
             text = render_metrics()

@@ -35,8 +35,18 @@ JSON, or a committed trajectory point; the report ranks suspects with an
 explicit conservation check, refuses cross-platform pairs loudly (exit
 3), and ``--trajectory`` walks the committed series instead.
 
-JAX's ``audit`` and ``explain`` (obs.audit) are not ported: asking for
-one exits 2 and names the ROADMAP item that holds it.
+``audit <run_dir>`` renders the record conservation report
+(:mod:`.audit`): per-task and fleet-wide balance of records
+ingested/decoded/computed/quarantined and rows computed/emitted/filtered,
+with every loss named by reason (quarantine sidecar ranges, row filters,
+merge collision folds). Exit 0 means EXACT — every record the run touched
+is accounted for; any unexplained record exits 1, no journal exits 2.
+
+``explain <run_dir> --barcode B | --record N | --job J`` traces one
+entity's journey — chunk -> task -> attempts/steals -> pack membership ->
+quarantine or output file:row — stitched from the journal, the quarantine
+sidecars, the merge sidecar and the conservation ledger (exit 0 found, 1
+no match, 2 no journal or no selector).
 
 Pure stdlib — usable on any host with the capture files, no torch
 required. The arguments, output and exit codes are JAX's.
@@ -62,14 +72,6 @@ from .xprof import (
     render_suggestions,
     suggest_buckets,
 )
-
-# JAX's subcommands that wait for a module the port has not yet: the
-# ROADMAP item that holds each
-NOT_PORTED = {
-    "audit": "item 10 (obs.audit, the record ledger)",
-    "explain": "item 10 (obs.audit, the record ledger)",
-}
-
 
 def _expand(patterns: List[str]) -> List[str]:
     """Paths from path-or-glob arguments, order-preserving, deduped."""
@@ -513,6 +515,57 @@ def _delta(args, out=None, err=None) -> int:
     return 0 if view["comparable"] else 3
 
 
+def _audit(args, out=None, err=None) -> int:
+    out = out if out is not None else sys.stdout
+    err = err if err is not None else sys.stderr
+    from . import audit as auditmod
+
+    try:
+        report = auditmod.audit_run(args.run_dir)
+    except FileNotFoundError as exc:
+        print(f"obs audit: {exc}", file=err)
+        return 2
+    if args.as_json:
+        print(json.dumps(report, separators=(",", ":")), file=out)
+    else:
+        print(auditmod.render_audit_report(report), end="", file=out)
+    # nonzero on ANY unexplained record: the conservation contract is
+    # exact or it is broken — there is no "mostly balanced"
+    return 0 if report["fleet"]["exact"] else 1
+
+
+def _explain(args, out=None, err=None) -> int:
+    out = out if out is not None else sys.stdout
+    err = err if err is not None else sys.stderr
+    from . import audit as auditmod
+
+    if (
+        args.barcode is None
+        and args.record is None
+        and args.job is None
+    ):
+        print(
+            "obs explain: pass at least one of --barcode/--record/--job",
+            file=err,
+        )
+        return 2
+    try:
+        result = auditmod.explain_run(
+            args.run_dir,
+            barcode=args.barcode,
+            record=args.record,
+            job=args.job,
+        )
+    except FileNotFoundError as exc:
+        print(f"obs explain: {exc}", file=err)
+        return 2
+    if args.as_json:
+        print(json.dumps(result, separators=(",", ":")), file=out)
+    else:
+        print(auditmod.render_explain(result), end="", file=out)
+    return 0 if result["found"] else 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m sctools_tpu_torch.obs",
@@ -575,9 +628,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         "--target", type=float, default=0.35,
         help="occupancy target for --suggest (default: 0.35)",
     )
-    for name, item in NOT_PORTED.items():
-        stub = sub.add_parser(name, help=f"not ported: ROADMAP {item}")
-        stub.add_argument("rest", nargs=argparse.REMAINDER)
     pulse_cmd = sub.add_parser(
         "pulse",
         help="live streaming telemetry: per-worker heartbeat lanes, "
@@ -695,14 +745,55 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="the attribution view (or trajectory series) as one JSON "
         "object",
     )
+    audit_cmd = sub.add_parser(
+        "audit",
+        help="record conservation report: per-task and fleet-wide "
+        "balance with every loss named by reason; exit 0 only when "
+        "EXACT (scx-audit)",
+    )
+    audit_cmd.add_argument(
+        "run_dir",
+        help="run/work directory holding the sched journal(s), "
+        "quarantine sidecars, and commit-extra conservation ledgers",
+    )
+    audit_cmd.add_argument(
+        "--json", action="store_true", dest="as_json",
+        help="the full conservation report as one JSON object",
+    )
+    explain_cmd = sub.add_parser(
+        "explain",
+        help="provenance trace for one entity: chunk -> task -> "
+        "attempts/steals -> pack membership -> quarantine or "
+        "output file:row (scx-audit)",
+    )
+    explain_cmd.add_argument(
+        "run_dir",
+        help="run/work directory holding the sched journal(s) and "
+        "committed output parts",
+    )
+    explain_cmd.add_argument(
+        "--barcode", default=None,
+        help="entity index value (cell barcode / gene name) to locate "
+        "in committed outputs and merge sidecars",
+    )
+    explain_cmd.add_argument(
+        "--record", type=int, default=None,
+        help="absolute input record number to resolve against the "
+        "quarantine sidecar ranges (optionally scoped by --job)",
+    )
+    explain_cmd.add_argument(
+        "--job", default=None,
+        help="task/job name or id to narrate end-to-end from the journal",
+    )
+    explain_cmd.add_argument(
+        "--json", action="store_true", dest="as_json",
+        help="the match list as one JSON object",
+    )
     args = parser.parse_args(argv)
-    if args.command in NOT_PORTED:
-        print(
-            f"obs {args.command}: not ported to sctools_tpu_torch; "
-            f"ROADMAP {NOT_PORTED[args.command]}",
-            file=sys.stderr,
-        )
-        return 2
+    if args.command == "audit":
+        return _audit(args)
+    if args.command == "explain":
+        return _explain(args)
     if args.command == "summarize":
         return _summarize(args)
     if args.command == "timeline":

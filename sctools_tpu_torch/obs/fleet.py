@@ -5,8 +5,8 @@ stitching and analysis over the same files, so that either package merges
 the other's run directory. Its reads go through the port's own modules:
 the journal through ``sched.Journal``, rings through ``pulse.load_rings``,
 serve traces through ``slo.stitch`` and mesh dumps through
-``xprof.load_mesh_dumps``. The port writes no flight records yet; a JAX
-worker's are read.
+``xprof.load_mesh_dumps``. Flight records are JAX's format, so a crashed
+worker of either package shows here from its flight record.
 
 scx-trace sees one process; a scatter-gather run is N of them. Each worker
 leaves its own span capture (``trace[.<worker>].jsonl``), counter snapshot

@@ -47,8 +47,9 @@ batch's pull. No leg synchronizes the device.
 
 The retrace flag reads :func:`.xprof.retrace_seq`: the port's retraces
 are second CUDA graph captures of one signature (``serve.graphs``), and
-each one flags exactly one heartbeat. The flight-record section that
-JAX's pulse registers waits for the port's flight recorder.
+each one flags exactly one heartbeat. Activation registers the ``pulse``
+flight section: a dying worker's flight record names its ring and carries
+its last heartbeats.
 
 Enabling: ``SCTOOLS_TPU_PULSE=1`` writes the ring beside the
 ``SCTOOLS_TPU_TRACE`` capture (memory-only when no trace dir is set);
@@ -1230,6 +1231,19 @@ def _maybe_export_textfile() -> None:
 # ----------------------------------------------- env-driven activation
 
 
+def _flight_section() -> dict:
+    """Bounded pulse state for flight records: a SIGTERM'd worker's
+    postmortem names its ring (still parseable on disk — torn final
+    record at worst) and carries the last few heartbeats inline."""
+    writer = _writer
+    return {
+        "path": getattr(writer, "path", None) or ring_path(),
+        "seq": getattr(writer, "seq", 0),
+        "capacity": getattr(writer, "capacity", 0),
+        "recent": [dict(r) for r in list(_recent)[-8:]],
+    }
+
+
 def reset() -> None:
     """Clear in-process pulse state (tests). The ring file is untouched."""
     global _writer, _retrace_claimed
@@ -1248,13 +1262,18 @@ def _activate_from_env() -> None:
     raw = os.environ.get(ENV_FLAG, "").strip()
     if not raw or raw == "0":
         return
-    from . import configured_trace_dir
+    from . import configured_trace_dir, register_flight_section
 
     if raw == "1":
         _ring_dir = configured_trace_dir()  # None -> memory-only
     else:
         _ring_dir = raw
     _enabled = True
+    from . import bounded_snapshot
+
+    register_flight_section(
+        "pulse", bounded_snapshot(_lock, _flight_section, {})
+    )
     import atexit
 
     def _at_exit() -> None:

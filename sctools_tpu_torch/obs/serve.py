@@ -19,8 +19,11 @@ Two modes:
   --serve`` uses, giving a whole fleet one scrape target without
   touching the workers. When the run dir holds a serve journal the
   scrape also carries the per-tenant slo gauges
-  (:func:`sctools_tpu_torch.obs.slo.render_slo_metrics`). JAX's steer and
-  audit gauges are not served: neither is ported.
+  (:func:`sctools_tpu_torch.obs.slo.render_slo_metrics`) and the
+  per-tenant audit conservation gauges
+  (:func:`sctools_tpu_torch.obs.audit.render_audit_metrics`): rows emitted
+  and claimed per tenant and the fleet's unexplained count. JAX's steer
+  gauges are not served: its controller is not ported.
 
 Binds 127.0.0.1 only: telemetry is not an open network service. For
 scrape-less setups the atomic textfile export
@@ -76,6 +79,12 @@ class PulseExporter:
                 body += slo.render_slo_metrics(
                     slo.stitch_run(self._run_dir, window_s=self._window_s)
                 )
+                # per-tenant audit conservation gauges: rows emitted/claimed
+                # per tenant plus the fleet unexplained count — the "is
+                # anyone missing cells" alert series
+                from . import audit
+
+                body += audit.render_audit_metrics(self._run_dir)
             return body
         # live mode: the process's own counters/spans plus its pulse
         # gauges — render_metrics() raises on name-mangling collisions,

@@ -40,7 +40,8 @@ Not carried: ``instrument_jit``'s JAX machinery (``cost_analysis``, the
 The trace capture (``SCTOOLS_TPU_TRACE``) dumps the registry to
 ``<dir>/xprof[.<worker>].json`` at exit; ``python -m
 sctools_tpu_torch.obs efficiency <run_dir>`` merges every worker's dump
-(and the ``xprof`` section of a JAX worker's flight record) into the
+(and the ``xprof`` section of a flight record, written by a crashed
+worker of either package) into the
 per-site report. Pure stdlib at import: torch is imported only by
 :func:`sample_memory`.
 """

@@ -17,9 +17,12 @@ Each batch's dispatch is the ``gatherer.batch`` fault site
 (``sched.faults``), as in JAX: a crash there is a worker dying mid-chunk,
 with earlier batches already in the writer's temp file. Its spans,
 counters and heartbeat (stage ``gatherer.cell.sharded`` /
-``gatherer.gene.sharded``) are the single-device path's, at JAX's sites.
-Not ported: JAX's dispatch records and the guard ladder (a failed batch
-fails the command, and the writer discards its temp file).
+``gatherer.gene.sharded``) are the single-device path's, at JAX's sites,
+and so are its audit taps: ``rows.computed`` per finalized batch, and
+``records.computed`` once a batch's sharded pass has been issued without
+error (JAX counts that one in its guard ladder). Not ported: the guard
+ladder (a failed batch fails the command, and the writer discards its
+temp file).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ..metrics.gatherer import (
     prepacked_gate,
     wire_result_names,
 )
-from ..obs import pulse, xprof
+from ..obs import audit, pulse, xprof
 from ..ops.segments import entity_bucket
 from ..sched import faults
 from .metrics import run_sharded_metrics
@@ -146,6 +149,8 @@ class _ShardedMixin:
             shards=self._n_shards, events=None, h2d_bytes=h2d_bytes,
         ))
         self.seconds["dispatch"] += time.perf_counter() - start_time
+        # conservation ledger: the sharded pass was issued without error
+        audit.add("records.computed", int(frame.n_records))
         return (self._entity_names(frame), pulls, len(int_names) + len(float_names), k, int_names,
                 float_names, frame.n_records, hb)
 
@@ -181,6 +186,7 @@ class _ShardedMixin:
             floats = cols[len(int_names):].view(np.float32)
             wb.add(entities=int(cols.shape[1]))
             obs.count("entities_written", int(cols.shape[1]))
+            audit.add("rows.computed", int(cols.shape[1]))
             self._write_device_rows(entity_names, cols.shape[1], int_names, float_names, ints,
                                     floats, out)
             self.seconds["csv"] += time.perf_counter() - start

@@ -36,9 +36,9 @@ JAX's guard ladder reruns there on the CPU backend (launch.py:211-226);
 the port has no such fallback, so a failing task retries and is then
 quarantined. The ``distributed:chunk_metrics``, ``distributed:chunk_queue``
 and ``distributed:merge_parts`` spans and the ``chunks_processed`` counter
-are JAX's. Not ported here: JAX's flight recorder and its merge audit
-record; ``process_chunks``, the static round-robin share no port caller
-needs.
+are JAX's, as are the SIGTERM flight recorder a worker installs and the
+merge's audit record (``audit-merge.jsonl``). Not ported here:
+``process_chunks``, the static round-robin share no port caller needs.
 """
 
 from __future__ import annotations
@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from .. import ingest, obs
+from ..obs import audit
 from ..device import DeviceLike, resolve
 from ..sched import QuarantinedTasksError, WorkQueue, atomic_output, faults, make_task
 from ..sched.commit import content_signature
@@ -237,6 +238,11 @@ def run_process_cell_metrics(
         # groups workers by it
         mesh=mesh_fingerprint(mesh),
     )
+    # preemption insurance: persist the span ring + open-span stack to
+    # flight.<worker>.jsonl on SIGTERM so a killed worker's postmortem
+    # survives for `obs timeline` (no-op unless a trace dir is configured;
+    # env-activated processes already installed it at import)
+    obs.install_flight_recorder()
     with queue:
         queue.register(tasks)
         with obs.span("distributed:chunk_queue", chunks=len(tasks), process=process_id):
@@ -270,24 +276,36 @@ def merge_sorted_csv_parts(
     count: the only check that catches committed leftovers of an earlier,
     larger run in a reused directory), and with ``journal_dir`` the
     globbed set must equal the journal's committed set, hash-verified. The
-    merged CSV itself publishes atomically.
+    merged CSV itself publishes atomically, and its rows in and out are
+    appended to ``<journal_dir>/audit-merge.jsonl`` (``audit.record_merge``).
     """
     paths = validated_parts(part_pattern, journal_dir, expected_parts)
     # each part is already in sorted entity-name order, so the join is a
     # k-way streaming merge in memory of the order of the parts' count
     n_rows = 0
+    # merge accounting: count rows on the way IN per part, so the sidecar
+    # entry can assert rows_in == rows_out — a text merge never folds, so
+    # any skew is a real loss the audit must flag
+    rows_per_part = [0] * len(paths)
+
+    def _counted(f, part_index: int):
+        for line in f:
+            if line.strip():
+                rows_per_part[part_index] += 1
+                yield line
+
     merge_span = obs.span("distributed:merge_parts", parts=len(paths))
     with merge_span, atomic_output(output_path) as tmp_path, ExitStack() as stack:
         header: Optional[str] = None
         streams = []
-        for path in paths:
+        for part_index, path in enumerate(paths):
             f = stack.enter_context(gzip.open(path, "rt"))
             part_header = f.readline()
             if header is None:
                 header = part_header
             elif part_header != header:
                 raise ValueError(f"part {path} header differs")
-            streams.append(line for line in f if line.strip())
+            streams.append(_counted(f, part_index))
         opener = gzip.open if compress else open
         out = stack.enter_context(opener(tmp_path, "wt"))
         out.write(header)
@@ -295,4 +313,8 @@ def merge_sorted_csv_parts(
             out.write(line)
             n_rows += 1
         merge_span.add(records=n_rows)
+    audit.record_merge(
+        journal_dir, "merge_sorted_csv_parts", output_path,
+        len(paths), sum(rows_per_part), n_rows,
+    )
     return n_rows

@@ -23,10 +23,11 @@ kills a run:
   status|resume|retry-quarantined <journal>``.
 
 The scheduler's ``sched:task`` / ``sched:wait`` spans and ``sched_*``
-counters are JAX's (:mod:`sctools_tpu_torch.obs`). Not ported: the audit
-ledger the JAX scheduler records, and the device-boundary fault kinds'
-firing sites (they fire inside the JAX guard ladder, which the port does
-not have).
+counters are JAX's (:mod:`sctools_tpu_torch.obs`), and so is the audit
+ledger that rides each ``committed`` event (:mod:`sctools_tpu_torch.obs.audit`).
+An injected crash dumps the worker's flight record before it exits. Not
+ported: the device-boundary fault kinds' firing sites (they fire inside
+the JAX guard ladder, which the port does not have).
 """
 
 from .commit import atomic_output, inflight_path, sha256_file

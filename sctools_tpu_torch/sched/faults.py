@@ -17,7 +17,9 @@ Spec grammar::
 Task-level kinds, fired by :func:`fire` (these burn scheduler attempts):
 
 - ``crash`` -- ``os._exit(code)`` (default 86): the process dies without
-  cleanup, like a preempted host. Its leases stay held until their TTL.
+  cleanup, like a preempted host, once its flight record is dumped
+  (``obs.flight_dump``, reason ``crash@<site>:<name>``). Its leases stay
+  held until their TTL.
 - ``delay`` -- sleep ``secs`` (default 1.0): stragglers and slow renewals.
 - ``fail``  -- raise :class:`InjectedFault`: a transient task error the
   retry ladder must absorb.
@@ -45,7 +47,8 @@ Example: kill the worker mid-chunk once, and fail one chunk twice::
 Sites: ``task.claimed`` (scheduler, before the run), ``task.commit``
 (scheduler, after the run and before the journal's commit),
 ``gatherer.batch`` (the sharded gatherer, per device batch: mid-chunk),
-``lease.renew`` (heartbeat thread), ``writer.commit`` (CSV writer, before
+``ingest.decode`` (the ingest ring's arena producer, inside each batch's
+timed decode, named by the batch index), ``lease.renew`` (heartbeat thread), ``writer.commit`` (CSV writer, before
 the atomic rename), ``task.input`` (the chunk runner; ``corrupt`` makes
 the task read a garbled copy of its chunk: the poison-task case).
 """
@@ -200,9 +203,13 @@ def fire(site: str, name: str = "") -> None:
         raise InjectedFault(f"injected failure at {site} ({name})")
     sys.stderr.write(f"sctools-tpu: injected crash at {site} ({name})\n")
     sys.stderr.flush()
-    # no cleanup of any kind, like a real preemption: live threads, open
-    # files and held leases are left as they are (the port has no flight
-    # recorder to dump first)
+    # os._exit skips atexit AND leaves the current span open (sink lines
+    # only land at span exit), exactly like a real preemption — persist
+    # the flight record first so the postmortem survives the crash
+    try:
+        obs.flight_dump(reason=f"crash@{site}:{name}")
+    except Exception:  # noqa: BLE001 - the crash must fire regardless
+        pass
     os._exit(clause.code)
 
 

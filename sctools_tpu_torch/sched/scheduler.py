@@ -1,8 +1,11 @@
 """The work-stealing scheduler loop: claim, run, commit, retry, quarantine.
 
-The port of ``sctools_tpu.sched.scheduler`` without its audit ledger; its
-``sched:task`` / ``sched:wait`` spans, ``sched_*`` counters and obs context
-(``worker``, then ``task`` / ``task_id`` around each task body) are JAX's.
+The port of ``sctools_tpu.sched.scheduler``: its ``sched:task`` /
+``sched:wait`` spans, ``sched_*`` counters and obs context (``worker``,
+then ``task`` / ``task_id`` around each task body) are JAX's, and so is
+the audit ledger (:mod:`..obs.audit`) that a commit carries as the
+``audit`` extra of its ``committed`` event and a failed or interrupted
+attempt discards.
 One :class:`WorkQueue` per worker process. Every worker runs the same
 loop against the shared journal; there is no leader and no assignment
 step — the lock files ARE the schedule:
@@ -38,6 +41,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from .. import obs
+from ..obs import audit
 from . import faults
 from .commit import sha256_file
 from .journal import (
@@ -182,6 +186,9 @@ class WorkQueue:
             faults.fire("task.commit", name=task.name)
         except BaseException as error:  # noqa: BLE001 - every failure journals
             obs.set_context(task=None, task_id=None)
+            # a failed attempt's half-counted ledger must not pollute the
+            # retry's conservation balance
+            audit.discard(task.id)
             stop.set()
             beat.join(timeout=5.0)
             if not isinstance(error, Exception):
@@ -199,9 +206,15 @@ class WorkQueue:
         obs.set_context(task=None, task_id=None)
         stop.set()
         beat.join(timeout=5.0)
+        # the conservation ledger rides the commit record: counts fold
+        # post-run into the existing journal event, so the transport adds
+        # no hot-path work and no new wire format
+        ledger = audit.take(task.id)
+        extra = {"audit": ledger} if ledger else {}
         self.journal.record(
             task.id, "committed", attempt=attempt, part=artifact,
             sha256=sha256_file(artifact) if artifact else None,
+            **extra,
         )
         obs.count("sched_commits")
         if artifact:

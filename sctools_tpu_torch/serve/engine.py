@@ -54,7 +54,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from .. import obs
 from ..device import DeviceLike, resolve
 from ..metrics.gatherer import DEFAULT_BATCH_RECORDS, GatherCellMetrics
-from ..obs import slo
+from ..obs import audit, slo
 from ..sched import faults
 from ..sched.commit import sha256_file
 from ..sched.journal import Task, TaskState, wall_clock
@@ -373,6 +373,11 @@ class ServeWorker:
                 )
                 probe.mark("pack_done")
         except Exception as error:  # noqa: BLE001 - every failure journals
+            # half-counted audit ledgers from the failed executions must
+            # not pollute the retry's conservation balance
+            audit.discard(trace.exec_id())
+            for tid in trace.tids:
+                audit.discard(tid)
             self._fail_pack(journal, members, attempts, error)
             return 0
         self.packs_run += 1

@@ -42,12 +42,13 @@ header skew: member BAMs must agree on reference names (the wire's ref
 column is header-coded).
 
 Each execution's id is stamped into the obs context (:func:`trace_task`),
-so its pulse heartbeats carry it, as in JAX. The JAX version also takes
-its audit ledger, which the port has not. Each executed segment's
-``ledger`` holds the port's own counts under the JAX ledger's keys instead:
-``records.decoded`` (the gatherer's ``records_streamed``) and
-``rows.emitted`` (its ``rows_emitted``, the writers' ``rows_written``), a
-zero count left out as the JAX ledger leaves it out.
+so its pulse heartbeats carry it and the audit ledger (``obs.audit``)
+counts its stages under it, as in JAX: each executed segment's ``ledger``
+is ``audit.take(exec_id)`` (records ingested, decoded and computed, rows
+computed and emitted), and an aborted packed attempt's partial ledger is
+discarded before the solo reruns. The member streams feed the pack's
+outer ring, which alone counts ``records.ingested`` (``audited=False`` on
+the inner rings).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ import numpy as np
 
 from .. import ingest, obs
 from ..device import DeviceLike
+from ..obs import audit
 from ..io.packed import concat_frames, copy_frame, slice_frame, take_frame
 from ..io.sam import AlignmentReader
 from ..metrics.gatherer import DEFAULT_BATCH_RECORDS, GatherCellMetrics
@@ -187,12 +189,6 @@ def plan_packs(
         plans.append(PackPlan(jobs=tuple(members), estimated_records=total))
     plans.sort(key=lambda p: (p.jobs[0].tenant, p.jobs[0].bam))
     return plans
-
-
-def _ledger(records_decoded: int, rows_emitted: int) -> Dict[str, int]:
-    """One execution's counts under the JAX ledger's keys, zeros left out."""
-    counts = {"records.decoded": records_decoded, "rows.emitted": rows_emitted}
-    return {key: int(n) for key, n in counts.items() if n}
 
 
 class _RouterWriter:
@@ -357,7 +353,10 @@ class PackedCellMetrics(GatherCellMetrics):
             self._check_headers()
         pack = None
         for owner, job in enumerate(self._jobs):
-            frames = ingest.ring_frames(job.bam, self._batch_records)
+            # audited=False: these member frames feed the pack's outer
+            # ``source=`` ring, which ledgers the handoff — counting here
+            # too would double every record on the conservation report
+            frames = ingest.ring_frames(job.bam, self._batch_records, audited=False)
             try:
                 for frame in frames:
                     # ring frames alias recycled arena slots; the pack keeps
@@ -419,15 +418,17 @@ def run_packed(
             with trace_task(exec_id):
                 gatherer.extract_metrics()
             if trace is not None:
+                # the pack's conservation ledger rides the segment the
+                # engine already journals verbatim: the execution-level
+                # counts plus the per-member routed and claimed splits the
+                # fleet report balances against
                 trace.executed.append(
                     {
                         "exec_id": exec_id,
                         "tids": list(trace.tids),
                         "rows": gatherer.owner_rows,
                         "degraded": None,
-                        "ledger": _ledger(
-                            gatherer.records_streamed, gatherer.rows_emitted
-                        ),
+                        "ledger": audit.take(exec_id),
                         "rows_routed": gatherer.owner_emitted,
                         "rows_claimed": gatherer.owner_claimed,
                     }
@@ -436,6 +437,10 @@ def run_packed(
         except PackEntityCollision:
             # degrade below; nothing was published
             degraded = "entity-collision"
+            if exec_id is not None:
+                # the aborted attempt's half-counted ledger must not bleed
+                # into the solo reruns' balance
+                audit.discard(exec_id)
             if trace is not None:
                 trace.executed.append(
                     {
@@ -448,6 +453,7 @@ def run_packed(
                 )
     artifacts = []
     for i, job in enumerate(jobs):
+        exec_id = trace.tids[i] if trace is not None else None
         solo = GatherCellMetrics(
             job.bam,
             job.out,
@@ -456,17 +462,17 @@ def run_packed(
             compress=compress,
             graphs=graphs,
         )
-        with trace_task(trace.tids[i] if trace is not None else None):
+        with trace_task(exec_id):
             solo.extract_metrics()
         artifacts.append(artifact_path(job.out, compress))
         if trace is not None:
             trace.executed.append(
                 {
-                    "exec_id": trace.tids[i],
+                    "exec_id": exec_id,
                     "tids": [trace.tids[i]],
                     "rows": None,
                     "degraded": degraded,
-                    "ledger": _ledger(solo.records_streamed, solo.rows_emitted),
+                    "ledger": audit.take(exec_id),
                 }
             )
     return artifacts, False

@@ -49,7 +49,8 @@ FIXTURES = REPO / "tests" / "fixtures_scxlint"
 ENV_VARS = ("SCTOOLS_TPU_LOCK_DEBUG", "SCTOOLS_TPU_LOCK_GRAPH", "SCTOOLS_TPU_LOCK_DEBUG_STALL_S",
             "SCTOOLS_TPU_TRACE", "SCTOOLS_TPU_TRACE_WORKER")
 PORT_LOCKS = {"ops.whitelist_table", "kernels.loader", "native.loader", "sched.faults",
-              "sched.journal", "ingest.framedebug", "obs.ring", "obs.sink", "obs.pulse", "obs.xprof"}
+              "sched.journal", "ingest.framedebug", "obs.ring", "obs.sink", "obs.pulse", "obs.xprof",
+              "obs.audit", "ingest.ring_state"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -83,6 +84,37 @@ def test_race_pass_matches_jax_on_its_fixtures(name):
     want = rule_lines(jax_racecheck.check_races([path]))
     assert rule_lines(check_races([path])) == want
     assert bool(want) == name.endswith("_bad.py")
+
+
+PROVIDER_SCX402 = '''"""A flight-section provider blocks on a lock without a bound."""
+import threading
+
+from sctools_tpu_torch import obs
+
+table_lock = threading.Lock()
+safe_lock = threading.Lock()
+table = {}
+
+
+def table_section():
+    with table_lock:  # <- SCX402
+        return dict(table)
+
+
+obs.register_flight_section("table", table_section)
+obs.register_flight_section("safe", obs.bounded_snapshot(safe_lock, lambda: dict(table), {}))
+'''
+
+
+def test_race_pass_flags_a_provider_that_blocks_without_a_bound(tmp_path):
+    """The flight-section providers are death roots (``flight_dump`` calls
+    each of them): an unbounded acquire in one is SCX402, a provider made by
+    ``obs.bounded_snapshot`` is not."""
+    path = tmp_path / "provider.py"
+    path.write_text(PROVIDER_SCX402)
+    findings = check_races([str(path)])
+    assert rule_lines(findings) == [("SCX402", line) for line in marked_lines(PROVIDER_SCX402, "SCX402")]
+    assert rule_lines(findings) == rule_lines(jax_racecheck.check_races([str(path)]))
 
 
 @pytest.mark.parametrize("name", LIFE_FIXTURES)
@@ -121,8 +153,12 @@ def test_lock_graph_matches_jax_over_the_port():
         ("obs.ring", "obs.sink", False)]
     entries = {(e["kind"], Path(e["site"].rsplit(":", 1)[0]).relative_to(PORT).as_posix())
                for e in graph["entries"]}
+    # the death roots: the SIGTERM flight recorder and the flight-section
+    # providers (the ring's bounded snapshot, its registration, the pulse's)
     assert entries == {("thread", "sched/scheduler.py"), ("thread", "serve/engine.py"),
-                       ("thread", "utils/prefetch.py"), ("thread", "obs/serve.py")}
+                       ("thread", "utils/prefetch.py"), ("thread", "obs/serve.py"),
+                       ("signal", "obs/__init__.py"), ("provider", "ingest/ring.py"),
+                       ("provider", "obs/pulse.py")}
 
 
 # ------------------------------------------------------- SCX112 and SCX109
@@ -429,9 +465,11 @@ def test_witness_cross_thread_release_leaves_no_stale_entry(lock_debug):
 
 
 def test_witness_detects_constructed_abba_cycle(lock_debug, monkeypatch, tmp_path):
-    # a cycle writes the dump at once (the port has no flight recorder)
+    # a cycle writes a flight record at once, as JAX's witness does; the
+    # locks dump waits for the exit (or an explicit dump)
     monkeypatch.setenv("SCTOOLS_TPU_TRACE", str(tmp_path / "trace"))
     monkeypatch.setenv("SCTOOLS_TPU_TRACE_WORKER", "w/0")
+    (tmp_path / "trace").mkdir()
     a = witness.make_lock("test.cycle_a")
     b = witness.make_lock("test.cycle_b")
     with a:
@@ -441,6 +479,10 @@ def test_witness_detects_constructed_abba_cycle(lock_debug, monkeypatch, tmp_pat
         with a:
             pass
     assert "cycle" in [v["kind"] for v in witness.violations()], witness.violations()
+    with open(tmp_path / "trace" / "flight.w_0.jsonl") as f:
+        meta = json.loads(f.readline())
+    assert meta["meta"] == "flight" and meta["reason"] == "lock-witness:cycle"
+    assert witness.dump() == str(tmp_path / "trace" / "locks.w_0.json")
     dumped = json.loads((tmp_path / "trace" / "locks.w_0.json").read_text())
     assert [v["kind"] for v in dumped["violations"]] == ["cycle"]
 
@@ -674,9 +716,9 @@ def test_cli_json(tmp_path, capsys):
 def test_cli_emit_lock_graph(tmp_path, capsys):
     target = tmp_path / "graph.json"
     assert cli_main(["--emit-lock-graph", str(target), str(PORT)]) == 0
-    assert "wrote 10 lock(s), 1 order edge(s), 4 thread/signal entr(ies)" in capsys.readouterr().out
+    assert "wrote 12 lock(s), 1 order edge(s), 8 thread/signal entr(ies)" in capsys.readouterr().out
     graph = json.loads(target.read_text())
-    assert set(graph["locks"]) == PORT_LOCKS and len(graph["edges"]) == 1 and len(graph["entries"]) == 4
+    assert set(graph["locks"]) == PORT_LOCKS and len(graph["edges"]) == 1 and len(graph["entries"]) == 8
 
 
 def test_cli_missing_path_fails(tmp_path, capsys):

@@ -51,7 +51,10 @@ the CPU (the kernel's site ``whitelist.correct_pallas`` against
 ``whitelist.correct_jnp``, with one dispatch a launch), and a memory
 watermark the CPU cannot; ``sample_memory`` rises with an allocation; a
 graph capture records one compile and a second capture of its key one
-retrace.
+retrace. The flight recorder and the audit ledger: a sched worker process on
+cuda, traced and crash-injected mid-chunk, leaves a flight record with its
+open task span, its sections and the registry of its sharded dispatches, and
+its stolen rerun on the card commits a journal that audits EXACT.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
@@ -60,6 +63,7 @@ The JAX comparisons of the same functions run on the CPU in
 """
 
 import gzip
+import json
 import shutil
 
 import numpy as np
@@ -922,6 +926,60 @@ def test_collective_merge_parts_on_the_card_matches_the_text_merge(cuda_device, 
         n = collective_merge_parts(pattern, str(tmp_path / f"{name}.csv.gz"), mesh=mesh, journal_dir=journal,
                                    expected_parts=2)
         assert n == 300 and _gz(tmp_path / f"{name}.csv.gz") == _gz(tmp_path / "text.csv.gz")
+
+
+CRASHING_WORKER = """
+import glob, os, sys
+from sctools_tpu_torch.parallel.launch import run_process_cell_metrics
+
+chunks = sorted(glob.glob(os.path.join(sys.argv[1], "chunks", "*.bam")))
+run_process_cell_metrics(chunks, os.path.join(sys.argv[1], "proc0"), 1, 0, lease_ttl=1.0)
+"""
+
+
+def test_crashed_worker_on_the_card_leaves_a_flight_record_and_its_rerun_audits_exact(cuda_device, tmp_path):
+    """A traced sched worker on cuda commits its first chunk and crashes at
+    the second chunk's first batch (``crash@gatherer.batch``): its flight
+    record names the crash and the open ``sched:task`` span and carries the
+    ``ring_slots`` section and the registry (``xprof``) of the dispatches
+    it made on the card; the rerun steals the chunk after the lease's TTL,
+    and ``obs audit`` balances every record."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from sctools_tpu_torch.obs import audit
+    from sctools_tpu_torch.parallel import launch
+
+    bam, _, journal, _ = _scheduled_parts(tmp_path)
+    for part in tmp_path.glob("metrics.part*.csv.gz"):
+        part.unlink()
+    shutil.rmtree(journal)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("SCTOOLS_TPU_")}
+    env.update(PYTHONPATH=str(Path(__file__).resolve().parents[1]), SCTOOLS_TPU_TRACE=str(tmp_path / "trace"),
+               SCTOOLS_TPU_FAULTS="crash@gatherer.batch:match=chunk_1.bam,times=1")
+    done = subprocess.run([sys.executable, "-c", CRASHING_WORKER, str(tmp_path)], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert done.returncode == 86, done.stdout + done.stderr
+    (flight,) = (tmp_path / "trace").glob("flight.*.jsonl")
+    with open(flight) as f:
+        meta = json.loads(f.readline())
+    assert meta["reason"] == f"crash@gatherer.batch:{tmp_path / 'chunks' / 'chunk_1.bam'}"
+    # the chunk's one batch may have left the ring at its end: the section
+    # is there, its slots maybe not
+    assert "sched:task" in meta["open_spans"] and "ring_slots" in meta["sections"]
+    assert meta["xprof"]["sites"]["parallel.sharded_metrics"]["dispatches"] >= 1
+    assert meta["xprof"]["memory"]["supported"] is True and meta["xprof"]["memory"]["samples"] > 0
+    committed = launch.run_process_cell_metrics(sorted(str(p) for p in (tmp_path / "chunks").glob("*.bam")),
+                                                str(tmp_path / "proc0"), 1, 0, lease_ttl=1.0)
+    assert committed == [str(tmp_path / "metrics.part0001.csv.gz")]
+    report = audit.audit_run(str(tmp_path))
+    fleet = report["fleet"]
+    assert fleet["exact"] and fleet["tasks_audited"] == 2
+    assert fleet["records"]["decoded"] == fleet["records"]["computed"] > 0
+    assert fleet["rows"]["computed"] == fleet["rows"]["emitted"] == 300
+    assert sum(task["steals"] for task in report["tasks"].values()) == 1
 
 
 def _graph_batch(rng, schema: str, n: int):

@@ -12,13 +12,10 @@ scripts of its subprocess cases included) is pointed at
 test bodies, parameters and fixtures drive the port's modules. Every case
 runs but these, which test what the port leaves out:
 
-- ``test_obs``: ``test_flight_dump_persists_ring_counters_and_open_stack``
-  and ``test_flight_dump_without_trace_dir_is_noop`` (the flight recorder
-  waits for its own slice); ``test_xla_trace_noop_without_configuration``
-  and ``test_install_jax_hooks_idempotent_and_records`` (JAX's profiler and
+- ``test_obs``: ``test_xla_trace_noop_without_configuration`` and
+  ``test_install_jax_hooks_idempotent_and_records`` (JAX's profiler and
   compile hooks: the port has no jit).
-- ``test_pulse``: ``test_sigterm_leaves_parseable_ring_and_flight_section``
-  (the flight section), ``test_summarize_overhead_ratios_takes_min``,
+- ``test_pulse``: ``test_summarize_overhead_ratios_takes_min``,
   ``test_check_result_platform_filtering``,
   ``test_check_result_bubble_and_pulse_gates`` and
   ``test_bench_pulse_overhead_asserts_off_mode`` (``bench.py``),
@@ -121,13 +118,10 @@ def _ported(name: str) -> types.ModuleType:
 
 _MIRRORED = {
     "test_obs": {
-        "test_flight_dump_persists_ring_counters_and_open_stack",
-        "test_flight_dump_without_trace_dir_is_noop",
         "test_xla_trace_noop_without_configuration",
         "test_install_jax_hooks_idempotent_and_records",
     },
     "test_pulse": {
-        "test_sigterm_leaves_parseable_ring_and_flight_section",
         "test_summarize_overhead_ratios_takes_min",
         "test_check_result_platform_filtering",
         "test_check_result_bubble_and_pulse_gates",
@@ -233,8 +227,14 @@ def test_platform_fingerprint_is_the_ports():
 
 @pytest.mark.parametrize("command", ["audit", "explain"])
 def test_unported_subcommands_exit_two_naming_the_roadmap_item(command, capsys):
-    assert port_cli([command, "anything"]) == 2
-    assert "ROADMAP item 10" in capsys.readouterr().err
+    """``audit`` and ``explain`` are ported now: on a path that holds no
+    journal (``explain`` without a selector too) each exits 2 with JAX's
+    message."""
+    from sctools_tpu.obs.__main__ import main as jax_cli
+
+    assert port_cli([command, "anything"]) == 2 == jax_cli([command, "anything"])
+    port_err, jax_err = capsys.readouterr().err.splitlines()
+    assert port_err == jax_err and port_err.startswith(f"obs {command}: ")
 
 
 @pytest.mark.parametrize("command,message", [
@@ -269,6 +269,7 @@ def test_a_fresh_interpreter_loads_obs_without_torch():
         "import sys\n"
         "import sctools_tpu_torch.obs, sctools_tpu_torch.obs.pulse, sctools_tpu_torch.obs.slo\n"
         "import sctools_tpu_torch.obs.delta, sctools_tpu_torch.obs.serve, sctools_tpu_torch.obs.__main__\n"
+        "import sctools_tpu_torch.obs.audit\n"
         "print(sorted(m for m in ('torch', 'numpy') if m in sys.modules))\n"
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith("SCTOOLS_TPU_")}

@@ -7,8 +7,9 @@ retry, steal and quarantine, the CLI, the merge's validation, and end to
 end, worker processes running the port with ``device="cpu"`` (the script
 ``WORKER`` below) killed mid-chunk, failing, poisoned and terminated, whose
 merged CSV equals a one-shot run byte for byte. The SIGTERM case lands
-during an injected ``delay@gatherer.batch``: the port has no guard stall and
-no flight recorder.
+during an injected ``delay@gatherer.batch``: the port has no guard stall
+(the flight record such a worker leaves, and the audit of its journal, are
+``test_torch_audit.py``'s).
 
 Against the JAX package, on the same inputs: ``make_cell_metric_tasks``
 gives JAX's task ids; ``parse_spec`` gives JAX's clauses; ``backoff_delay``

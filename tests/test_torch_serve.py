@@ -18,9 +18,8 @@ slack, as ``test_torch_metrics`` explains) and JAX's trace segments, for a
 clean pack, a pack whose stream is grouped but not ascending, and a
 collision; a port worker drains a journal JAX's ``submit_jobs`` wrote, and
 its ``committed`` extras equal a JAX worker's on the same jobs (each
-execution's ``ledger`` holds the two counts the port keeps, and they equal
-JAX's under the same keys); JAX's ``sched status`` and the port's print
-the same serve lines for the same journal.
+execution's audit ``ledger`` included, stage for stage); JAX's ``sched
+status`` and the port's print the same serve lines for the same journal.
 
 End to end: two worker processes on ``device="cpu"``, one SIGTERM'd inside
 a pack (held there by an injected ``delay@task.claimed``); no job is lost,
@@ -430,8 +429,10 @@ def test_run_packed_records_trace_segments(tmp_path):
     # per-member decoded rows: 4 cells x 2 ubs x 1 read = 8 each
     assert seg["rows"] == [8, 8]
     assert trace.degrade_reason() is None
-    # the port's ledger: 16 records streamed, 8 rows out (4 cells each)
-    assert seg["ledger"] == {"records.decoded": 16, "rows.emitted": 8}
+    # the execution's audit ledger: 16 records through every record stage,
+    # 8 rows computed and out (4 cells each)
+    assert seg["ledger"] == {"records.ingested": 16, "records.decoded": 16, "records.computed": 16,
+                             "rows.computed": 8, "rows.emitted": 8}
     assert seg["rows_routed"] == seg["rows_claimed"] == [4, 4]
 
 
@@ -531,12 +532,10 @@ def test_run_packed_equals_jax(tmp_path, case):
     ]
     assert port_trace.bucket == jax_trace.bucket == 4096
     for segment in jax_trace.executed:
-        if "ledger" in segment:  # the port's two counts equal JAX's
+        if "ledger" in segment:  # the audit ledger of each execution equals JAX's, stage for stage
             port_segment = next(s for s in port_trace.executed if s["exec_id"] == segment["exec_id"]
                                 and not s.get("aborted"))
-            assert port_segment["ledger"] == {
-                k: v for k, v in segment["ledger"].items() if k in ("records.decoded", "rows.emitted")
-            }
+            assert port_segment["ledger"] == segment["ledger"] and segment["ledger"]
     for (tenant, bam, _), packed_text in zip(jobs, port_text):
         solo = tmp_path / f"solo_{tenant}"
         GatherCellMetrics(bam, str(solo), batch_records=4096, device="cpu", compress=False).extract_metrics()
@@ -871,12 +870,7 @@ def test_port_worker_drains_jax_journal_with_jax_commit_extras(worker_runs):
     assert len(port_extras) == 3 and set(port_extras) == set(jax_extras)
     assert any(len(extra["pack_members"]) > 1 for extra in port_extras.values())
     for tid, extra in jax_extras.items():
-        # JAX's ledger holds more stages; the port keeps two of them
-        for segment in extra["pack_execs"]:
-            if "ledger" in segment:
-                segment["ledger"] = {
-                    k: v for k, v in segment["ledger"].items() if k in ("records.decoded", "rows.emitted")
-                }
+        # the pack executions' audit ledgers included, stage for stage
         assert port_extras[tid] == extra
     for path, text in worker_runs["port"][1].items():
         assert_text_match(text, worker_runs["jax"][1][path])
