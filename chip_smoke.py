@@ -305,8 +305,48 @@ Phases, in order; any failure exits non-zero before the last line:
               ``{"mode": "off"}``. Prints each leg's captures at warmup and
               while serving, replays, occupancy, packs by bucket, decisions
               and wall; no worker may launch a hand kernel;
-18. kernels -- one JSON line per the port's kernel contract; its launches are
-              those of every main-path run (phases 4, 7, 13, 14 and 15).
+18. guard  -- the guard ladder (``sctools_tpu_torch.guard``) and the
+              writeback ring on the card, after the JAX package's
+              tests/guard_smoke.py, each run a process of its own. (a) Two
+              sched workers (phase 10's ``--sched-worker``), traced
+              (``SCTOOLS_TPU_TRACE``, ``SCTOOLS_TPU_PULSE=1``) and witnessed
+              (``SCTOOLS_TPU_LOCK_DEBUG=1`` with the static lock graph,
+              ``SCTOOLS_TPU_FRAME_DEBUG=1``), drain phase 10's five chunks
+              at the 2^20-record width with
+              ``SCTOOLS_TPU_GUARD_TIMEOUT_COMPUTE=20`` under a fault
+              cocktail: a ``device_oom`` at ``gatherer.dispatch`` on
+              chunk0001, one ``xla_transient`` at ``gatherer.dispatch`` and
+              one at ``gatherer.writeback`` a worker, a 60 s ``stall`` on
+              chunk0002 and ``corrupt_record`` at records 3 and 10 of
+              chunk0000; a fault-free twin pair with
+              ``SCTOOLS_TPU_WIRE_OVERLAP=0`` drains the same chunks less those
+              two records (cut out with the port's ``io.sam``). Every task
+              must commit once with no ``failed`` event, the sidecars name
+              exactly the two records, the merged CSV equal the twin's
+              (decompressed), 0 retraces, at least one OOM bisection, two
+              transient retries and one stall, two poison records; the lock
+              witness must show no violation and acquire the guard's five
+              locks, the frame witness no stale read; ``obs audit`` EXACT
+              with ``records.quarantined:PoisonData`` = 2, ``sched status``
+              naming the quarantined records, and the stall's flight record
+              ``guard_retries``, ``guard_degraded`` ({}) and
+              ``writeback_slots``. (b) A child measures the peak device
+              memory of one full batch of phase 5's cell BAM and of one
+              2^19 batch, caps itself between them
+              (``torch.cuda.set_per_process_memory_fraction``) and runs
+              CalculateCellMetrics: a genuine ``torch.OutOfMemoryError``
+              must classify ``resource_exhausted`` and bisect, and the CSV
+              equal phase 5's. (c) Attach -w of phase 13's 131,072 reads
+              under ``xla_transient@whitelist.correct:times=1``: one retry,
+              launches = batches = 2, the BAM equal phase 14's untraced one
+              byte for byte. (d) ``native.synth_bam_native`` writes 1,000
+              cells and the ring decodes as many records as it returned.
+              Prints the peaks and the cap, the counters, what a fault-free
+              ``run_batch`` and ``retrying`` cost on the host (20,000 of
+              each) and each step's wall; no sched worker and no step but
+              (c) may launch a hand kernel;
+19. kernels -- one JSON line per the port's kernel contract; its launches are
+              those of every main-path run (phases 4, 7, 13, 14, 15 and 18).
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2375,7 +2415,8 @@ def sched_worker(argv) -> int:
     begin = time.perf_counter()
     sys.path.insert(0, str(REPO))
     from sctools_tpu_torch import gtf as port_gtf
-    from sctools_tpu_torch import kernels
+    from sctools_tpu_torch import kernels, obs
+    from sctools_tpu_torch.ingest import framedebug
     from sctools_tpu_torch.parallel import launch
 
     print("[worker] " + json.dumps({"launches": dict(kernels.launches)}), flush=True)
@@ -2384,8 +2425,13 @@ def sched_worker(argv) -> int:
         n_processes, process_id, frozenset(port_gtf.get_mitochondrial_gene_names(gtf)),
         lease_ttl=SCHED_TTL, backoff_base=0.1,
     )
+    # the guard's and the wire's counters (a traced worker's), and the frame
+    # witness's stamps and stale reads (phase 18)
+    counters = {k: v for k, v in obs.counters().items() if k.startswith(("guard_", "sched_fault_", "wire_"))}
     print("[worker] " + json.dumps({"wall": time.perf_counter() - begin, "committed": len(committed),
-                                    "launches": dict(kernels.launches)}), flush=True)
+                                    "launches": dict(kernels.launches), "counters": counters,
+                                    "stamped": framedebug.stamped_count(),
+                                    "frame_violations": framedebug.violations()}), flush=True)
     return 0
 
 
@@ -3057,9 +3103,10 @@ def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
     if emitted.returncode != 0:
         raise AssertionError(f"--emit-lock-graph: rc {emitted.returncode}\n{emitted.stdout}{emitted.stderr}")
     graph = json.loads(graph_path.read_text())
-    if len(graph["locks"]) != 12 or not {"obs.xprof", "obs.audit", "ingest.ring_state"} <= set(graph["locks"]):
-        raise AssertionError(f"the static lock graph names {sorted(graph['locks'])}, want twelve with obs.xprof, "
-                             f"obs.audit and ingest.ring_state")
+    if len(graph["locks"]) != 17 or not {"obs.xprof", "obs.audit", "ingest.ring_state", *GUARD_LOCKS} <= \
+            set(graph["locks"]):
+        raise AssertionError(f"the static lock graph names {sorted(graph['locks'])}, want seventeen with obs.xprof, "
+                             f"obs.audit, ingest.ring_state and {GUARD_LOCKS}")
     static_edges = {(e["from"], e["to"]) for e in graph["edges"]}
     log(f"[analysis] {stamp} | python -m sctools_tpu_torch.analysis sctools_tpu_torch chip_smoke.py --json: "
         f"exit 0, {len(result['findings'])} findings over {result['checked_files']} files in {passes_s:.2f} s "
@@ -3128,7 +3175,9 @@ def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
     blocking = {(e["from"], e["to"]) for e in dump["edges"] if not e["bounded"]}
     if not blocking <= static_edges:
         raise AssertionError(f"observed edges {sorted(blocking - static_edges)} are not in the static graph")
-    missing = set(graph["locks"]) - set(dump["acquires"])
+    # the strike count's and the deadline's locks are taken on a fault path
+    # only: phase 18's fault cocktail takes them under the witness
+    missing = set(graph["locks"]) - set(dump["acquires"]) - GUARD_FAULT_LOCKS
     if missing:
         raise AssertionError(f"locks never acquired under the witness: {sorted(missing)}")
     log(f"[analysis] {stamp} | witnessed worker (SCTOOLS_TPU_LOCK_DEBUG=1 with the static graph, "
@@ -3740,6 +3789,9 @@ def phase_efficiency(stamp: str, modules, traced: dict) -> None:
     # phase 10's chunks, phase 5's GTF and CSV and phase 11's serve journal
     # stay for the audit phase
     shutil.rmtree(root)
+    # phase 14's untraced attach BAM is what phase 18's guarded attach must equal
+    (WORK / GUARD_IN).mkdir()
+    shutil.move(str(WORK / "tracing" / "plain" / "attach" / "attach.bam"), str(WORK / GUARD_IN / "attach_plain.bam"))
     shutil.rmtree(WORK / "tracing")
     log(f"[efficiency] phase 15 took {time.perf_counter() - phase_start:.1f} s")
 
@@ -4087,7 +4139,7 @@ def phase_audit(stamp: str, modules) -> None:
         f"mean of {FLIGHT_DUMPS}); one audit.add {add_us:.3f} us (mean of {AUDIT_ADD_N}): {AUDIT_TAPS} a chunk batch "
         f"= {AUDIT_TAPS * add_us:.3f} us against B's {chunk_s:.3f} s a chunk "
         f"({100 * AUDIT_TAPS * add_us * 1e-6 / chunk_s:.6f}%)")
-    shutil.rmtree(WORK)
+    clear_work_for_guard()
     log(f"[audit] phase 16 took {time.perf_counter() - phase_start:.1f} s")
 
 
@@ -4323,8 +4375,383 @@ def phase_steer(stamp: str, modules) -> None:
         raise AssertionError(f"a hand kernel launched in the steering phase: {kernels.launches}")
     log(f"[steer] every served CSV of both legs equals its job's solo CalculateCellMetrics CSV on the card "
         f"(decompressed; the solo runs took {solo_s:.2f} s); no hand kernel launched in this process")
-    shutil.rmtree(WORK)
+    clear_work_for_guard()
     log(f"[steer] phase 17 took {time.perf_counter() - phase_start:.1f} s")
+
+
+GUARD_ROOT = "guard"
+GUARD_IN = "guard_in"  # phase 14's untraced attach BAM, kept from phase 15
+# phase 18's inputs, which phases 16 and 17 leave in place
+KEPT_FOR_GUARD = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz", "chunks", "analysis", GUARD_IN)
+# the guard's five named locks; the strike count's and the deadline's are
+# taken on a fault path only
+GUARD_LOCKS = ("guard.open_retries", "guard.degrade", "guard.quarantine", "guard.watchdog.deadline",
+               "ingest.wire_state")
+GUARD_FAULT_LOCKS = frozenset({"guard.degrade", "guard.watchdog.deadline"})
+GUARD_POISON = (3, 10)  # the records of chunk0000 the cocktail poisons
+GUARD_TIMEOUT_COMPUTE = "20"  # the JAX guard smoke's compute deadline (tests/guard_smoke.py:122-127)
+GUARD_SYNTH_CELLS = 1000
+GUARD_OVERHEAD_N = 20_000
+GUARD_FLAG = "--guard-worker"
+
+
+def clear_work_for_guard() -> None:
+    """Remove the work files but phase 18's inputs (``KEPT_FOR_GUARD``)."""
+    for path in WORK.iterdir():
+        if path.name not in KEPT_FOR_GUARD:
+            shutil.rmtree(path) if path.is_dir() and not path.is_symlink() else path.unlink()
+
+
+def guard_worker(argv) -> int:
+    """One of phase 18's child processes, on cuda: ``oom <out>`` measures
+    the peak device memory of one full 2^20 batch of phase 5's cell BAM and
+    of one 2^19 batch, caps the process's memory between them and runs
+    CalculateCellMetrics under the cap; ``attach <out>`` runs attach -w on
+    phase 13's reads under the environment's faults. Prints one ``[worker]
+    {json}`` line: the guard's counters, what it classified, the hand kernel
+    launches and the step's own numbers."""
+    mode, out = argv[0], Path(argv[1])
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from sctools_tpu_torch import guard, ingest, kernels, native, obs
+    from sctools_tpu_torch import gtf as port_gtf
+    from sctools_tpu_torch import platform as port_platform
+    from sctools_tpu_torch.metrics import gatherer as port_gatherer
+
+    obs.enable()  # the guard's counters, in this process only
+    classified = []
+    classify = guard.classify
+
+    def recorded(error):
+        kind = classify(error)
+        classified.append((f"{type(error).__module__}.{type(error).__name__}", kind))
+        return kind
+
+    guard.classify = recorded  # what the ladder's attempt loops call
+    out.mkdir(parents=True, exist_ok=True)
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    report = {}
+    kernels.reset_launches()
+    if mode == "oom":
+        bam, gtf = str(WORK / "cell_sorted.bam"), str(WORK / "mito.gtf")
+        from sctools_tpu_torch.io.packed import copy_frame
+
+        stream = native.stream_frames(bam, METRICS_BATCH)
+        frame = copy_frame(next(stream))
+        stream.close()
+        changes = np.nonzero(frame.cell[1:] != frame.cell[:-1])[0]
+        full = int(changes[changes < METRICS_BATCH][-1]) + 1
+        half = int(changes[changes < METRICS_BATCH // 2][-1]) + 1
+        gatherer = port_gatherer.GatherCellMetrics(
+            bam, str(out / "peak"), frozenset(port_gtf.get_mitochondrial_gene_names(gtf)), device="cuda")
+        gatherer.start_stream()
+        gatherer._writeback = ingest.WritebackRing(name="peak")
+
+        def peak(records: int, pad_to: int) -> int:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            pending = gatherer._dispatch_device_batch(port_gatherer.slice_frame(frame, 0, records), pad_to=pad_to)
+            gatherer._writeback.collect(pending[1], site="smoke.peak")
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated()
+
+        peaks = {"full": peak(full, METRICS_BATCH), "half": peak(half, 0)}
+        gatherer._writeback.close()
+        del frame, gatherer
+        total = torch.cuda.get_device_properties(0).total_memory
+        cap = (peaks["full"] + peaks["half"]) // 2
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        obs.reset()
+        start = time.perf_counter()
+        rc = port_platform.GenericPlatform.calculate_cell_metrics(
+            ["-i", bam, "-o", str(out / "oom_cell"), "-a", gtf])
+        torch.cuda.synchronize()
+        report.update(rc=rc, seconds=time.perf_counter() - start, peaks=peaks, records={"full": full, "half": half},
+                      cap=cap, total=total, max_allocated=torch.cuda.max_memory_allocated())
+    else:
+        start = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = port_platform.TenXV2.attach_barcodes(attach_args(WORK / "analysis", out / "attach.bam"))
+        torch.cuda.synchronize()
+        report.update(rc=rc, seconds=time.perf_counter() - start)
+    report["launches"] = dict(kernels.launches)
+    report["counters"] = {k: v for k, v in obs.counters().items() if k.startswith(("guard_", "sched_fault_"))}
+    report["classified"] = classified
+    print("[worker] " + json.dumps(report), flush=True)
+    return 0
+
+
+def run_guard_worker(mode: str, out: Path, env: dict) -> dict:
+    proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), GUARD_FLAG, mode, str(out)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=WORK)
+    try:
+        text = proc.communicate(timeout=600)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [line for line in text.splitlines() if line.startswith("[worker] ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"guard worker {mode}: rc {proc.returncode}\n{text[-4000:]}")
+    report = json.loads(lines[0][len("[worker] "):])
+    if report["rc"] != 0:
+        raise AssertionError(f"guard worker {mode}: the command's rc {report['rc']}\n{text[-4000:]}")
+    return report
+
+
+def drop_records(src: Path, dst: Path, drop, sam) -> int:
+    """``src`` without the records at the indices ``drop``, by the port's
+    reader and writer; returns the records kept."""
+    kept = 0
+    with sam.AlignmentReader(str(src)) as reader:
+        with sam.AlignmentWriter(str(dst), reader.header) as writer:
+            for index, record in enumerate(reader):
+                if index not in drop:
+                    writer.write(record)
+                    kept += 1
+    return kept
+
+
+def phase_guard(stamp: str, modules) -> None:
+    """The guard ladder on the card; see the module docstring, phase 18."""
+    import os
+
+    import torch
+
+    kernels, native, ingest, guard, sched, faults, launch, sam, xprof = modules
+    phase_start = time.perf_counter()
+    launches_before = dict(kernels.launches)
+    root = WORK / GUARD_ROOT
+    root.mkdir()
+    base_env = {k: v for k, v in os.environ.items()
+                if k not in TRACE_VARS and k not in WITNESS_VARS and k != "SCTOOLS_TPU_FAULTS"
+                and not k.startswith("SCTOOLS_TPU_GUARD_") and k != "SCTOOLS_TPU_WIRE_OVERLAP"}
+    steps = {}
+
+    # (a) the fault cocktail, against a fault-free twin over the same chunks
+    # less the two poisoned records, run on the blocking writeback
+    begin = time.perf_counter()
+    graph_path = root / "lock_graph.json"
+    emitted = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", "--emit-lock-graph",
+                              str(graph_path), "sctools_tpu_torch"], cwd=REPO,
+                             env=dict(base_env, SCTOOLS_TPU_SCX_CACHE="0"), capture_output=True, text=True,
+                             timeout=300)
+    if emitted.returncode != 0:
+        raise AssertionError(f"--emit-lock-graph: rc {emitted.returncode}\n{emitted.stdout}{emitted.stderr}")
+    graph = json.loads(graph_path.read_text())
+    static_edges = {(e["from"], e["to"]) for e in graph["edges"]}
+    chunks = sorted((WORK / "chunks").glob("chunk*.bam"))
+    faulted, twin = root / "faulted", root / "twin"
+    faulted.mkdir()
+    (faulted / "chunks").symlink_to(WORK / "chunks")
+    (twin / "chunks").mkdir(parents=True)
+    for chunk in chunks[1:]:
+        (twin / "chunks" / chunk.name).symlink_to(chunk)
+    kept = drop_records(chunks[0], twin / "chunks" / chunks[0].name, set(GUARD_POISON), sam)
+    steps["twin chunk"] = time.perf_counter() - begin
+    spec = ";".join([f"device_oom@gatherer.dispatch:match={chunks[1].stem},times=1",
+                     "xla_transient@gatherer.dispatch:times=1",
+                     "xla_transient@gatherer.writeback:times=1",
+                     f"stall@gatherer.dispatch:match={chunks[2].stem},times=1,secs=60"]
+                    + [f"corrupt_record@gatherer.dispatch:match={chunks[0].stem},record={r}" for r in GUARD_POISON])
+    gtf = str(WORK / "mito.gtf")
+
+    def run_pair(workdir: Path, extra: dict) -> list:
+        env = dict(base_env, SCTOOLS_TPU_TRACE=str(workdir), SCTOOLS_TPU_PULSE="1", SCTOOLS_TPU_LOCK_DEBUG="1",
+                   SCTOOLS_TPU_LOCK_GRAPH=str(graph_path), SCTOOLS_TPU_FRAME_DEBUG="1",
+                   SCTOOLS_TPU_GUARD_TIMEOUT_COMPUTE=GUARD_TIMEOUT_COMPUTE, **extra)
+        procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), WORKER_FLAG, str(workdir), str(i),
+                                   "2", gtf], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+                 for i in (0, 1)]
+        reports = []
+        try:
+            for proc in procs:
+                text = proc.communicate(timeout=600)[0]
+                if proc.returncode != 0:
+                    raise AssertionError(f"{workdir.name} worker: rc {proc.returncode}\n{text[-4000:]}")
+                reports.append(worker_reports(workdir.name, text, 2)[1])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return reports
+
+    begin = time.perf_counter()
+    twin_reports = run_pair(twin, {"SCTOOLS_TPU_WIRE_OVERLAP": "0"})
+    steps["twin run"] = time.perf_counter() - begin
+    begin = time.perf_counter()
+    reports = run_pair(faulted, {"SCTOOLS_TPU_FAULTS": spec})
+    steps["faulted run"] = time.perf_counter() - begin
+
+    begin = time.perf_counter()
+    journal_dir = faulted / "sched-journal"
+    journal = sched.Journal(str(journal_dir), worker_id="smoke-probe")
+    tasks, states = journal.replay()
+    by_name = {tasks[tid].name: st for tid, st in states.items()}
+    if len(by_name) != len(chunks) or any(st.state != sched.COMMITTED for st in by_name.values()):
+        raise AssertionError(f"not every chunk committed: { {n: st.state for n, st in by_name.items()} }")
+    failed = [e for e in journal.events() if e.get("event") == "failed"]
+    if failed or any(st.attempts != 1 for st in by_name.values()):
+        raise AssertionError(f"the faults reached the scheduler: failed events {failed}, attempts "
+                             f"{ {n: st.attempts for n, st in by_name.items()} }")
+    from sctools_tpu_torch.guard.quarantine import load_quarantine
+
+    entries = load_quarantine(str(journal_dir / "quarantine"))
+    got = sorted((e["task"], e["record_start"], e["record_stop"]) for e in entries)
+    if got != [(chunks[0].stem, r, r + 1) for r in GUARD_POISON] or \
+            any(e["site"] != "gatherer.dispatch" or chunks[0].name not in e["name"] or not e["task_id"]
+                for e in entries):
+        raise AssertionError(f"the quarantine sidecars: {entries}")
+    merged = {}
+    for name, workdir in (("faulted", faulted), ("twin", twin)):
+        merged[name] = workdir / "merged.csv.gz"
+        launch.merge_sorted_csv_parts(str(workdir / "metrics.part*.csv.gz"), str(merged[name]),
+                                      journal_dir=str(workdir / "sched-journal"), expected_parts=len(chunks))
+    if read_csv(merged["faulted"])[0] != read_csv(merged["twin"])[0]:
+        raise AssertionError("the faulted run's merged CSV differs from the fault-free twin's")
+    registry = xprof.merge_registries(xprof.load_registries(str(faulted)))
+    retraces = sum(row["retraces"] for row in registry["sites"].values())
+    counters = collections.Counter()
+    for report in reports:
+        counters.update(report["counters"])
+    if retraces or counters["guard_oom_bisections"] < 1 or counters["guard_transient_retries"] < 2 or \
+            counters["guard_stalls"] < 1 or counters["guard_poison_records"] != len(GUARD_POISON):
+        raise AssertionError(f"the ladder: {retraces} retraces, counters {dict(counters)}")
+    dumps = sorted(faulted.glob("locks.*.json"))
+    acquired, violations, blocking = set(), [], set()
+    for path in dumps:
+        dump = json.loads(path.read_text())
+        acquired |= set(dump["acquires"])
+        violations += dump["violations"]
+        blocking |= {(e["from"], e["to"]) for e in dump["edges"] if not e["bounded"]}
+    if len(dumps) != 2 or violations or not set(GUARD_LOCKS) <= acquired or not blocking <= static_edges:
+        raise AssertionError(f"lock witness: {len(dumps)} dumps, violations {violations}, guard locks never "
+                             f"acquired {sorted(set(GUARD_LOCKS) - acquired)}, edges outside the static graph "
+                             f"{sorted(blocking - static_edges)}")
+    stamped = sum(report["stamped"] for report in reports)
+    if not stamped or any(report["frame_violations"] for report in reports):
+        raise AssertionError(f"frame witness: {stamped} frames stamped, "
+                             f"violations {[r['frame_violations'] for r in reports]}")
+    audit_text = obs_cli(base_env, "audit", str(faulted))
+    audit_json = obs_cli(base_env, "audit", str(faulted), "--json")
+    if audit_text.returncode != 0 or "RESULT: EXACT" not in audit_text.stdout or audit_json.returncode != 0:
+        raise AssertionError(f"obs audit: rc {audit_text.returncode}\n{audit_text.stdout}{audit_text.stderr}")
+    records = json.loads(audit_json.stdout)["fleet"]["records"]
+    if records["quarantined"] != len(GUARD_POISON) or \
+            records["quarantined_reasons"] != {"PoisonData": len(GUARD_POISON)} or \
+            records["decoded"] != records["computed"] + len(GUARD_POISON):
+        raise AssertionError(f"obs audit's records: {records}")
+    status = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.sched", "status", str(journal_dir)],
+                            capture_output=True, text=True, cwd=REPO, env=base_env, timeout=120)
+    if status.returncode != 0 or "poisoned record(s) quarantined" not in status.stdout:
+        raise AssertionError(f"sched status: rc {status.returncode}\n{status.stdout}{status.stderr}")
+    stalls = [flight_meta(path) for path in sorted(faulted.glob("flight.*.jsonl"))]
+    stalls = [meta for meta in stalls if meta["reason"].startswith("stall@compute:gatherer.dispatch")]
+    sections = stalls[0].get("sections") or {} if stalls else {}
+    if not stalls or "gatherer.dispatch" not in (sections.get("guard_retries") or {}) or \
+            sections.get("guard_degraded") != {} or "writeback_slots" not in sections:
+        raise AssertionError(f"the stall's flight record: {len(stalls)} found, sections {sections}")
+    launched = [r["launches"] for r in reports + twin_reports if any(r["launches"].values())]
+    if launched:
+        raise AssertionError(f"a sched worker launched a hand kernel: {launched}")
+    steps["cocktail checks"] = time.perf_counter() - begin
+    log(f"[guard] {stamp} | fault cocktail over phase 10's {len(chunks)} chunks, two witnessed traced workers "
+        f"(SCTOOLS_TPU_GUARD_TIMEOUT_COMPUTE={GUARD_TIMEOUT_COMPUTE}): every task committed once, 0 failed events, "
+        f"sidecars {got}, merged CSV = the fault-free twin's ({kept} records in its chunk0, blocking writeback), "
+        f"{retraces} retraces, counters {dict(sorted(counters.items()))}")
+    log(f"[guard] lock witness: 2 dumps, 0 violations, the guard's locks acquired {sorted(GUARD_LOCKS)}; frame "
+        f"witness: {stamped} frames stamped, 0 stale reads; obs audit EXACT with records.quarantined:PoisonData = "
+        f"{records['quarantined_reasons']['PoisonData']}; sched status names the quarantined records; the stall's "
+        f"flight record carries guard_retries {sorted(sections['guard_retries'])}, guard_degraded {{}} and "
+        f"{len(sections['writeback_slots'])} writeback ring(s); no hand kernel launched")
+
+    # (b) a real out-of-memory, not an injected one
+    begin = time.perf_counter()
+    oom = run_guard_worker("oom", root / "oom", base_env)
+    steps["real OOM"] = time.perf_counter() - begin
+    genuine = [kind for name, kind in oom["classified"] if name == "torch.OutOfMemoryError"]
+    if not genuine or set(genuine) != {"resource_exhausted"} or oom["counters"].get("sched_fault_device_oom") or \
+            oom["counters"].get("guard_oom_bisections", 0) < 1 or any(oom["launches"].values()):
+        raise AssertionError(f"the real OOM: classified {oom['classified']}, counters {oom['counters']}, "
+                             f"launches {oom['launches']}")
+    if read_csv(root / "oom" / "oom_cell.csv.gz")[0] != read_csv(WORK / "cli_cell.csv.gz")[0]:
+        raise AssertionError("the capped CalculateCellMetrics CSV differs from phase 5's")
+    log(f"[guard] {stamp} | real OOM: peak {oom['peaks']['full']} B for one full batch ({oom['records']['full']} "
+        f"records padded to {METRICS_BATCH}), {oom['peaks']['half']} B for one 2^19 batch "
+        f"({oom['records']['half']} records); cap {oom['cap']} B of {oom['total']} "
+        f"(set_per_process_memory_fraction); CalculateCellMetrics under it in {oom['seconds']:.2f} s: "
+        f"{len(genuine)} torch.OutOfMemoryError classified resource_exhausted, "
+        f"{oom['counters'].get('guard_oom_bisections', 0)} bisection(s), max allocated {oom['max_allocated']} B, "
+        f"the CSV equals phase 5's")
+
+    # (c) the guarded kernel
+    begin = time.perf_counter()
+    attach = run_guard_worker("attach", root / "attach",
+                              dict(base_env, SCTOOLS_TPU_FAULTS="xla_transient@whitelist.correct:times=1"))
+    steps["guarded kernel"] = time.perf_counter() - begin
+    batches = -(-ANALYSIS_READS // BATCH)
+    if attach["counters"].get("guard_transient_retries") != 1 or \
+            attach["launches"] != {"whitelist_correct": batches}:
+        raise AssertionError(f"the guarded kernel: counters {attach['counters']}, launches {attach['launches']}, "
+                             f"want 1 retry and {batches} launches")
+    if (root / "attach" / "attach.bam").read_bytes() != (WORK / GUARD_IN / "attach_plain.bam").read_bytes():
+        raise AssertionError("the guarded attach's BAM differs from phase 14's untraced one")
+    log(f"[guard] {stamp} | attach -w of {ANALYSIS_READS} reads under xla_transient@whitelist.correct:times=1: "
+        f"{attach['seconds']:.2f} s, 1 transient retry, {batches} kernel launches = batches, the BAM equals phase "
+        f"14's untraced one byte for byte")
+
+    # (d) the synthetic BAM generator, decoded by the ring
+    begin = time.perf_counter()
+    synth = root / "synth.bam"
+    calls = native.calls["synth_bam"]
+    written = native.synth_bam_native(str(synth), GUARD_SYNTH_CELLS)
+    synth_s = time.perf_counter() - begin
+    frames = ingest.ring_frames(str(synth), METRICS_BATCH)
+    decoded, small = 0, None
+    try:
+        for frame in frames:
+            decoded += frame.n_records
+            if small is None:
+                from sctools_tpu_torch.io.packed import copy_frame, slice_frame
+
+                small = copy_frame(slice_frame(frame, 0, 64))
+    finally:
+        frames.close()
+    if native.calls["synth_bam"] != calls + 1 or decoded != written or written != GUARD_SYNTH_CELLS * 32:
+        raise AssertionError(f"synth_bam_native: {written} written, {decoded} decoded")
+    steps["synth"] = time.perf_counter() - begin
+    log(f"[guard] {stamp} | native.synth_bam_native: {GUARD_SYNTH_CELLS} cells, {written} records in "
+        f"{synth_s:.3f} s, decoded by the ring: {decoded} records")
+
+    # (e) what the ladder costs on the host when nothing fails
+    faults.reset()
+    if faults.armed():
+        raise AssertionError("faults are armed in the smoke's own process")
+    begin = time.perf_counter()
+    for _ in range(GUARD_OVERHEAD_N):
+        guard.run_batch(lambda sub, offset: None, small, site="smoke.overhead")
+    run_batch_us = (time.perf_counter() - begin) / GUARD_OVERHEAD_N * 1e6
+    begin = time.perf_counter()
+    for _ in range(GUARD_OVERHEAD_N):
+        guard.retrying(lambda: None, site="smoke.overhead")
+    retrying_us = (time.perf_counter() - begin) / GUARD_OVERHEAD_N * 1e6
+    from sctools_tpu_torch.obs import audit
+
+    audit.reset()
+    log(f"[guard] {stamp} | fault-free, faults unarmed, on this host: one guard.run_batch {run_batch_us:.3f} us, "
+        f"one guard.retrying {retrying_us:.3f} us (mean of {GUARD_OVERHEAD_N} each)")
+    if dict(kernels.launches) != launches_before:
+        raise AssertionError(f"a hand kernel launched in this process: {kernels.launches}")
+    torch.cuda.synchronize()
+    log(f"[guard] {stamp} | step walls: " + ", ".join(f"{name} {s:.2f} s" for name, s in steps.items()))
+    shutil.rmtree(WORK)
+    log(f"[guard] phase 18 took {time.perf_counter() - phase_start:.1f} s")
+    return attach["launches"]["whitelist_correct"]
 
 
 def main(argv=None) -> int:
@@ -4414,20 +4841,28 @@ def main(argv=None) -> int:
 
     phase_steer(stamp, (kernels, bgzf, port_pulse, port_xprof, port_steer, port_manifest, port_sched, port_serve_cli,
                         port_platform))
+    from sctools_tpu_torch import guard as port_guard
+    from sctools_tpu_torch import ingest as port_ingest
+    from sctools_tpu_torch.sched import faults as port_faults
+
+    guard_launches = phase_guard(stamp, (kernels, native, port_ingest, port_guard, port_sched, port_faults, port_launch,
+                                         sam, port_xprof))
     record = {
         "name": "whitelist_correct",
         "route": "cuda",
         "source": "sctools_tpu_torch/csrc/whitelist_correct.cu",
         "replaces": "sctools_tpu/ops/whitelist.py:125",
         # every main-path run of the smoke: attach, FastqProcess in both
-        # formats, SampleFastq, the analysis phase's witnessed attach and
-        # the tracing phase's two, which the efficiency phase reads (the
-        # metrics, count, sort, mesh, sched, serve and dist paths launch none)
-        "launches": launches["whitelist_correct"] + fastq_launches + analysis_launches + tracing_launches,
+        # formats, SampleFastq, the analysis phase's witnessed attach, the
+        # tracing phase's two, which the efficiency phase reads, and the
+        # guard phase's attach under a transient (the metrics, count, sort,
+        # mesh, sched, serve and dist paths launch none)
+        "launches": launches["whitelist_correct"] + fastq_launches + analysis_launches + tracing_launches
+        + guard_launches,
         "verdict": "exact",
         **measured,
     }
-    log(f"[smoke] phases 1-17 took {time.perf_counter() - smoke_start:.1f} s")
+    log(f"[smoke] phases 1-18 took {time.perf_counter() - smoke_start:.1f} s")
     print(json.dumps({"kernels": [record]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -4448,6 +4883,8 @@ if __name__ == "__main__":
         sys.exit(analysis_worker(sys.argv[2:]))
     if sys.argv[1:2] == [TRACE_FLAG]:  # one of phase 14's worker processes
         sys.exit(trace_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [GUARD_FLAG]:  # one of phase 18's worker processes
+        sys.exit(guard_worker(sys.argv[2:]))
     try:
         sys.exit(main())
     except SystemExit:

@@ -36,15 +36,18 @@ back to batch positions, accumulate as above.
 Each device batch is one pulse heartbeat on stage ``count`` (``count.sharded``
 with a mesh), as in JAX: its h2d leg is the host packing of its block,
 its compute leg the upload, pass and queued pull (``dispatch``), its d2h
-leg the wait on the pull. The audit ledger (``obs.audit``) counts each
-ring frame's records as ``records.decoded`` and each batch's as
-``records.computed`` once its pass (either route) has been issued without
-error; a carried tail counts once, in the batch that dispatches it. JAX
-counts ``records.computed`` in its guard ladder. Not ported: the
-accumulator's one-batch ``add_batch`` (the streaming loop queues and
-finishes each batch itself through ``dispatch`` and ``finish``) and the
-guard ladder (a failed batch fails the command). A matrix built by the
-device backend also keeps plain records: ``batches`` and ``seconds``.
+leg the wait on the pull. Each batch goes through the guard ladder at
+``count.dispatch`` (``guarded_add``: retries, OOM bisection at query-name
+boundaries, poison quarantine; every retry, piece or remainder runs the
+same device pass), and its pull's wait is ``ingest.pull``'s guarded one.
+The audit ledger (``obs.audit``) counts each ring frame's records as
+``records.decoded``; the guard counts ``records.computed`` once a
+(sub-)batch's dispatch has succeeded and ``records.quarantined:<reason>``
+for what it isolated, as in JAX. Not ported: the accumulator's one-batch
+``add_batch`` (the streaming loop queues and finishes each batch itself
+through ``dispatch`` and ``finish``). A failure the guard cannot absorb
+fails the command. A matrix built by the device backend also keeps plain
+records: ``batches`` and ``seconds``.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from . import consts, ingest
+from . import consts, guard, ingest
 from .bam import get_tag_or_default
 from .obs import audit, pulse, xprof
 from .device import DeviceLike, resolve
@@ -429,15 +432,27 @@ class CountMatrix:
                 pulled = dispatch_sharded_count(stacked, orig, mesh)
             hb.end("compute")
             seconds["dispatch"] += time.perf_counter() - start
-            # conservation ledger: the batch's pass was issued without error
-            audit.add("records.computed", int(batch_frame.n_records))
             hb.add(real_rows=batch_frame.n_records, padded_rows=padded, bytes_h2d=h2d_bytes)
             batch = dict(records=batch_frame.n_records, padded=padded, h2d_bytes=h2d_bytes)
             batches.append(batch)
             names = BatchNames(batch_frame.cell_names, batch_frame.umi_names, batch_frame.gene_names)
             pending.append((names, batch_offset, pulled, batch, hb))
+
+        def guarded_add(batch_frame, batch_offset: int, pad: int) -> None:
+            """One batch through the guard's ladder at ``count.dispatch``: a
+            transient retries in place, an OOM bisects at query-name
+            boundaries (a query's multi-gene rule spans its whole group),
+            and a poisoned record is quarantined while the batch goes on
+            without it. A piece pads per ``guard.sub_pad_to``."""
+            guard.run_batch(
+                lambda sub, off: add(sub, off, guard.sub_pad_to(pad)),
+                batch_frame, site="count.dispatch", name=str(bam_file), offset=batch_offset,
+                splitter=guard.key_splitter(lambda f: f.qname),
+            )
             # the previous batch's pull is waited on only now, with this
-            # batch queued behind it
+            # batch queued behind it, outside the ladder: a fault at the
+            # wait is the pull's own (``ingest.pull``), and never re-runs a
+            # dispatched batch
             while len(pending) > 1:
                 finish_oldest()
 
@@ -500,10 +515,10 @@ class CountMatrix:
                         if not eligible.size:
                             break
                         cut = int(eligible[-1]) + 1
-                        add(slice_frame(frame, 0, cut), offset, pad)
+                        guarded_add(slice_frame(frame, 0, cut), offset, pad)
                         offset += cut
                         frame = carried(frame, cut)
-                    add(frame, offset, pad)
+                    guarded_add(frame, offset, pad)
                     break
                 changes = np.nonzero(frame.qname[1:] != frame.qname[:-1])[0]
                 if changes.size == 0:
@@ -518,7 +533,7 @@ class CountMatrix:
                 # overflows the capacity, cut right after it
                 eligible = changes[changes < capacity]
                 cut = int(eligible[-1] if eligible.size else changes[0]) + 1
-                add(slice_frame(frame, 0, cut), offset, pad)
+                guarded_add(slice_frame(frame, 0, cut), offset, pad)
                 offset += cut
                 carry = carried(frame, cut)
                 frame = following

@@ -22,10 +22,15 @@ Failure contract:
 - a native failure at the head of the file (bad magic, a truncated header)
   falls back to the Python decoder before any batch is yielded, as
   ``io.packed.iter_frames_from_bam`` does;
-- a native failure mid-stream raises ``NativeDecodeError`` in the consumer,
-  at the failed batch, naming the batch index and the record offset. There
-  is no switch to the Python decoder mid-stream (the JAX package's guard
-  ladder is not ported);
+- a native failure mid-stream raises ``NativeDecodeError`` (the guard's, a
+  ``PoisonData``) in the consumer, at the failed batch, naming the batch
+  index and the record offset. There is no switch to the Python decoder
+  mid-stream (port rule 4: the JAX package's guard downgrades the ring's
+  ``ingest.native`` site; the port's guard has no rungs);
+- the consumer pulls each frame under the ``decode`` leg's stall deadline
+  (``guard.watchdog.guarded_iter``, ``SCTOOLS_TPU_GUARD_TIMEOUT_DECODE``),
+  so a producer that stops feeding the queue without dying surfaces as a
+  ``Stall``;
 - a consumer that stops early, or raises, closes the ring: the producer
   closes its source (the native stream handle, or the fused sort's pipe and
   worker) and the thread is joined.
@@ -54,6 +59,8 @@ from typing import Dict, Iterable, Iterator, Optional
 
 from .. import obs
 from ..analysis.witness import make_lock
+from ..guard.errors import NativeDecodeError
+from ..guard.watchdog import guarded_iter
 from ..io import bgzf
 from ..io.packed import DEFAULT_TAG_KEYS, ReadFrame, _python_frames
 from ..obs import audit, pulse
@@ -91,15 +98,6 @@ def _set_ring_state(ring_id: int, **fields) -> None:
 def _drop_ring_state(ring_id: int) -> None:
     with _state_lock:
         _ring_state.pop(ring_id, None)
-
-
-class NativeDecodeError(RuntimeError):
-    """The native decoder failed mid-stream; names where."""
-
-    def __init__(self, message: str, batch_index: int, record_offset: int):
-        super().__init__(f"{message} (batch_index={batch_index}, record_offset={record_offset})")
-        self.batch_index = batch_index
-        self.record_offset = record_offset
 
 
 def ring_slots(depth: Optional[int] = None) -> int:
@@ -258,9 +256,10 @@ def ring_frames(
     depth = prefetch_depth()
     stats = _new_stats(stats)
     if source is not None:
-        return prefetch_iterator(_timed_source(source, stats, audited), depth)
+        return guarded_iter(prefetch_iterator(_timed_source(source, stats, audited), depth), leg="decode")
     keys = tuple(tag_keys) if tag_keys is not None else DEFAULT_TAG_KEYS
-    return _ring(bam_path, batch_records, want_qname, keys, depth, stats, audited)
+    return guarded_iter(_ring(bam_path, batch_records, want_qname, keys, depth, stats, audited),
+                        leg="decode")
 
 
 def _ring(bam_path, batch_records, want_qname, keys, depth, stats, audited) -> Iterator[ReadFrame]:

@@ -29,6 +29,7 @@ from pathlib import Path
 from typing import Dict
 
 from .analysis.witness import make_lock
+from .guard.watchdog import shielded
 
 _PACKAGE = Path(__file__).resolve().parent
 SOURCE_DIR = _PACKAGE / "csrc"
@@ -96,7 +97,9 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             path = _library_path(name)
             if not path.exists():
-                build_output[name] = _build(name)
+                # no Stall may land inside nvcc's build (guard.watchdog)
+                with shielded():
+                    build_output[name] = _build(name)
             lib = _libraries[name] = ctypes.CDLL(str(path))
         return lib
 

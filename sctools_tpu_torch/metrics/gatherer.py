@@ -11,13 +11,27 @@ per-batch results need no merging. Per batch the host makes the same schema
 decisions as the JAX gatherer (prepacked keys, run-keyed wire, narrow or
 wide genomic lanes, presorted or not), uploads one int32 block
 (``ingest.upload``), runs ``metrics.device.compute_entity_metrics`` and
-``compact_results_wire`` on the device, and pulls one compacted int32 block
-back (``ingest.pull``). Up to ``_PIPELINE_DEPTH`` batches are on the device
-before the oldest result is written, so batch k+2 is packed and uploaded
-while batch k's pull is in flight. The loop holds at most two ring frames
-(the current one while the next is pulled) and keeps nothing of an older
-one: the carry is copied, and a dispatched batch keeps its entity names (an
-owned list) and its pulled result, so the ring's retention window holds.
+``compact_results_wire`` on the device, and stages the copy of one
+compacted int32 block back (``ingest.WritebackRing``). Up to
+``_PIPELINE_DEPTH`` batches are on the device before the oldest result is
+written, so batch k+2 is packed and uploaded while batch k's copy is in
+flight. The loop holds at most two ring frames (the current one while the
+next is pulled) and keeps nothing of an older one: the carry is copied, and
+a dispatched batch keeps its entity names (an owned list) and its staged
+result, so the ring's retention window holds.
+
+Every dispatch goes through the guard ladder (``guard.run_batch`` at site
+``gatherer.dispatch``, ``_guarded_dispatch``): a transient retries in
+place, a device OOM bisects the batch at entity boundaries
+(``guard.entity_splitter``; a bisected piece pads to its own bucket,
+``guard.sub_pad_to``), and a poisoned record is quarantined to a sidecar
+while the batch goes on without it. So one batch may give several pending
+entries, or none. A retry, a half or a remainder runs the same device pass
+again. A device fault that surfaces at the wait on a batch's copy (the
+ring's ``collect``, site ``gatherer.writeback``) retries a transient there
+and otherwise re-raises, a strike on ``gatherer.dispatch``. A failure the
+guard cannot absorb fails the command, and the writer discards its temp
+file.
 
 ``backend='cpu'`` runs the host aggregators (``metrics.aggregator``) over
 the tag groups of ``bam.iter_tag_groups``, one entity at a time in record
@@ -28,26 +42,23 @@ the same streaming loop with their own dispatch/finalize pair.
 
 Observability is JAX's, at its sites and under its names: per batch an
 ``upload`` span (the host packing and the upload), a ``compute`` span (the
-device pass, its compaction and the queued pull: host dispatch wall, the
+device pass, its compaction and the staged copy: host dispatch wall, the
 device's work is not waited for) and a ``writeback`` span (the wait on the
-pull and the CSV block); the counters ``records_decoded``,
-``batches_uploaded``, ``h2d_bytes``, ``d2h_bytes``, ``entities_written``
-and ``run_keyed_batches``; and one pulse heartbeat on stage
-``gatherer.cell`` / ``gatherer.gene``, which travels with the pending batch
-and is emitted at the end of its finalize. Its legs: h2d the packing and
-upload, compute the dispatch, d2h the wait on the pull; its writeback
-phase is ``staged`` once the pull is queued and ``draining`` in the wait.
+copy and the CSV block); the counters ``records_decoded``,
+``batches_uploaded``, ``h2d_bytes``, ``d2h_bytes``, ``entities_written``,
+``run_keyed_batches`` and ``wire_writeback_staged`` / ``_drained``; and one
+pulse heartbeat on stage ``gatherer.cell`` / ``gatherer.gene``, which
+travels with the pending batch and is emitted at the end of its finalize.
+Its legs: h2d the packing and upload, compute the dispatch, d2h the wait
+on the copy; its writeback phase is the ring's at the drain's start, as
+JAX samples it.
 
-The audit ledger's taps (``obs.audit``) are JAX's but one:
-``records.decoded`` per frame, ``rows.computed`` per finalized batch's
-entities and ``rows.filtered:multi_gene`` for the gene axis's skipped
-rows (device mask and host loop alike); ``records.computed`` counts a
-batch's records once its device pass has been issued without error, in
-``_dispatch_device_batch``, where JAX counts it in its guard ladder.
-
-Not ported: the writeback ring (``ingest.pull`` does its asynchronous
-copy) and the guard ladder (a failed batch fails the command, and the
-writer discards its temp file). Each gatherer also keeps plain records
+The audit ledger's taps (``obs.audit``) are JAX's: ``records.decoded`` per
+frame, ``records.computed`` in the guard once a (sub-)batch's dispatch has
+succeeded, ``records.quarantined:<reason>`` for the records it isolated,
+``rows.computed`` per finalized batch's entities and
+``rows.filtered:multi_gene`` for the gene axis's skipped rows (device mask
+and host loop alike). Each gatherer also keeps plain records
 (``batches``, ``seconds``, ``ring_batches``, ``run_keyed_batches``).
 """
 
@@ -61,7 +72,7 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
-from .. import ingest, obs
+from .. import guard, ingest, obs
 from ..obs import audit
 from ..bam import iter_cell_barcodes, iter_genes, iter_molecule_barcodes
 from ..device import DeviceLike, resolve
@@ -403,6 +414,10 @@ class MetricGatherer:
         else:
             frames = ingest.ring_frames(self._bam_file, self._batch_records, stats=ring_stats)
         out = self._make_writer()
+        # the writeback ring: each dispatched batch's compacted block starts
+        # its copy at dispatch and drains in FIFO order in finalize; its
+        # slot states are the writeback_slots flight section
+        self._writeback = ingest.WritebackRing(name=type(self).__name__, slots=self._PIPELINE_DEPTH + 2)
         try:
             out.write_header({c: None for c in self.columns})
             self._stream_device_batches(self._timed(frames), out)
@@ -418,6 +433,7 @@ class MetricGatherer:
             # source left open on a failure holds its files (the native
             # stream, or the fused sort's worker, partials and tee)
             frames.close()
+            self._writeback.close()
             self.seconds["decode"] = ring_stats["decode"]
             self.ring_batches = ring_stats["batches"]
 
@@ -450,11 +466,32 @@ class MetricGatherer:
     def _entity_key(self, frame: ReadFrame) -> np.ndarray:
         return frame.cell if self.entity_kind == "cell" else frame.gene
 
+    # every device dispatch of the streaming loop goes through
+    # guard.run_batch: a transient retries under the lease, an OOM bisects
+    # at entity boundaries (a bisected piece pads to its own bucket), and a
+    # poisoned record is quarantined to a sidecar while the batch goes on
+    # without it
+    _GUARD_SITE = "gatherer.dispatch"
+
+    def _guarded_dispatch(self, frame: ReadFrame, pad_to: int, presorted: bool, offset: int) -> list:
+        """One batch through the guard's ladder -> the list of its pending
+        tuples (one, or more after a bisection, or none once quarantine
+        took every record). ``offset`` is the absolute stream index of the
+        frame's first record, what the sidecars and the ``corrupt_record``
+        faults localize by."""
+
+        def dispatch(sub, sub_offset):
+            return self._dispatch_device_batch(sub, pad_to=guard.sub_pad_to(pad_to), presorted=presorted)
+
+        return guard.run_batch(dispatch, frame, site=self._GUARD_SITE, name=str(self._bam_file),
+                               offset=offset, splitter=guard.entity_splitter(self.entity_kind))
+
     def _stream_device_batches(self, frames, out) -> None:
         carry: Optional[ReadFrame] = None
         pending = deque()  # dispatched but not yet written
         multi_batch = False
         processed = 0
+        dispatch_offset = 0  # absolute stream index of the next dispatch
         next_progress = PROGRESS_EVERY
         for frame in frames:
             processed += frame.n_records
@@ -489,13 +526,16 @@ class MetricGatherer:
             # ascending entity order is the presorted contract; grouped but
             # unordered input takes the device-sorted path for the batch
             ascending = bool(np.all(key[1:cut] >= key[: cut - 1]))
-            pending.append(
-                self._dispatch_device_batch(
+            pending.extend(
+                self._guarded_dispatch(
                     slice_frame(frame, 0, cut),
                     pad_to=capacity if multi_batch else 0,
                     presorted=ascending,
+                    offset=dispatch_offset,
                 )
             )
+            dispatch_offset += cut
+            # a bisected batch adds more than one entry: drain to depth
             while len(pending) > self._PIPELINE_DEPTH:
                 self._finalize_device_batch(*pending.popleft(), out)
             # compact, or the carried vocabularies would accumulate the union
@@ -504,11 +544,12 @@ class MetricGatherer:
         if carry is not None and carry.n_records:
             tail_key = self._entity_key(carry)
             # the tail pads to its own bucket, not the full batch capacity
-            pending.append(
-                self._dispatch_device_batch(
+            pending.extend(
+                self._guarded_dispatch(
                     carry,
                     pad_to=0,
                     presorted=bool(np.all(tail_key[1:] >= tail_key[:-1])),
+                    offset=dispatch_offset,
                 )
             )
         while pending:
@@ -652,43 +693,51 @@ class MetricGatherer:
             # the pull's own occupancy: real entity rows of the bucketed slice
             xprof.record_dispatch("metrics.compact_results_wire", n_entities, k)
             block = device_engine.compact_results_wire(result, int_names, float_names, k)
-            # pad rows x row bytes of the compacted pull
-            wasted = (block.shape[1] - n_entities) * block.shape[0] * 4
-            pulled = ingest.pull(block, site="gatherer.writeback", wasted=wasted)
+            # the block's copy starts now, while the next batch computes;
+            # finalize's collect waits for it (or, on a transient, copies
+            # it again)
+            staged = self._writeback.stage(block)
             if events is not None:
                 events[1].record()
             # the watermark while the batch's buffers are live (peak
             # attribution: the open compute span)
             xprof.sample_memory(devices=(self._device,))
         hb.end("compute")
-        hb.add(real_rows=frame.n_records, padded_rows=num_segments, entities=n_entities,
-               wb_phase=pulse.WB_PHASES["staged"])
+        hb.add(real_rows=frame.n_records, padded_rows=num_segments, entities=n_entities)
         self.batches.append(dict(batch, entities=n_entities, events=events))
         self.seconds["dispatch"] += time.perf_counter() - start_time
-        # conservation ledger: the batch's device pass was issued without
-        # error (JAX counts this in its guard ladder, after the dispatch)
-        audit.add("records.computed", int(frame.n_records))
         # keep only what finalize reads, not the frame or the result dict
-        return (self._entity_names(frame), pulled, n_entities, int_names, float_names,
+        return (self._entity_names(frame), staged, n_entities, int_names, float_names,
                 frame.n_records, hb)
 
     def _finalize_device_batch(
-        self, entity_names, pulled, n_entities: int, int_names, float_names, n_records: int,
+        self, entity_names, staged, n_entities: int, int_names, float_names, n_records: int,
         hb, out,
     ) -> None:
         with obs.span("writeback", records=n_records, entities=n_entities) as wb:
             start = time.perf_counter()
-            hb.add(wb_phase=pulse.WB_PHASES["draining"])
+            # the asynchronous recovery boundary: a device fault of this
+            # batch surfaces here, at the wait on its copy, after its guarded
+            # dispatch returned. The guarded wait copies the block again on
+            # a transient; anything else re-raises to the scheduler, and
+            # counts a strike toward the dispatch site
+            # pad rows x row bytes of the compacted [columns, k] int32 block
+            wasted = staged.nbytes - n_entities * (len(int_names) + len(float_names)) * 4
+            # the phase at drain start ("copying" / "staged"), as JAX samples it
+            hb.add(wb_phase=self._writeback.phase_code())
             hb.begin("d2h")
-            block = pulled.numpy()  # waits for this batch's pull only
+            block, d2h_bytes = self._writeback.collect(
+                staged, site="gatherer.writeback", wasted=wasted, degrade_site=self._GUARD_SITE,
+                name=str(self._bam_file),
+            )
             hb.end("d2h")
             self.seconds["wait"] += time.perf_counter() - start
-            self.bytes_d2h += block.nbytes
-            wb.add(bytes=block.nbytes)
-            hb.add(bytes_d2h=block.nbytes)
+            self.bytes_d2h += d2h_bytes
+            wb.add(bytes=d2h_bytes)
+            hb.add(bytes_d2h=d2h_bytes)
             hb.emit()
             xprof.sample_memory(devices=(self._device,))
-            obs.count("d2h_bytes", block.nbytes)
+            obs.count("d2h_bytes", d2h_bytes)
             obs.count("entities_written", n_entities)
             audit.add("rows.computed", n_entities)
             start = time.perf_counter()

@@ -23,7 +23,9 @@ commands, as in the JAX package:
   fixed-width block: one upload, one launch, one pull;
 - ``fastq_metrics`` is FastqMetrics' scan, one thread per R1 shard;
 - ``format_csv_block`` renders a block of metric rows as Python's ``str()``
-  would (``metrics.writer.MetricCSVWriter.write_block``).
+  would (``metrics.writer.MetricCSVWriter.write_block``);
+- ``synth_bam_native`` writes a cell-sorted, fully tagged synthetic BAM
+  (``synth.cpp``), the records of the JAX package's generator.
 
 The library is compiled with ``g++`` at first use, never at import (one
 compiler process per source, all at once, then the link), into
@@ -59,12 +61,13 @@ import numpy as np
 
 from .. import obs
 from ..analysis.witness import make_lock
+from ..guard.watchdog import shielded
 from ..io.packed import ReadFrame
 
 _SOURCE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _SOURCE_DIR.parent / "_build"
 SOURCES = ("bamdecode.cpp", "tagsort.cpp", "fastqprocess.cpp", "attach.cpp", "fastqtools.cpp",
-           "csvformat.cpp")
+           "csvformat.cpp", "synth.cpp")
 HEADERS = ("native_io.h",)
 CXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared", "-Wall", "-Wextra"]
 LINK_FLAGS = ["-lz", "-lpthread"]
@@ -73,6 +76,7 @@ calls: Dict[str, int] = {
     "stream_frames": 0, "batch_stream": 0, "frame_from_bam": 0, "tagsort": 0,
     "tagsort_stream_frames": 0,
     "format_csv_block": 0, "fastqprocess": 0, "attach": 0, "sample_fastq": 0, "fastq_metrics": 0,
+    "synth_bam": 0,
 }
 
 COMPRESS_LEVEL = 6  # the FASTQ loops' BGZF level, the JAX package's
@@ -137,7 +141,9 @@ def library() -> ctypes.CDLL:
                 with open(BUILD_DIR / "native.lock", "w") as lock:
                     fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
                     if not target.exists():
-                        _build(target)
+                        # no Stall may land inside the g++ build (guard.watchdog)
+                        with shielded():
+                            _build(target)
             _lib = _bind(ctypes.CDLL(str(target)))
         return _lib
 
@@ -201,6 +207,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "scx_attach_close": (c_int, [p]),
         "scx_attach_error": (c_char_p, [p]),
         "scx_attach_free": (None, [p]),
+        "scx_synth_bam": (c_long, [c_char_p, c_long, c_long, c_int, c_int, c_int, c_int,
+                                   ctypes.c_ulonglong, c_int, c_char_p, c_int]),
     }
     for name, (restype, argtypes) in signatures.items():
         function = getattr(lib, name)
@@ -287,6 +295,39 @@ def _frame_from_handle(lib, handle, want_qname: bool) -> ReadFrame:
 
 def _errbuf():
     return ctypes.create_string_buffer(512)
+
+
+def synth_bam_native(
+    path: str,
+    n_cells: int,
+    molecules_per_cell: int = 8,
+    reads_per_molecule: int = 4,
+    n_genes: int = 4096,
+    seq_len: int = 98,
+    seed: int = 42,
+    compress_level: int = 1,
+    cell_offset: int = 0,
+) -> int:
+    """Write a cell-sorted, fully tagged synthetic BAM; returns the records
+    written (``n_cells * molecules_per_cell * reads_per_molecule``).
+
+    ``cell_offset`` shifts the barcode space, so that files written with
+    disjoint cell ranges share no barcode. The records equal those of the
+    JAX package's ``synth_bam_native`` for the same arguments; the BGZF
+    bytes may differ (zlib here). Raises RuntimeError when the write fails.
+    """
+    lib = library()
+    calls["synth_bam"] += 1
+    errbuf = _errbuf()
+    with obs.span("native:synth_bam") as sp:
+        written = lib.scx_synth_bam(
+            path.encode(), n_cells, cell_offset, molecules_per_cell, reads_per_molecule,
+            n_genes, seq_len, seed, compress_level, errbuf, ctypes.sizeof(errbuf),
+        )
+        if written < 0:  # raised inside the span, so that it carries the error
+            raise RuntimeError(f"synth bam failed: {_message(errbuf)}")
+        sp.add(records=int(written))
+    return written
 
 
 def _message(buffer) -> str:

@@ -29,10 +29,10 @@ key                          counted where
 ===========================  ==============================================
 ``records.ingested``         ingest ring producer, per handed-off frame
 ``records.decoded``          stream consumer (gatherer/count), per frame
-``records.computed``         the device dispatch sites (gatherers, count),
-                             per frame whose pass was issued without error
-``records.quarantined:R``    a poison-record sidecar's reason ``R`` (the
-                             port writes none; JAX's guard does)
+``records.computed``         guard.run_batch, per (sub-)frame whose
+                             dispatch succeeded (post filter, post split)
+``records.quarantined:R``    guard.quarantine, per isolated range, by the
+                             sidecar reason's exception class ``R``
 ``rows.computed``            gatherer finalize, per device batch entities
 ``rows.emitted``             MetricCSVWriter, per row/block written
 ``rows.filtered:R``          gatherer row filter (``multi_gene``)

@@ -24,6 +24,14 @@ Two versions of the one function, on the same inputs (a uint8 code block
   (the port of the Pallas kernel ``_pallas_kernel``, :125-145) or the call
   raises. There is no fallback from the kernel to the plain version.
 
+The corrector's call of the wrapper runs under the guard's transient
+ladder (``guard.retrying`` at site ``whitelist.correct``, on the compute
+leg's deadline), and its result comes back through ``ingest.pull``, whose
+wait is guarded too. A device failure counts a strike and re-raises: the
+port has no jnp rung (JAX :299-345), and counts no
+``guard_whitelist_pallas_fallbacks``. The kernel is built when a CUDA
+corrector is made, before its first guarded call.
+
 The kernel computes the same one-hot product on the tensor cores, in int8:
 it reads ``[rows, Kpad]`` int8 one-hot tables (``onehot_int8``), the
 whitelist's built once by ``make_table`` and the queries' expanded per batch
@@ -50,7 +58,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .. import ingest, kernels, obs
+from .. import guard, ingest, kernels, obs
 from ..analysis.witness import make_lock
 from ..device import DeviceLike, resolve
 from ..obs import xprof
@@ -306,6 +314,10 @@ class WhitelistCorrector:
         ).reshape(-1, self._length)
         self._device = resolve(device)
         self._table = _device_table(self._rows, self._device)
+        if self._device.type == "cuda":
+            # built now, before the first guarded call: nvcc never runs
+            # under a compute deadline
+            kernels.library("whitelist_correct")
 
     @classmethod
     def from_file(cls, whitelist_file: str, **kwargs) -> "WhitelistCorrector":
@@ -345,7 +357,12 @@ class WhitelistCorrector:
 
     def _submit_codes(self, codes: np.ndarray, lengths: np.ndarray) -> PendingCorrection:
         queries = ingest.upload(codes, self._device, site="whitelist.queries")
-        result = correct_codes(queries, self._table)
+        # the guard's transient ladder around the kernel, under the compute
+        # deadline. There is no other rung: a device failure counts a strike
+        # at the site and re-raises (port rule 4)
+        result = guard.retrying(lambda: correct_codes(queries, self._table),
+                                site="whitelist.correct", leg="compute")
+        # the one device -> host door: its wait retries a transient in place
         return PendingCorrection(ingest.pull(result, site="whitelist.queries"), lengths == self._length)
 
     def correct_indices(self, barcodes: Barcodes) -> np.ndarray:

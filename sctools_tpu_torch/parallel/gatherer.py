@@ -18,11 +18,12 @@ Each batch's dispatch is the ``gatherer.batch`` fault site
 with earlier batches already in the writer's temp file. Its spans,
 counters and heartbeat (stage ``gatherer.cell.sharded`` /
 ``gatherer.gene.sharded``) are the single-device path's, at JAX's sites,
-and so are its audit taps: ``rows.computed`` per finalized batch, and
-``records.computed`` once a batch's sharded pass has been issued without
-error (JAX counts that one in its guard ladder). Not ported: the guard
-ladder (a failed batch fails the command, and the writer discards its
-temp file).
+and so are its audit taps (``rows.computed`` per finalized batch;
+``records.computed`` in the guard). The inherited loop sends each batch
+through the guard ladder at ``gatherer.dispatch`` (``_guarded_dispatch``:
+retries, OOM bisection at entity boundaries, poison quarantine), and each
+batch's per-shard blocks go back through the writeback ring as one staged
+entry, drained in one guarded wait.
 """
 
 from __future__ import annotations
@@ -134,36 +135,38 @@ class _ShardedMixin:
                 staged, shard_size, self.entity_kind, compact=(int_names, float_names, k),
                 **engine_flags
             )
-            # one pull a shard: its block with its entity count appended
-            pulls = [
-                ingest.pull(_with_count(block, count), site="gatherer.writeback")
-                for block, count in zip(blocks, n_entities)
-            ]
+            # one block a shard, its entity count appended, staged as one
+            # writeback entry: its copies start now, while the next batch works
+            staged = self._writeback.stage(
+                [_with_count(block, count) for block, count in zip(blocks, n_entities)]
+            )
             xprof.sample_memory(devices=self._mesh.devices)
         hb.end("compute")
         hb.add(real_rows=frame.n_records, padded_rows=self._n_shards * shard_size,
-               entities=int(unique_codes.size), wb_phase=pulse.WB_PHASES["staged"])
+               entities=int(unique_codes.size))
         self.batches.append(dict(
             records=frame.n_records, padded=self._n_shards * shard_size, presorted=presorted,
             prepacked=prepacked, run_keyed=False, entities=int(unique_codes.size),
             shards=self._n_shards, events=None, h2d_bytes=h2d_bytes,
         ))
         self.seconds["dispatch"] += time.perf_counter() - start_time
-        # conservation ledger: the sharded pass was issued without error
-        audit.add("records.computed", int(frame.n_records))
-        return (self._entity_names(frame), pulls, len(int_names) + len(float_names), k, int_names,
+        return (self._entity_names(frame), staged, len(int_names) + len(float_names), k, int_names,
                 float_names, frame.n_records, hb)
 
-    def _finalize_device_batch(self, entity_names, pulls, n_columns: int, k: int, int_names,
+    def _finalize_device_batch(self, entity_names, staged, n_columns: int, k: int, int_names,
                                float_names, n_records: int, hb, out) -> None:
         with obs.span("writeback", records=n_records) as wb:
             start = time.perf_counter()
-            hb.add(wb_phase=pulse.WB_PHASES["draining"])
+            # the asynchronous recovery boundary, as on one device: every
+            # shard's copy lands in one guarded wait
+            hb.add(wb_phase=self._writeback.phase_code())
             hb.begin("d2h")
-            views = [pulled.numpy() for pulled in pulls]  # waits for this batch's pulls only
+            views, d2h_bytes = self._writeback.collect(
+                staged, site="gatherer.writeback", degrade_site=self._GUARD_SITE,
+                name=str(self._bam_file),
+            )
             hb.end("d2h")
             self.seconds["wait"] += time.perf_counter() - start
-            d2h_bytes = sum(view.nbytes for view in views)
             self.bytes_d2h += d2h_bytes
             wb.add(bytes=d2h_bytes)
             hb.add(bytes_d2h=d2h_bytes)

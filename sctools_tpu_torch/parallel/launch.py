@@ -31,9 +31,12 @@ unless the caller asks for ``cpu`` (one CPU shard, as JAX's
 ``jax.local_devices()`` is under ``JAX_PLATFORMS=cpu``). Worker processes
 must pass it: no environment variable selects the port's device.
 
+A worker points the guard's poison-record sidecars at
+``<journal>/quarantine`` (``guard.quarantine.set_quarantine_dir``), where
+``sched status`` and ``obs audit`` read them, as JAX's does (:268 on).
 Differs from JAX on purpose: a task whose device dispatch was degraded by
 JAX's guard ladder reruns there on the CPU backend (launch.py:211-226);
-the port has no such fallback, so a failing task retries and is then
+the port's guard has no rungs, so a failing task retries and is then
 quarantined. The ``distributed:chunk_metrics``, ``distributed:chunk_queue``
 and ``distributed:merge_parts`` spans and the ``chunks_processed`` counter
 are JAX's, as are the SIGTERM flight recorder a worker installs and the
@@ -54,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import ingest, obs
+from ..guard import quarantine
 from ..obs import audit
 from ..device import DeviceLike, resolve
 from ..sched import QuarantinedTasksError, WorkQueue, atomic_output, faults, make_task
@@ -238,6 +242,9 @@ def run_process_cell_metrics(
         # groups workers by it
         mesh=mesh_fingerprint(mesh),
     )
+    # the guard's poison-record sidecars land next to the journal, where
+    # `sched status` and `obs audit` look for them
+    quarantine.set_quarantine_dir(os.path.join(resolved_journal, "quarantine"))
     # preemption insurance: persist the span ring + open-span stack to
     # flight.<worker>.jsonl on SIGTERM so a killed worker's postmortem
     # survives for `obs timeline` (no-op unless a trace dir is configured;

@@ -40,7 +40,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import obs
+from .. import guard, obs
 from ..obs import pulse, xprof
 from ..ops import segments as seg
 from . import collective
@@ -248,7 +248,13 @@ def distributed_sort(
         hb.add(bytes_h2d=sort_h2d)
         sort_span.add(bytes=sort_h2d)
         hb.begin("compute")
-        out, dropped = _sample_sort(shards, list(key_names), mesh, axis_name, n_shards, capacity)
+        # the exchange runs under the guard's transient ladder: a hiccup in
+        # the collectives retries in place instead of failing the task (no
+        # record range to bisect here: an OOM propagates)
+        out, dropped = guard.retrying(
+            lambda: _sample_sort(shards, list(key_names), mesh, axis_name, n_shards, capacity),
+            site="sort.dispatch", leg="compute",
+        )
         hb.end("compute")
         rows = _first_group(mesh, axis_name)
         hb.begin("d2h")

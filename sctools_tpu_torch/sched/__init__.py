@@ -25,9 +25,9 @@ kills a run:
 The scheduler's ``sched:task`` / ``sched:wait`` spans and ``sched_*``
 counters are JAX's (:mod:`sctools_tpu_torch.obs`), and so is the audit
 ledger that rides each ``committed`` event (:mod:`sctools_tpu_torch.obs.audit`).
-An injected crash dumps the worker's flight record before it exits. Not
-ported: the device-boundary fault kinds' firing sites (they fire inside
-the JAX guard ladder, which the port does not have).
+An injected crash dumps the worker's flight record before it exits. The
+device-boundary fault kinds fire inside the guard ladder
+(:mod:`sctools_tpu_torch.guard`), which absorbs them below the scheduler.
 """
 
 from .commit import atomic_output, inflight_path, sha256_file

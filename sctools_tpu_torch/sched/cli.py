@@ -32,7 +32,7 @@ view when the journal holds serve jobs (per-tenant counts with the queue
 age of the oldest open job, one admission line and one steer line per
 resident worker, and the rows-balanced line of the committed jobs), and
 the poison-record sidecars of the journal's ``quarantine/`` directory when
-it holds any (the JAX package's guard writes them; no port code does).
+it holds any (either package's guard writes them).
 When the journal's parent directory (the run dir) holds heartbeat rings
 it also prints the serve view's per-tenant slo lines, one pulse line and
 one profile line (:mod:`sctools_tpu_torch.obs`); ``--watch`` frames carry

@@ -26,13 +26,28 @@ Task-level kinds, fired by :func:`fire` (these burn scheduler attempts):
 - ``corrupt`` -- sites that produce bytes consult :func:`should_corrupt`
   and garble their output when told to: poison inputs and torn writes.
 
-The four device-boundary kinds (``device_oom``, ``xla_transient``,
-``stall``, ``corrupt_record``) parse, so a spec written for the JAX
-package parses here too, but no site of the port fires them: the JAX
-package fires them inside its guard ladder, which the port does not have.
-So their counters (``sched_fault_device_oom``, ``sched_fault_xla_transient``,
-``sched_fault_stalls``, ``sched_fault_corrupt_records``) are never counted;
-the others are JAX's.
+Device-boundary kinds, fired by :func:`device_fault` / :func:`poison_check`
+inside the guard's attempt loops (``guard.run_batch``, ``guard.retrying``):
+the guard ladder must absorb all of these below the scheduler, with no
+``failed`` journal event.
+
+- ``device_oom`` -- raise :class:`sctools_tpu_torch.guard.errors.ResourceExhausted`
+  (a synthetic allocator failure, counted ``sched_fault_device_oom``): the
+  guard must bisect the batch and merge partial results.
+- ``xla_transient`` -- raise :class:`sctools_tpu_torch.guard.errors.Transient`
+  (``sched_fault_xla_transient``; JAX's name and message, so one spec and
+  one sidecar compare across packages): the guard must retry in place.
+- ``stall`` -- sleep ``secs`` (default 1.0) in 0.05 s ticks
+  (``sched_fault_stalls``): the stall watchdog's prey. With a
+  ``SCTOOLS_TPU_GUARD_TIMEOUT_*`` deadline below ``secs`` the watchdog
+  interrupts it with a flight record and a ``Stall``; without one it ends
+  by itself after ``secs``.
+- ``corrupt_record`` -- the record at absolute stream index ``record=N`` is
+  poisoned: :func:`poison_check` raises an unlocalized
+  :class:`sctools_tpu_torch.guard.errors.PoisonData`
+  (``sched_fault_corrupt_records``) whenever its window covers N, so the
+  guard's probe bisection must isolate it. Never consumed: one clause per
+  poisoned record.
 
 ``match=SUBSTR`` arms a clause only for sites whose ``name`` argument
 contains SUBSTR (task names, chunk paths). ``times=N`` fires at most N
@@ -50,7 +65,11 @@ Sites: ``task.claimed`` (scheduler, before the run), ``task.commit``
 ``ingest.decode`` (the ingest ring's arena producer, inside each batch's
 timed decode, named by the batch index), ``lease.renew`` (heartbeat thread), ``writer.commit`` (CSV writer, before
 the atomic rename), ``task.input`` (the chunk runner; ``corrupt`` makes
-the task read a garbled copy of its chunk: the poison-task case).
+the task read a garbled copy of its chunk: the poison-task case). The
+device kinds fire at the guard's sites: ``gatherer.dispatch``,
+``count.dispatch``, ``sort.dispatch``, ``whitelist.correct``, each upload's
+site (``gatherer.upload``, ``count.upload``, ...) and each pull's
+(``gatherer.writeback``, ``count.writeback``, ``whitelist.queries``, ...).
 """
 
 from __future__ import annotations
@@ -227,3 +246,84 @@ def mangle(data: bytes) -> bytes:
     """Deterministically garble ``data`` (for sites that opted in)."""
     prefix = b"\x00CORRUPTED\x00"
     return prefix + bytes(b ^ 0xFF for b in data[: 1 << 12]) + data[1 << 12:]
+
+
+# ------------------------------------------------- device-boundary faults
+
+# stall sleeps in short interruptible increments: the watchdog's
+# asynchronous Stall lands between Python bytecodes, so one long
+# time.sleep would defeat the very path the injection exists to test
+_STALL_TICK_S = 0.05
+
+
+def armed() -> bool:
+    """Whether ANY fault clause is armed (guard's hot-path fast gate)."""
+    return bool(_active())
+
+
+def device_fault(site: str, name: str = "") -> None:
+    """Fire an armed device_oom/xla_transient/stall clause for ``site``.
+
+    Called by ``guard.run_batch``'s attempt loop (and ``guard.retrying``)
+    just before the guarded work. The raised exceptions are the guard
+    taxonomy's own classes, so classification is exact: the injection
+    tests the recovery ladder, not the classifier's string matching.
+    No-op in a spec-less process after one cached-list check.
+    """
+    if not _active():
+        return
+    clause = _take(site, name, ("device_oom", "xla_transient", "stall"))
+    if clause is None:
+        return
+    # deferred import: guard imports this module (lazily); importing guard
+    # at module load here would be a cycle
+    from ..guard import errors as guard_errors
+
+    if clause.kind == "device_oom":
+        obs.count("sched_fault_device_oom")
+        raise guard_errors.ResourceExhausted(
+            f"injected RESOURCE_EXHAUSTED: out of memory allocating batch "
+            f"at {site} ({name})"
+        )
+    if clause.kind == "xla_transient":
+        obs.count("sched_fault_xla_transient")
+        raise guard_errors.Transient(
+            f"injected transient XlaRuntimeError at {site} ({name})"
+        )
+    obs.count("sched_fault_stalls")
+    deadline = time.perf_counter() + clause.secs
+    while time.perf_counter() < deadline:
+        time.sleep(_STALL_TICK_S)
+
+
+def poison_check(site: str, name: str = "", start: int = 0, stop: int = 0) -> None:
+    """Raise PoisonData when an armed corrupt_record falls in [start, stop).
+
+    The probe behind guard's poison bisection. Deliberately UNlocalized
+    (no ``record_range`` on the exception) and never consumed: a corrupt
+    record fails every window that covers it, exactly like real bad
+    bytes, so the bisection has to do the isolating.
+    """
+    if not _active():
+        return
+    hit = None
+    with _lock:
+        for clause in _clauses or ():
+            if (
+                clause.kind == "corrupt_record"
+                and clause.site == site
+                and (not clause.match or clause.match in name)
+                and clause.record is not None
+                and start <= clause.record < stop
+            ):
+                hit = clause.record
+                break
+    if hit is None:
+        return
+    obs.count("sched_fault_corrupt_records")
+    from ..guard import errors as guard_errors
+
+    raise guard_errors.PoisonData(
+        f"injected corrupt record in window [{start}, {stop}) at {site} "
+        f"({name})"
+    )

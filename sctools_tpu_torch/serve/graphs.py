@@ -44,6 +44,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..device import DeviceLike, resolve
+from ..guard.watchdog import shielded
 from ..metrics import device as device_engine
 from ..obs import xprof
 
@@ -132,7 +133,9 @@ class GraphSet:
         # the undecorated engine: warm-up and capture are no calls of the site
         engine = device_engine.compute_entity_metrics.__wrapped__
         start = time.perf_counter()
-        with torch.cuda.device(self.device):
+        # no Stall may land inside the warm-up or the capture: a capture cut
+        # off mid-way leaves the stream capturing (guard.watchdog.shielded)
+        with shielded(), torch.cuda.device(self.device):
             current = torch.cuda.current_stream()
             inputs = {name: tensor.clone() for name, tensor in cols.items()}
             side = torch.cuda.Stream()
@@ -147,8 +150,10 @@ class GraphSet:
                     outputs = engine(inputs, **kwargs)
             except Exception as error:
                 raise GraphCaptureError(f"capture of {key} failed: {error}") from error
-        entry = _Captured(graph, inputs, outputs)
-        self._graphs[key] = entry
-        self.captures += 1
-        xprof.record_compile(SITE, xprof.signature((cols,), kwargs), time.perf_counter() - start)
+            # stored inside the shield: a Stall held over the capture lands
+            # after it, and the guard's retry replays this graph
+            entry = _Captured(graph, inputs, outputs)
+            self._graphs[key] = entry
+            self.captures += 1
+            xprof.record_compile(SITE, xprof.signature((cols,), kwargs), time.perf_counter() - start)
         return entry

@@ -53,7 +53,8 @@ ENV_VARS = ("SCTOOLS_TPU_LOCK_DEBUG", "SCTOOLS_TPU_LOCK_GRAPH", "SCTOOLS_TPU_LOC
             "SCTOOLS_TPU_TRACE", "SCTOOLS_TPU_TRACE_WORKER")
 PORT_LOCKS = {"ops.whitelist_table", "kernels.loader", "native.loader", "sched.faults",
               "sched.journal", "ingest.framedebug", "obs.ring", "obs.sink", "obs.pulse", "obs.xprof",
-              "obs.audit", "ingest.ring_state"}
+              "obs.audit", "ingest.ring_state", "guard.open_retries", "guard.degrade",
+              "guard.quarantine", "guard.watchdog.deadline", "ingest.wire_state"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -205,17 +206,29 @@ def test_lock_graph_matches_jax_over_the_port():
     graph = lock_graph([str(PORT)])
     assert graph == jax_racecheck.lock_graph([str(PORT)])
     assert set(graph["locks"]) == PORT_LOCKS
-    # the span sink's one nesting: obs.enable opens the sink under the ring lock
+    # the span sink's one nesting (obs.enable opens the sink under the ring
+    # lock), and the stall watchdog's flight dump under its deadline lock,
+    # which reads the counters and every flight section: JAX's own edges
     assert [(e["from"], e["to"], e["bounded"]) for e in graph["edges"]] == [
+        ("guard.watchdog.deadline", "guard.degrade", True),
+        ("guard.watchdog.deadline", "guard.open_retries", True),
+        ("guard.watchdog.deadline", "ingest.ring_state", True),
+        ("guard.watchdog.deadline", "ingest.wire_state", True),
+        ("guard.watchdog.deadline", "obs.pulse", True),
+        ("guard.watchdog.deadline", "obs.ring", False),
+        ("guard.watchdog.deadline", "obs.xprof", False),
         ("obs.ring", "obs.sink", False)]
     entries = {(e["kind"], Path(e["site"].rsplit(":", 1)[0]).relative_to(PORT).as_posix())
                for e in graph["entries"]}
-    # the death roots: the SIGTERM flight recorder and the flight-section
-    # providers (the ring's bounded snapshot, its registration, the pulse's)
+    # the death roots: the SIGTERM flight recorder, the watchdog's timer and
+    # the flight-section providers (the rings' bounded snapshots and their
+    # registrations, the pulse's, the guard's open retries and degraded sites)
     assert entries == {("thread", "sched/scheduler.py"), ("thread", "serve/engine.py"),
                        ("thread", "utils/prefetch.py"), ("thread", "obs/serve.py"),
                        ("signal", "obs/__init__.py"), ("provider", "ingest/ring.py"),
-                       ("provider", "obs/pulse.py")}
+                       ("provider", "obs/pulse.py"), ("provider", "ingest/wire.py"),
+                       ("provider", "guard/__init__.py"), ("provider", "guard/degrade.py"),
+                       ("timer", "guard/watchdog.py")}
 
 
 # ------------------------------------------------------- SCX112 and SCX109
@@ -773,9 +786,9 @@ def test_cli_json(tmp_path, capsys):
 def test_cli_emit_lock_graph(tmp_path, capsys):
     target = tmp_path / "graph.json"
     assert cli_main(["--emit-lock-graph", str(target), str(PORT)]) == 0
-    assert "wrote 12 lock(s), 1 order edge(s), 8 thread/signal entr(ies)" in capsys.readouterr().out
+    assert "wrote 17 lock(s), 8 order edge(s), 15 thread/signal entr(ies)" in capsys.readouterr().out
     graph = json.loads(target.read_text())
-    assert set(graph["locks"]) == PORT_LOCKS and len(graph["edges"]) == 1 and len(graph["entries"]) == 8
+    assert set(graph["locks"]) == PORT_LOCKS and len(graph["edges"]) == 8 and len(graph["entries"]) == 15
 
 
 def test_cli_missing_path_fails(tmp_path, capsys):

@@ -57,7 +57,13 @@ graph capture records one compile and a second capture of its key one
 retrace. The flight recorder and the audit ledger: a sched worker process on
 cuda, traced and crash-injected mid-chunk, leaves a flight record with its
 open task span, its sections and the registry of its sharded dispatches, and
-its stolen rerun on the card commits a journal that audits EXACT.
+its stolen rerun on the card commits a journal that audits EXACT. The
+guard and the wire: a real ``torch.OutOfMemoryError`` classifies
+``resource_exhausted`` and leaves the context working; a ``run_batch``
+whose work grows with its frame bisects genuine OOMs under a memory
+fraction to an unconstrained run's bytes; the writeback ring's overlapped
+and blocking drains give equal bytes, and a transient at the wait copies
+the device block again.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
@@ -1371,3 +1377,101 @@ def test_graph_capture_records_a_compile_and_a_retrace(cuda_device):
     assert (site["calls"], site["compiles"], site["retraces"]) == (2, 2, 1)
     assert site["compile_s"] > 0 and after == before + 1
     assert [e["count"] for e in site["retrace_signatures"]] == [1]
+
+
+# ------------------------------------------------- the guard and the wire
+
+
+def test_a_real_oom_classifies_resource_exhausted_and_the_context_lives(cuda_device):
+    """More than the card holds raises torch's genuine OutOfMemoryError,
+    which the guard classifies ``resource_exhausted`` (its ladder bisects);
+    the CUDA context is not poisoned by it."""
+    from sctools_tpu_torch import guard
+
+    total = torch.cuda.get_device_properties(cuda_device).total_memory
+    with pytest.raises(torch.OutOfMemoryError) as info:
+        torch.empty(total + (1 << 30), dtype=torch.uint8, device=cuda_device)
+    assert guard.classify(info.value) == "resource_exhausted"
+    after = torch.arange(1000, device=cuda_device)
+    assert int(after.sum()) == 499500
+    torch.cuda.synchronize()
+
+
+def test_run_batch_bisects_a_real_oom_to_the_unconstrained_bytes(cuda_device):
+    """A ``run_batch`` whose work allocates in proportion to its frame, under
+    a memory fraction that the whole frame exceeds and a half fits, bisects
+    at entity boundaries on genuine OOMs and returns the pieces whose bytes
+    equal an unconstrained run's."""
+    from sctools_tpu_torch import guard, ingest
+
+    frame = _synthetic_frame(np.random.default_rng(19), 8000)
+    per_record = 1 << 20  # the work's scratch: 1 MiB a record, ~7.8 GiB for the frame
+
+    def work(sub, offset):
+        scratch = torch.empty(sub.n_records * per_record, dtype=torch.uint8, device=cuda_device)
+        cell = ingest.upload(sub.cell, cuda_device, site="test.guard")
+        scratch[: sub.n_records].copy_(cell.to(torch.uint8))
+        out = cell * 3 + scratch[: sub.n_records].to(torch.int32)
+        return ingest.pull(out, site="test.guard").numpy().tobytes()
+
+    splitter = guard.entity_splitter("cell")
+    port_obs.enable()
+    port_obs.reset()
+    try:
+        free = b"".join(guard.run_batch(work, frame, site="test.oom", splitter=splitter))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(cuda_device).total_memory
+        cap = torch.cuda.memory_allocated(cuda_device) + int(0.6 * frame.n_records * per_record)
+        card = torch.cuda.current_device()  # the fraction takes an index, not torch.device("cuda")
+        torch.cuda.set_per_process_memory_fraction(cap / total, card)
+        try:
+            pieces = guard.run_batch(work, frame, site="test.oom", splitter=splitter)
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, card)
+            torch.cuda.empty_cache()
+        counters = port_obs.counters()
+    finally:
+        port_obs.disable()
+        port_obs.reset()
+    assert len(pieces) >= 2 and b"".join(pieces) == free
+    assert counters["guard_oom_bisections"] >= 1 and "sched_fault_device_oom" not in counters
+
+
+def test_overlapped_and_blocking_writeback_drains_give_equal_bytes_on_the_card(cuda_device, monkeypatch):
+    """The writeback ring's overlapped drain (each copy queued at stage) and
+    its blocking one (``SCTOOLS_TPU_WIRE_OVERLAP=0``) give the same bytes,
+    each the device blocks' own, and a transient at the wait copies the
+    device block again."""
+    from sctools_tpu_torch import ingest
+    from sctools_tpu_torch.ingest import wire
+
+    rng = np.random.default_rng(23)
+    blocks = [torch.from_numpy(rng.integers(-1 << 30, 1 << 30, size=(7, 4096), dtype=np.int32)).to(cuda_device)
+              for _ in range(5)]
+    want = [[b.cpu().numpy().tobytes(), (b * 3 + 1).cpu().numpy().tobytes()] for b in blocks]
+    got = {}
+    for overlap in ("1", "0"):
+        monkeypatch.setenv("SCTOOLS_TPU_WIRE_OVERLAP", overlap)
+        ring = ingest.WritebackRing(name=f"card-{overlap}", slots=len(blocks))
+        try:
+            # each block's pair computed on the stream and staged behind it
+            staged = [ring.stage([b.clone(), b * 3 + 1]) for b in blocks]
+            got[overlap] = [[a.tobytes() for a in ring.collect(s, site="test.card")[0]] for s in staged]
+        finally:
+            ring.close()
+    assert got["1"] == got["0"] == want
+    calls = {"n": 0}
+    real_land = wire._land
+
+    def flaky(copies):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            from sctools_tpu_torch.guard import Transient
+
+            raise Transient("d2h blip")
+        return real_land(copies)
+
+    monkeypatch.setattr(wire, "_land", flaky)
+    assert ingest.pull(blocks[0] * 3 + 1, site="test.card").numpy().tobytes() == want[0][1]
+    assert calls["n"] == 2

@@ -100,3 +100,13 @@ _JAX_TREE_PATH = re.compile(r"""["'](?:[^"']*/)?sctools_tpu/(?![^"']*\.py:\d+["'
 def test_no_module_reads_a_file_of_the_jax_package(path):
     bad = [n for n, line in enumerate(path.read_text().splitlines(), 1) if _JAX_TREE_PATH.search(line)]
     assert not bad, f"{path.relative_to(REPO)} names a file of the JAX package at lines {bad}"
+
+
+def test_the_guard_wire_and_synth_modules_are_walked():
+    """The guard ladder, the wire and the synthetic generators are port
+    modules of their own (none of them imports the JAX package's, not even
+    its stdlib-only ``guard/errors.py``), so the walks above read them."""
+    walked = {p.relative_to(PACKAGE).as_posix() for p in SOURCES if PACKAGE in p.parents}
+    assert {"guard/__init__.py", "guard/errors.py", "guard/watchdog.py", "guard/degrade.py",
+            "guard/quarantine.py", "ingest/wire.py", "utils/synth.py"} <= walked
+    assert PACKAGE / "native" / "synth.cpp" in NATIVE_SOURCES

@@ -263,7 +263,7 @@ def test_midstream_failure_raises_at_the_failed_batch(tagged, monkeypatch):
         for _ in ingest.ring_frames(tagged, 16):
             delivered += 1
     assert delivered == 2 and info.value.batch_index == 2 and info.value.record_offset == 32
-    assert "batch_index=2, record_offset=32" in str(info.value)
+    assert "batch_index=2, record_offset~=32" in str(info.value)  # the guard's message, as JAX's
     assert spy.opened == spy.closed == 1
 
 

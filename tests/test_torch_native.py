@@ -108,6 +108,7 @@ def inputs(tmp_path_factory):
     plain.write_bytes(raw)
     out["plain"] = (str(plain), tagged)
     synth = str(root / "synth.bam")
+    # JAX's generator: these inputs are decoded by both packages and compared
     jax_native.synth_bam_native(synth, 24, molecules_per_cell=6, reads_per_molecule=3, seed=5)
     out["synth"] = (synth, synth)
     empty = write_bam(root / "header_only.bam", [], header)
@@ -342,7 +343,7 @@ def test_fused_stream_closed_early_leaves_nothing(tmp_path):
     decoder reads the pipe 16 MiB at a time, so the sorted stream here
     outgrows that: some 90,000 records, 3 partials.)"""
     big = str(tmp_path / "big.bam")
-    total = jax_native.synth_bam_native(big, 1400, molecules_per_cell=16, reads_per_molecule=4, seed=9)
+    total = native.synth_bam_native(big, 1400, molecules_per_cell=16, reads_per_molecule=4, seed=9)
     scratch = tmp_path / "scratch"
     scratch.mkdir()
     frames = native.tagsort_stream_frames(
@@ -375,7 +376,7 @@ def test_fused_gatherer_failure_leaves_nothing(tmp_path, sort_input, monkeypatch
     written ``-o`` (2,500 records in one frame)."""
     if worker == "running":
         source = str(tmp_path / "big.bam")
-        jax_native.synth_bam_native(source, 1400, molecules_per_cell=16, reads_per_molecule=4, seed=9)
+        native.synth_bam_native(source, 1400, molecules_per_cell=16, reads_per_molecule=4, seed=9)
         monkeypatch.setattr(native, "tagsort_stream_frames",
                             functools.partial(native.tagsort_stream_frames, batch_records=1000))
         chunk = "30000"

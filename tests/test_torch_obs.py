@@ -18,9 +18,7 @@ runs but these, which test what the port leaves out:
 - ``test_pulse``: ``test_summarize_overhead_ratios_takes_min``,
   ``test_check_result_platform_filtering``,
   ``test_check_result_bubble_and_pulse_gates`` and
-  ``test_bench_pulse_overhead_asserts_off_mode`` (``bench.py``),
-  ``test_writeback_ring_phase_code`` (JAX's ``WritebackRing``; the port's
-  gatherer stamps the phase itself) and
+  ``test_bench_pulse_overhead_asserts_off_mode`` (``bench.py``) and
   ``test_mesh_aware_platform_fingerprint_and_multichip_trajectory`` (a
   ``jax`` mesh; :func:`test_platform_fingerprint_is_the_ports` is its port
   case).
@@ -43,8 +41,8 @@ summed ``records`` per span name, the heartbeats' count, ``real_rows``,
 ``padded_rows`` and ``entities`` per stage, and every counter JAX counts
 whose site the port has. Counters that differ between the packages, with
 the reason: ``xprof_compiles`` and ``xprof_retraces`` (JAX's jit compiles;
-the port's eager sites compile nothing), the ``jax_event.*`` and ``wire_*``
-counters (JAX's compile hooks and writeback ring, not ported); and
+the port's eager sites compile nothing) and the ``jax_event.*`` counters
+(JAX's compile hooks, not ported); and
 ``prefetch_producer_blocked``, ``prefetch_consumer_wait_seconds`` and
 ``prefetch_abandoned_threads``, which count how the decode thread and the
 consumer happened to meet and differ from run to run in either package.
@@ -126,7 +124,6 @@ _MIRRORED = {
         "test_check_result_platform_filtering",
         "test_check_result_bubble_and_pulse_gates",
         "test_bench_pulse_overhead_asserts_off_mode",
-        "test_writeback_ring_phase_code",
         "test_mesh_aware_platform_fingerprint_and_multichip_trajectory",
     },
     "test_delta": {
@@ -489,7 +486,7 @@ _PARITY_COUNTERS = ("records_decoded", "batches_uploaded", "entities_written", "
 _BYTE_COUNTERS = ("h2d_bytes", "d2h_bytes", "xprof_transfer_bytes_h2d", "xprof_transfer_bytes_d2h",
                   "xprof_transfer_wasted_bytes_d2h")
 # JAX's counters of what the port does not do (the docstring says why)
-_UNPORTED_COUNTER = re.compile(r"^(xprof_compiles|xprof_retraces|jax_event\.|wire_)")
+_UNPORTED_COUNTER = re.compile(r"^(xprof_compiles|xprof_retraces|jax_event\.)")
 # counters whose values depend on thread timing, in either package
 _TIMING_COUNTERS = ("prefetch_producer_blocked", "prefetch_consumer_wait_seconds", "prefetch_abandoned_threads")
 

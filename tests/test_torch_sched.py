@@ -7,8 +7,8 @@ retry, steal and quarantine, the CLI, the merge's validation, and end to
 end, worker processes running the port with ``device="cpu"`` (the script
 ``WORKER`` below) killed mid-chunk, failing, poisoned and terminated, whose
 merged CSV equals a one-shot run byte for byte. The SIGTERM case lands
-during an injected ``delay@gatherer.batch``: the port has no guard stall
-(the flight record such a worker leaves, and the audit of its journal, are
+inside the guard's retry of an injected ``stall@gatherer.dispatch``, and
+its flight record names the open retry (the audit of such a journal is
 ``test_torch_audit.py``'s).
 
 Against the JAX package, on the same inputs: ``make_cell_metric_tasks``
@@ -1091,10 +1091,13 @@ def test_poison_chunk_quarantines_then_retry_succeeds(tmp_path):
 
 
 def test_sigterm_during_guarded_stall_keeps_lease_semantics(tmp_path):
-    """SIGTERM landing while a worker sits in its first device batch (an
-    injected delay at ``gatherer.batch``): the journal shows the task
-    leased with NO failed event, no partial part was published, and a
+    """SIGTERM landing while a worker sits inside a guard retry (an injected
+    ``stall`` at ``gatherer.dispatch``): the flight record captures the open
+    guard retry, the journal shows the task leased with NO failed event (the
+    stall burned no sched attempt), no partial part was published, and a
     clean relaunch converges byte-identically."""
+    import json
+
     bam = str(tmp_path / "input.bam")
     _make_input(bam)
     single = tmp_path / "single.csv.gz"
@@ -1105,7 +1108,8 @@ def test_sigterm_during_guarded_stall_keeps_lease_semantics(tmp_path):
     proc = subprocess.Popen(
         _worker_args(tmp_path, 0, "5.0"),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=_worker_env("delay@gatherer.batch:times=1,secs=600"),
+        env=dict(_worker_env("stall@gatherer.dispatch:times=1,secs=600"),
+                 SCTOOLS_TPU_TRACE=str(tmp_path / "trace"), SCTOOLS_TPU_TRACE_WORKER="w0"),
     )
     journal_dir = str(tmp_path / "sched-journal")
     try:
@@ -1118,13 +1122,20 @@ def test_sigterm_during_guarded_stall_keeps_lease_semantics(tmp_path):
                 leased = any(st.state == "leased" for st in states.values())
             time.sleep(0.2)
         assert leased, "worker never leased a task"
-        time.sleep(1.5)  # let the first dispatch reach the injected delay
+        time.sleep(1.5)  # let the first dispatch reach the injected stall
         proc.send_signal(signal.SIGTERM)
         out, _ = proc.communicate(timeout=120)
     finally:
         if proc.poll() is None:
             proc.kill()
     assert proc.returncode == -signal.SIGTERM, out
+
+    # the flight record shows the guarded dispatch mid-recovery (named by
+    # the journal worker id the scheduler put into the obs context)
+    flights = sorted((tmp_path / "trace").glob("flight.*.jsonl"))
+    assert flights, list((tmp_path / "trace").glob("*"))
+    meta = json.loads(flights[0].read_text().splitlines()[0])
+    assert "gatherer.dispatch" in ((meta.get("sections") or {}).get("guard_retries") or {}), meta.get("sections")
 
     # journal: the task is leased, and no failed event was recorded
     tasks, states = Journal(journal_dir, worker_id="probe2").replay()
