@@ -20,11 +20,19 @@ imports torch, numpy, JAX or the code under analysis.
   frames, copy/view discipline, escape summaries), rules SCX601-SCX605,
   paired with the runtime generation witness
   (:mod:`sctools_tpu_torch.ingest.framedebug`,
-  ``SCTOOLS_TPU_FRAME_DEBUG=1``).
+  ``SCTOOLS_TPU_FRAME_DEBUG=1``);
+- :mod:`.costcheck` — whole-package device-cost and transfer-discipline
+  model (the ``ingest`` choke points, the writeback ring's overlap window,
+  the bucket vocabulary), rules SCX701-SCX705, paired with the static
+  transfer inventory that a live run's ledger is checked against;
+- :mod:`.meshcheck` — whole-package collective-safety model (mapped
+  regions, the ``parallel.collective`` wrappers and the control group's
+  calls), rules SCX801-SCX805, paired with the runtime collective-schedule
+  witness (:mod:`.meshwitness`, ``SCTOOLS_TPU_MESH_DEBUG=1``).
 
 Findings carry the JAX package's rule ids and honor inline ``#
 scx-lint: disable=SCXNNN -- reason`` escape hatches (:mod:`.findings`).
-The two model passes share one parse per file (:mod:`.astcache`).
+The four model passes share one parse per file (:mod:`.astcache`).
 """
 
 # Re-exports resolve lazily (PEP 562): library modules import
@@ -34,6 +42,13 @@ The two model passes share one parse per file (:mod:`.astcache`).
 _EXPORTS = {
     "ABI_RULES": "abicheck",
     "check_abi": "abicheck",
+    "COST_RULES": "costcheck",
+    "check_cost": "costcheck",
+    "check_transfer_sites": "costcheck",
+    "transfer_inventory": "costcheck",
+    "MESH_RULES": "meshcheck",
+    "build_collective_schedule": "meshcheck",
+    "check_mesh": "meshcheck",
     "Finding": "findings",
     "Suppressions": "findings",
     "LIFE_RULES": "lifecheck",
@@ -48,8 +63,8 @@ _EXPORTS = {
 }
 
 _SUBMODULES = frozenset(
-    {"abicheck", "astcache", "cli", "findings", "lifecheck", "racecheck",
-     "torchlint", "witness"}
+    {"abicheck", "astcache", "cli", "costcheck", "findings", "lifecheck",
+     "meshcheck", "meshwitness", "racecheck", "torchlint", "witness"}
 )
 
 

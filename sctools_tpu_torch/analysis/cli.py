@@ -11,13 +11,22 @@ exits non-zero when any finding survives its suppressions:
    static lock inventory and acquisition-order graph that the runtime
    witness checks against (``SCTOOLS_TPU_LOCK_GRAPH``) and exits;
 4. frame lifetime (SCX601-605) over the same model build
-   (:mod:`.lifecheck`).
+   (:mod:`.lifecheck`);
+5. device cost and transfer discipline (SCX701-705, :mod:`.costcheck`);
+   ``--emit-transfer-inventory FILE`` writes the static transfer-site
+   inventory that a live run's ledger is checked against
+   (``costcheck.check_transfer_sites``) and exits;
+6. collective safety (SCX801-805, :mod:`.meshcheck`);
+   ``--emit-collective-schedule FILE`` writes the statically predicted
+   collective universe that the runtime witness checks against
+   (``SCTOOLS_TPU_MESH_SCHEDULE``) and exits.
 
-``--race-only`` / ``--life-only`` run just those passes (together, both),
-``--no-race`` / ``--no-life`` skip one. ``--json`` replaces the
-human-readable output with one findings object covering every pass that
-ran. Passes 3 and 4 share one parse per file through :mod:`.astcache`;
-the summary line reports the cache's effect.
+``--race-only`` / ``--life-only`` / ``--cost-only`` / ``--mesh-only`` run
+just those passes (together, each named one), ``--no-race`` /
+``--no-life`` / ``--no-cost`` / ``--no-mesh`` skip one. ``--json``
+replaces the human-readable output with one findings object covering
+every pass that ran. Passes 3 to 6 share one parse per file through
+:mod:`.astcache`; the summary line reports the cache's effect.
 
 The module imports nothing heavyweight (no torch, no numpy).
 """
@@ -33,8 +42,10 @@ from typing import List, Optional
 from .abicheck import check_abi
 from .astcache import SKIP_DIRS, collect_py_files
 from .astcache import stats as parse_stats
+from .costcheck import check_cost, transfer_inventory
 from .findings import Finding
 from .lifecheck import check_life
+from .meshcheck import build_collective_schedule, check_mesh
 from .racecheck import RACE_EXEMPT_DIRS, check_races, lock_graph
 from .torchlint import lint_file
 
@@ -69,7 +80,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m sctools_tpu_torch.analysis",
         description="The port's static checks: lint, ctypes ABI, races, "
-        "frame lifetimes. Exit 0 == clean.",
+        "frame lifetimes, device cost, collective safety. Exit 0 == clean.",
     )
     parser.add_argument(
         "paths", nargs="*", default=["sctools_tpu_torch"],
@@ -93,6 +104,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     parser.add_argument(
         "--no-life", action="store_true", help="skip the SCX6xx pass"
+    )
+    parser.add_argument(
+        "--cost-only", action="store_true",
+        help="run only the SCX7xx device-cost pass",
+    )
+    parser.add_argument(
+        "--no-cost", action="store_true", help="skip the SCX7xx pass"
+    )
+    parser.add_argument(
+        "--mesh-only", action="store_true",
+        help="run only the SCX8xx collective-safety pass",
+    )
+    parser.add_argument(
+        "--no-mesh", action="store_true", help="skip the SCX8xx pass"
+    )
+    parser.add_argument(
+        "--emit-transfer-inventory", metavar="FILE", default=None,
+        help="write the static transfer-site inventory as JSON (what a "
+        "live run's ledger must stay inside) and exit",
+    )
+    parser.add_argument(
+        "--emit-collective-schedule", metavar="FILE", default=None,
+        help="write the statically predicted collective schedule as JSON "
+        "(the SCTOOLS_TPU_MESH_SCHEDULE file of the runtime witness) and "
+        "exit",
     )
     parser.add_argument(
         "--emit-lock-graph", metavar="FILE", default=None,
@@ -126,10 +162,36 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         return 0
 
-    only = args.race_only or args.life_only
+    if args.emit_transfer_inventory is not None:
+        inventory = transfer_inventory(args.paths)
+        _dump_json(inventory, args.emit_transfer_inventory)
+        occurrences = sum(
+            len(entry["occurrences"]) for entry in inventory["sites"].values()
+        )
+        print(
+            f"scx-cost: wrote {len(inventory['sites'])} transfer site(s) "
+            f"across {occurrences} call site(s) to "
+            f"{args.emit_transfer_inventory}"
+        )
+        return 0
+
+    if args.emit_collective_schedule is not None:
+        schedule = build_collective_schedule(args.paths)
+        _dump_json(schedule, args.emit_collective_schedule)
+        print(
+            f"scx-mesh: wrote {len(schedule['collectives'])} collective "
+            f"pair(s) across {len(schedule['computations'])} "
+            f"computation(s), {len(schedule['regions'])} mapped region(s) "
+            f"to {args.emit_collective_schedule}"
+        )
+        return 0
+
+    only = args.race_only or args.life_only or args.cost_only or args.mesh_only
     run_lint = run_abi = not only
     run_race = args.race_only if only else not args.no_race
     run_life = args.life_only if only else not args.no_life
+    run_cost = args.cost_only if only else not args.no_cost
+    run_mesh = args.mesh_only if only else not args.no_mesh
 
     # the lint pass reads every file; the model passes leave analysis/ out
     files = [
@@ -155,6 +217,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         findings.extend(check_races(args.paths))
     if run_life:
         findings.extend(check_life(args.paths))
+    if run_cost:
+        findings.extend(check_cost(args.paths))
+    if run_mesh:
+        findings.extend(check_mesh(args.paths))
 
     findings.sort(key=lambda f: (f.path, f.line, f.rule))
     if args.json:
@@ -184,6 +250,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         for name, ran in (
             ("lint", run_lint), ("abi", run_abi),
             ("race", run_race), ("life", run_life),
+            ("cost", run_cost), ("mesh", run_mesh),
         )
         if ran
     ]

@@ -52,6 +52,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from .. import ingest, obs
+from ..analysis import meshwitness
 from ..obs import audit, xprof
 from ..ops import segments as seg
 from ..parallel import collective
@@ -126,12 +127,14 @@ _SITE = "merge.collect"
 
 
 @xprof.instrument_site("metrics.collective_merge")
+@meshwitness.mapped("metrics.collective._build_gather.gather_rows", replicated=True)
 def _gather_rows(shards, mesh: Mesh, axis):
     """[R, L] local blocks -> [S, R, L] on every shard."""
     return collective.all_gather(shards, mesh, axis)
 
 
 @xprof.instrument_site("metrics.collective_merge_gene")
+@meshwitness.mapped("metrics.collective._build_gather_psum.gather_and_reduce", replicated=(True, True))
 def _gather_and_reduce(shards, partials, mesh: Mesh, axis):
     """The gather, and the ``psum`` of the dense int32 accumulators (exact,
     so it is the host's sum)."""
@@ -160,17 +163,17 @@ def _device_gather_parts(
         "merge:collective", parts=len(part_lanes), shards=mesh.size,
         rows=int(sum(part_rows)), reduced=int(counts is not None),
     ) as span:
-        shards = [ingest.upload(stacked[s], device, site=_SITE) for s, device in enumerate(mesh.devices)]
+        shards = [ingest.upload(stacked[s], device, site="merge.collect") for s, device in enumerate(mesh.devices)]
         span.add(bytes=int(stacked.nbytes + (counts.nbytes if counts is not None else 0)))
         xprof.record_dispatch(_SITE, int(sum(part_rows)), int(mesh.size * rows_bucket))
         if counts is None:
-            pulled = ingest.pull(_gather_rows(shards, mesh, axis)[0], site=_SITE)
+            pulled = ingest.pull(_gather_rows(shards, mesh, axis)[0], site="merge.collect")
             summed = None
         else:
-            partials = [ingest.upload(counts[s], device, site=_SITE) for s, device in enumerate(mesh.devices)]
+            partials = [ingest.upload(counts[s], device, site="merge.collect") for s, device in enumerate(mesh.devices)]
             gathered, totals = _gather_and_reduce(shards, partials, mesh, axis)
-            pulled = ingest.pull(gathered[0], site=_SITE)
-            summed = ingest.pull(totals[0], site=_SITE).numpy()
+            pulled = ingest.pull(gathered[0], site="merge.collect")
+            summed = ingest.pull(totals[0], site="merge.collect").numpy()
         gathered = pulled.numpy()
     return [
         _decode_lanes(block, dtypes) for block in _gathered_part_rows(gathered, assignment, part_rows)

@@ -544,29 +544,12 @@ def dump(path: str, worker: Optional[str] = None) -> Optional[str]:
 
 def load_mesh_dumps(run_dir: str) -> Dict[str, Dict[str, Any]]:
     """``mesh.<worker>.json`` dumps under ``run_dir`` (and one level of
-    subdirectories), keyed by worker: a copy of JAX's
-    ``analysis.meshwitness.load_dumps``. The port writes no such dumps
-    (its mesh has no collective-schedule witness); a JAX worker's are read
-    into the report. Unreadable dumps are skipped."""
-    out: Dict[str, Dict[str, Any]] = {}
-    patterns = [
-        os.path.join(run_dir, "mesh.*.json"),
-        os.path.join(run_dir, "*", "mesh.*.json"),
-    ]
-    for pattern in patterns:
-        for path in sorted(_glob.glob(pattern)):
-            base = os.path.basename(path)
-            worker = base[len("mesh."):-len(".json")] or "worker"
-            if worker in out:
-                continue
-            try:
-                with open(path, encoding="utf-8") as f:
-                    data = json.load(f)
-            except (OSError, ValueError):
-                continue
-            if isinstance(data, dict):
-                out[worker] = data
-    return out
+    subdirectories), keyed by worker: the collective-schedule witness's
+    (``analysis.meshwitness.load_dumps``), which reads a port worker's and
+    a JAX worker's alike. Unreadable dumps are skipped."""
+    from ..analysis import meshwitness
+
+    return meshwitness.load_dumps(run_dir)
 
 
 # ------------------------------------------------- load / merge / report

@@ -32,7 +32,16 @@ here: that copy to the host is the one host sync of a collective, and it
 is the gloo route's only one. ``crossed`` counts the bytes this process has
 sent to other processes, by collective.
 
-JAX's scx-mesh witness (``analysis/meshwitness``) is not ported.
+The collective-schedule witness (:mod:`sctools_tpu_torch.analysis.meshwitness`,
+``SCTOOLS_TPU_MESH_DEBUG=1``): each wrapper records the collective it issues
+(name, axis, the shape and dtype of one shard, its bytes) into the region of
+the mapped computation that is running, as JAX's ``_note`` does.
+``meshwitness.mapped`` tags a region: it is the port's counterpart of JAX's
+``platform.shard_map`` shim (which tags the mapped body) and of its
+``out_specs`` (``replicated``, read by the static pass's SCX805). Off means
+off: each wrapper then makes one ``enabled()`` check and never touches the
+witness's state. ``axis_index`` is host arithmetic on the mesh and exchanges
+nothing: it records only inside a region (``meshwitness``'s docstring).
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..analysis import meshwitness
 from . import distributed
 from .mesh import Mesh
 
@@ -50,6 +60,17 @@ from .mesh import Mesh
 crossed: collections.Counter = collections.Counter()
 
 Cut = Callable[[torch.Tensor, int, int], torch.Tensor]
+
+
+def _note(name: str, axis_name, xs) -> None:
+    """Record one issued collective against one shard's operand."""
+    if not meshwitness.enabled():
+        return
+    shard = next((x for x in xs if x is not None), None)
+    shape = tuple(shard.shape) if shard is not None else ()
+    dtype = str(shard.dtype).replace("torch.", "") if shard is not None else "?"
+    nbytes = shard.numel() * shard.element_size() if shard is not None else 0
+    meshwitness.record_collective(name, axis_name, shape, dtype, nbytes)
 
 
 def _check(xs: Sequence[Optional[torch.Tensor]], mesh: Mesh) -> None:
@@ -128,6 +149,7 @@ def _joined(got, mesh: Mesh, join) -> List[Optional[torch.Tensor]]:
 
 
 def _reduce(xs, mesh, axis_name, reduce, name) -> List[Optional[torch.Tensor]]:
+    _note(name, axis_name, xs)
     got = _exchange(xs, mesh, axis_name, _whole, name)
     return _joined(got, mesh, lambda pieces: reduce(torch.stack(pieces)))
 
@@ -153,6 +175,7 @@ def pmin(xs, mesh: Mesh, axis_name) -> List[Optional[torch.Tensor]]:
 def all_gather(xs, mesh: Mesh, axis_name, axis: int = 0, tiled: bool = False) -> List[Optional[torch.Tensor]]:
     """Each shard gets its group's values stacked along a new ``axis`` in
     axis order, or with ``tiled`` concatenated along ``axis``."""
+    _note("all_gather", axis_name, xs)
     join = torch.cat if tiled else torch.stack
     got = _exchange(xs, mesh, axis_name, _whole, "all_gather")
     return _joined(got, mesh, lambda pieces: join(pieces, dim=axis))
@@ -166,6 +189,7 @@ def all_to_all(xs, mesh: Mesh, axis_name, split_axis: int, concat_axis: int,
     ``concat_axis``. With ``tiled`` the chunks are slabs and the join a
     concatenation; without, ``split_axis`` must have the group's size, each
     chunk drops it, and the join stacks along a new ``concat_axis``."""
+    _note("all_to_all", axis_name, xs)
     _check(xs, mesh)
     n = mesh.axis_size(axis_name)
     for i in mesh.local_shards:
@@ -187,6 +211,7 @@ def all_to_all(xs, mesh: Mesh, axis_name, split_axis: int, concat_axis: int,
 def ppermute(xs, mesh: Mesh, axis_name, perm: Sequence[Tuple[int, int]]) -> List[Optional[torch.Tensor]]:
     """Shard at axis index ``src`` sends its value to ``dst`` for each pair
     of ``perm``; a shard that receives nothing gets zeros."""
+    _note("ppermute", axis_name, xs)
     got = _exchange(xs, mesh, axis_name, _whole, "ppermute", pairs=perm, copy=True)
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
     for dest, pieces in got.items():
@@ -196,7 +221,11 @@ def ppermute(xs, mesh: Mesh, axis_name, perm: Sequence[Tuple[int, int]]) -> List
 
 def axis_index(mesh: Mesh, axis_name) -> List[int]:
     """Each shard's index along ``axis_name`` (row-major over a tuple of
-    axes), in flat mesh order: host integers, known without the device."""
+    axes), in flat mesh order: host integers, known without the device.
+    Inside a mapped region the witness records it, as JAX's; outside one it
+    is a host helper (``place``) and records nothing."""
+    if meshwitness.enabled() and meshwitness.in_region():
+        meshwitness.record_collective("axis_index", axis_name, (), "int32", 0)
     out = [0] * mesh.size
     for group in mesh.groups(axis_name):
         for position, shard in enumerate(group):

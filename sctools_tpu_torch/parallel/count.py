@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import ingest
+from ..analysis import meshwitness
 from ..count import RESULT_COLUMNS, UPLOAD_COLUMNS, device_count_columns
 from ..obs import xprof
 from ..ops.counting import count_molecules
@@ -28,6 +29,7 @@ from .shard import partition_columns
 
 
 @xprof.instrument_site("parallel.sharded_count")
+@meshwitness.mapped("parallel.count._build_sharded_count.run")
 def sharded_count_molecules(
     stacked_cols: Dict[str, np.ndarray], mesh: Mesh, axis_name: str = DEFAULT_AXIS
 ) -> Dict[str, List[torch.Tensor]]:

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..analysis import meshwitness
 from ..device import DeviceLike, resolve
 from ..obs import xprof
 from . import distributed
@@ -178,6 +179,21 @@ def mesh_fingerprint(mesh: Mesh) -> dict:
     }
 
 
+@meshwitness.mapped("parallel.mesh.collective_preflight.preflight", replicated=(True, False))
+def _preflight_exchange(rows, mesh: Mesh, axis_name, n: int):
+    """The preflight's mapped program: the ``psum`` of the row sums, the
+    ``all_gather`` of the rows, the ``all_to_all`` of each row sum repeated
+    ``n`` times."""
+    from . import collective
+
+    sums = [r.sum(dtype=torch.int32) if r is not None else None for r in rows]
+    totals = collective.psum(sums, mesh, axis_name)
+    gathered = collective.all_gather(rows, mesh, axis_name)
+    fanout = [s.repeat(n) if s is not None else None for s in sums]
+    exchanged = collective.all_to_all(fanout, mesh, axis_name, 0, 0)
+    return totals, gathered, exchanged
+
+
 @xprof.instrument_site("parallel.mesh_preflight")
 def collective_preflight(mesh: Mesh, axis_name: str = DEFAULT_AXIS) -> dict:
     """Prove the mesh's collectives on a known payload before real data.
@@ -198,11 +214,7 @@ def collective_preflight(mesh: Mesh, axis_name: str = DEFAULT_AXIS) -> dict:
     rows = [ingest.upload(block[index[i]], mesh.devices[i], site="mesh.preflight")
             if i in mesh.local_shards else None
             for i in range(mesh.size)]
-    sums = [r.sum(dtype=torch.int32) if r is not None else None for r in rows]
-    totals = collective.psum(sums, mesh, axis_name)
-    gathered = collective.all_gather(rows, mesh, axis_name)
-    fanout = [s.repeat(n) if s is not None else None for s in sums]
-    exchanged = collective.all_to_all(fanout, mesh, axis_name, 0, 0)
+    totals, gathered, exchanged = _preflight_exchange(rows, mesh, axis_name, n)
     # every local shard's view: its total, and the gather and exchange it received
     pulls = [
         ingest.pull(torch.cat([totals[i].reshape(1), gathered[i].reshape(-1), exchanged[i].reshape(-1)]),

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import ingest
+from ..analysis import meshwitness
 from ..metrics.device import compact_results_wire, compute_entity_metrics
 from ..obs import xprof
 from ..ops import segments as seg
@@ -235,6 +236,7 @@ def _check_shard_count(n_shards: int, mesh: Mesh, axis_name) -> None:
 
 
 @xprof.instrument_site("parallel.sharded_metrics")
+@meshwitness.mapped("parallel.metrics._build_sharded_metrics.run")
 def run_sharded_metrics(
     shards: Sequence[Dict[str, torch.Tensor]],
     shard_size: int,
@@ -333,9 +335,7 @@ def distributed_metrics_step(
     else:
         cap = capacity
     shards = place(stacked_cols, mesh, axis_name)
-    cell_out = run_sharded_metrics(shards, shard_size, "cell")
-    regene, dropped = reshard_by_key(shards, "gene", mesh, axis_name, capacity=cap)
-    gene_out = run_sharded_metrics(regene, n_shards * cap, "gene")
+    cell_out, gene_out, dropped = _step(shards, mesh, axis_name, n_shards, shard_size, cap)
     rows = _first_group(mesh, axis_name)
     n_dropped = _dropped_count(dropped, rows, mesh, site="parallel.writeback")
     if n_dropped:
@@ -345,6 +345,16 @@ def distributed_metrics_step(
             "capacity (see required_reshard_capacity)"
         )
     return _by_name([cell_out[i] for i in rows]), _by_name([gene_out[i] for i in rows])
+
+
+@meshwitness.mapped("parallel.metrics._build_distributed_step.step")
+def _step(shards, mesh: Mesh, axis_name, n_shards: int, shard_size: int, cap: int):
+    """The step's device program over the placed shards: cell metrics in
+    place, the gene rekey, gene metrics on the rekeyed shards."""
+    cell_out = run_sharded_metrics(shards, shard_size, "cell")
+    regene, dropped = reshard_by_key(shards, "gene", mesh, axis_name, capacity=cap)
+    gene_out = run_sharded_metrics(regene, n_shards * cap, "gene")
+    return cell_out, gene_out, dropped
 
 
 def _dropped_count(dropped, rows, mesh: Mesh, site: str) -> int:

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import guard, obs
+from ..analysis import meshwitness
 from ..obs import pulse, xprof
 from ..ops import segments as seg
 from . import collective
@@ -154,6 +155,7 @@ def required_sort_capacity(stacked_cols: Dict[str, np.ndarray], key_names: List[
 
 
 @xprof.instrument_site("parallel.sample_sort")
+@meshwitness.mapped("parallel.sort._build_sample_sort.run")
 def _sample_sort(shards, key_names, mesh: Mesh, axis_name, n_shards: int, capacity: int):
     """Steps 1-4 over the placed shards; returns (shards, n_dropped)."""
     local_size = next(local for local in shards if local is not None)[key_names[0]].shape[0]

@@ -40,9 +40,13 @@ byte, for a presorted and for a device-sorted batch; capturing a key
 twice raises; a worker on cuda warms its graphs on a calibration BAM and
 drains a two-tenant journal in one pack, each artifact equal to the job's
 eager solo CSV; with steering forced on, a worker captures the graphs of
-every rung of its ladder at warmup, a pass at an applied bucket captures
-nothing new, no key is captured twice and every key is inside the graph
-manifest's contract; a cuda worker without a GPU raises before any lease. The
+every rung of its ladder at warmup (one key per distinct padded batch; a
+library past 8,192 records gives three), a pass at an applied bucket
+captures nothing new, no key is captured twice and every key is inside the
+graph manifest's contract; a cuda worker without a GPU raises before any
+lease. The collective-schedule witness on the card mesh: the preflight, the
+distributed step and the sample sort record their regions with 0
+violations and give the unwitnessed outputs. The
 global mesh: two processes joined by ``initialize_distributed``, one shard
 each, on one card (both on cuda:0, exchanging over gloo) and on two
 distinct cards (over NCCL; a machine with one card skips it), give the
@@ -357,14 +361,14 @@ def test_metrics_engine_on_the_card_matches_the_cpu(cuda_device, schema, n):
     )
 
 
-def _cell_library(rng):
-    """(header, records) of 300 cells x 7 molecules x 3 reads, sorted by
-    (CB, UB), ~5% unmapped."""
+def _cell_library(rng, n_cells: int = 300):
+    """(header, records) of ``n_cells`` cells x 7 molecules x 3 reads, sorted
+    by (CB, UB), ~5% unmapped."""
     header = BamHeader.from_text(
         "@HD\tVN:1.6\tSO:unsorted\n" + "".join(f"@SQ\tSN:chr{i}\tLN:1000000\n" for i in range(3))
     )
     records = []
-    for cell in sorted(_barcodes(rng, 300, 16)):
+    for cell in sorted(_barcodes(rng, n_cells, 16)):
         for umi in sorted(_barcodes(rng, 7, 10)):
             gene = f"G{int(rng.integers(0, 40)):03d}"
             for i in range(3):
@@ -1102,7 +1106,10 @@ def test_serve_worker_on_the_card_matches_eager_solo_runs(cuda_device, tmp_path)
 
 def test_steered_worker_captures_each_rung_at_warmup_and_never_retraces(cuda_device, tmp_path):
     """With steering forced on, a cuda worker at 8192 warms its graphs on
-    every rung of its ladder (4096, 8192, 16384); a downshift onto the
+    every rung of its ladder (4096, 8192, 16384): one graph key per distinct
+    padded batch, ``bucket_size(min(records, rung))`` (the 6,300-record
+    library pads to 8,192 at 8192 and at 16384 alike, as JAX's executable
+    key would); a downshift onto the
     resident 4096 rung applies, and the calibration library's pass at the
     applied bucket replays what warmup captured, capturing nothing new; the
     worker then drains a two-tenant journal; no key is captured twice (0
@@ -1140,7 +1147,8 @@ def test_steered_worker_captures_each_rung_at_warmup_and_never_retraces(cuda_dev
                 assert controller.ladder() == [4096, 8192, 16384]
                 assert controller.snapshot()["resident"] == [4096, 8192, 16384]
                 warm = worker.graphs.captures
-                assert warm >= 3 and warm == len(worker.graphs)
+                keys = {port_seg.bucket_size(min(len(records), rung)) for rung in controller.ladder()}
+                assert warm == len(keys) and warm == len(worker.graphs)
                 # thin traffic at 8192: the downshift onto the resident rung applies
                 records_fn, clock = controller._records_fn, controller._clock
                 controller._records_fn = lambda: [
@@ -1173,6 +1181,92 @@ def test_steered_worker_captures_each_rung_at_warmup_and_never_retraces(cuda_dev
         solo = str(tmp_path / f"solo_{job.tenant}")
         port_gatherer.GatherCellMetrics(job.bam, solo, batch_records=4096).extract_metrics()
         assert _gz(job.out + ".csv.gz") == _gz(solo + ".csv.gz")
+
+
+def test_steered_warmup_on_a_library_past_8192_records_captures_three_keys(cuda_device, tmp_path):
+    """A calibration library of more than 8,192 records (500 cells, 10,500
+    records) pads to its own key at each rung of the ladder (4096, 8192,
+    16384): three captures at warmup, and a second pass at every rung
+    replays them with no new capture (0 retraces in the registry)."""
+    from sctools_tpu_torch import steer
+    from sctools_tpu_torch.obs import pulse as port_pulse
+    from sctools_tpu_torch.serve.engine import ServeWorker
+
+    header, records = _cell_library(np.random.default_rng(65), n_cells=500)
+    assert len(records) > 8192
+    library = str(tmp_path / "calibration.bam")
+    with AlignmentWriter(library, header) as out:
+        for record in records:
+            out.write(record)
+    port_obs.reset()
+    port_xprof.reset()
+    port_obs.enable()
+    try:
+        with steer.force(True), port_pulse.memory_session():
+            with ServeWorker(str(tmp_path / "journal"), worker_id="warm", batch_records=8192,
+                             steer_epoch_s=0.0) as worker:
+                worker.warmup(calibration_bam=library)
+                ladder = worker.controller.ladder()
+                assert ladder == [4096, 8192, 16384]
+                assert worker.graphs.captures == 3 == len(worker.graphs)
+                replays = worker.graphs.replays
+                for rung in ladder:
+                    port_gatherer.GatherCellMetrics(library, str(tmp_path / f"again{rung}"), batch_records=rung,
+                                                    graphs=worker.graphs).extract_metrics()
+                assert worker.graphs.captures == 3 and worker.graphs.replays > replays
+        snap = port_xprof.snapshot()
+    finally:
+        port_obs.disable()
+        port_obs.reset()
+        port_xprof.reset()
+    site = snap["sites"]["metrics.compute_entity_metrics"]
+    assert site["retraces"] == 0 and site["compiles"] == 3
+
+
+def test_witnessed_mesh_on_the_card_records_its_regions_with_no_violation(cuda_device, tmp_path, monkeypatch):
+    """Under the collective-schedule witness, the preflight, the distributed
+    step (its reshard) and the sample sort on a mesh of CUDA devices (two
+    distinct cards where the machine has them, else the repeated card)
+    record non-empty region schedules inside the static schedule, with 0
+    violations, and give the unwitnessed run's outputs."""
+    from sctools_tpu_torch import parallel as port_par
+    from sctools_tpu_torch.analysis import build_collective_schedule, meshwitness
+
+    schedule = tmp_path / "schedule.json"
+    package = port_par.__file__.rsplit("/parallel/", 1)[0]
+    schedule.write_text(json.dumps(build_collective_schedule([package])))
+    cards = [torch.device("cuda", i % torch.cuda.device_count()) for i in range(2)]
+    mesh = port_par.make_mesh(devices=cards)
+    frame = _synthetic_frame(np.random.default_rng(17), 6000)
+    cols = port_gatherer._pad_columns(frame, np.zeros(len(frame.gene_names), bool))[0]
+    stacked = port_par.partition_columns(cols, 2, key="cell")
+    keys = {"k1": frame.cell.reshape(2, -1), "k2": frame.umi.reshape(2, -1),
+            "payload": np.arange(6000, dtype=np.int32).reshape(2, -1), "valid": np.ones((2, 3000), bool)}
+
+    def run():
+        preflight = port_par.collective_preflight(mesh)
+        cell, gene = port_par.distributed_metrics_step(stacked, mesh)
+        ordered = port_par.distributed_sort(keys, ["k1", "k2"], mesh)
+        return preflight, [port_par.stack_to_host(r) for r in (cell, gene, ordered)]
+
+    plain = run()
+    monkeypatch.setenv(meshwitness.ENV_FLAG, "1")
+    monkeypatch.setenv(meshwitness.ENV_SCHEDULE, str(schedule))
+    meshwitness.reset()
+    try:
+        witnessed = run()
+        snap = meshwitness.snapshot()
+    finally:
+        meshwitness.reset()
+    assert snap["violations"] == []
+    for label in ("parallel.mesh.collective_preflight.preflight", "parallel.metrics._build_distributed_step.step",
+                  "parallel.sort._build_sample_sort.run"):
+        rows = snap["schedules"]["sctools_tpu_torch." + label]
+        assert rows and all(row["entries"] for row in rows), label
+    assert witnessed[0] == plain[0]
+    for got, want in zip(witnessed[1], plain[1]):
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key])
 
 
 def test_cuda_serve_worker_without_a_gpu_raises_before_any_lease(cuda_device, tmp_path, monkeypatch):

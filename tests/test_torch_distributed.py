@@ -22,6 +22,11 @@ global shards 2p and 2p + 1. One spawn runs every case:
   ``distributed_sort`` of stacked host keys on the global mesh equals JAX's;
 - ``collective_preflight`` and ``mesh_fingerprint`` of the global mesh equal
   JAX's on 4 devices; the transport is gloo;
+- the collective-schedule witness is armed in both workers
+  (``SCTOOLS_TPU_MESH_DEBUG=1``, ``SCTOOLS_TPU_MESH_SCHEDULE`` at the port's
+  static schedule): each dumps ``mesh.p<pid>.json``, the two dumps hold the
+  same per-region schedules, non-empty, with 0 violations, and the outputs
+  above still equal JAX's, so the witness does not disturb the run;
 - an explicit capacity that only one process's rows exceed makes both
   processes raise ``ValueError``; records dropped by one process alone (its
   ``required_reshard_capacity`` patched to 0, as
@@ -57,6 +62,7 @@ from sctools_tpu.metrics.gatherer import GatherCellMetrics as JaxGatherCellMetri
 from sctools_tpu.platform import GenericPlatform as JaxGenericPlatform
 from sctools_tpu.utils import make_synthetic_columns
 from sctools_tpu_torch import parallel as port_par
+from sctools_tpu_torch.analysis import build_collective_schedule, meshwitness
 from sctools_tpu_torch.parallel import collective
 from test_distributed import _make_input
 from test_torch_parallel import _same
@@ -137,6 +143,8 @@ try:
 except AssertionError as error:
     report["sync"] = str(error)
 par.sync_processes("done")
+from sctools_tpu_torch.analysis import meshwitness
+meshwitness.dump(os.path.join(workdir, f"mesh.p{pid}.json"))
 par.distributed.shutdown()
 with open(os.path.join(workdir, f"report{pid}.json"), "w") as f:
     json.dump(report, f)
@@ -187,8 +195,11 @@ def spawned(tmp_path_factory, stacked):
              **{f"sort/{k}": v for k, v in keys.items()})
     required = [_local_required(stacked, p) for p in range(PROCESSES)]
     capacity = min(required)
+    schedule = workdir / "schedule.json"
+    schedule.write_text(json.dumps(build_collective_schedule([os.path.join(REPO_ROOT, "sctools_tpu_torch")])))
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.update({meshwitness.ENV_FLAG: "1", meshwitness.ENV_SCHEDULE: str(schedule)})
     coordinator = f"127.0.0.1:{_free_port()}"
     procs = [
         subprocess.Popen([sys.executable, "-c", WORKER, str(p), coordinator, str(workdir), str(capacity)],
@@ -206,6 +217,7 @@ def spawned(tmp_path_factory, stacked):
     for p, (proc, out) in enumerate(zip(procs, outputs)):
         assert proc.returncode == 0 and f"[p{p}] OK" in out, f"worker {p} failed:\n{out[-4000:]}"
     reports = [json.loads((workdir / f"report{p}.json").read_text()) for p in range(PROCESSES)]
+    witnessed = meshwitness.load_dumps(str(workdir))
     shards = {}
     for p in range(PROCESSES):
         with np.load(workdir / f"out{p}.npz") as out:
@@ -213,7 +225,7 @@ def spawned(tmp_path_factory, stacked):
                 kind, row, name = key.split("/")
                 shards.setdefault(kind, {}).setdefault(int(row), {})[name] = out[key]
     return dict(workdir=workdir, single=single, n_chunks=n_chunks, reports=reports, shards=shards,
-                required=required, capacity=capacity, keys=keys)
+                required=required, capacity=capacity, keys=keys, witnessed=witnessed)
 
 
 def _jax_mesh(n):
@@ -239,6 +251,29 @@ def test_two_processes_join_one_gloo_mesh(spawned):
         assert report["local_shards"] == [LOCAL * p + i for i in range(LOCAL)]
         assert report["owners"] == [0, 0, 1, 1]
         assert report["hybrid_shape"] == {"dcn": PROCESSES, "shard": LOCAL}
+
+
+def test_both_processes_dump_the_same_witnessed_schedules(spawned):
+    """The witness rode the whole spawn: each process's per-region schedules
+    (the distinct collective sequences, shapes and bytes included) equal the
+    other's, every collective region is non-empty, and nothing was outside a
+    region or outside the static schedule."""
+    dumps = spawned["witnessed"]
+    assert set(dumps) == {"p0", "p1"}
+
+    def schedules(dump):
+        return {label: sorted(json.dumps(row["entries"], sort_keys=True) for row in rows)
+                for label, rows in dump["schedules"].items()}
+
+    assert schedules(dumps["p0"]) == schedules(dumps["p1"])
+    for dump in dumps.values():
+        assert dump["violations"] == [] and dump["static_schedule"]
+        for label in ("parallel.metrics._build_distributed_step.step", "parallel.sort._build_sample_sort.run",
+                      "parallel.mesh.collective_preflight.preflight"):
+            rows = dump["schedules"]["sctools_tpu_torch." + label]
+            assert rows and all(row["entries"] for row in rows), label
+        names = {entry["name"] for entry in dump["sequence"]}
+        assert {"all_to_all", "all_gather", "psum", "axis_index"} <= names
 
 
 def test_chunk_parts_merged_by_rank_zero_equal_jax_one_shot(spawned):
