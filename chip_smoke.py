@@ -173,8 +173,9 @@ Phases, in order; any failure exits non-zero before the last line:
               boundary; no worker may launch a hand kernel;
 13. analysis -- the port's static checks and its runtime lock witness on
               this machine: ``python -m sctools_tpu_torch.analysis
-              sctools_tpu_torch chip_smoke.py --json`` must exit 0 with no
-              finding, and ``--emit-lock-graph`` writes the static lock
+              sctools_tpu_torch chip_smoke.py --json`` with the lint, ABI,
+              race and life passes (phase 19 runs every pass) must exit 0
+              with no finding, and ``--emit-lock-graph`` writes the static lock
               graph. Two worker processes (``chip_smoke.py
               --analysis-worker``), unwitnessed and then under
               ``SCTOOLS_TPU_LOCK_DEBUG=1`` (with that graph),
@@ -200,9 +201,10 @@ Phases, in order; any failure exits non-zero before the last line:
               and CreateCountMatrix on phase 6's BAM at their full batch
               widths, and one serve worker draining three jobs (two of phase
               10's chunks and a small library, which the planner packs with
-              one chunk across tenants). Each runs untraced and then traced,
-              each run in a worker process of its own (``chip_smoke.py
-              --trace-worker``), the traced one with
+              one chunk across tenants). Each runs untraced (the four in
+              one worker process, in turn) and then traced, each traced run
+              in a worker process of its own (``chip_smoke.py
+              --trace-worker``), with
               ``SCTOOLS_TPU_TRACE=<dir>``, ``SCTOOLS_TPU_PULSE=1`` and its
               own ``SCTOOLS_TPU_TRACE_WORKER``. Every traced output must
               equal the untraced one (the BAM bytes, the CSVs decompressed,
@@ -301,10 +303,16 @@ Phases, in order; any failure exits non-zero before the last line:
               ``applied`` decision, each applied bucket inside its worker's
               announced ladder and resident; both legs' registries must show
               0 retraces and every recorded signature inside the graph
-              manifest's contract; the static leg must announce only
-              ``{"mode": "off"}``. Prints each leg's captures at warmup and
-              while serving, replays, occupancy, packs by bucket, decisions
-              and wall; no worker may launch a hand kernel;
+              manifest's contract (``shardcheck.check_signatures``); every
+              worker must capture 0 graphs while serving; every bucket a
+              controller announced resident or applied must pass the
+              contract's ``dim_admissible``; the static leg must announce
+              only ``{"mode": "off"}``. Before the legs, the committed
+              ``serve/graph_manifest.json`` must pass the AOT pass's
+              staleness gate (``--aot-only --aot-manifest``). Prints each
+              leg's captures at warmup and while serving, replays,
+              occupancy, packs by bucket, decisions and wall; no worker may
+              launch a hand kernel;
 18. guard  -- the guard ladder (``sctools_tpu_torch.guard``) and the
               writeback ring on the card, after the JAX package's
               tests/guard_smoke.py, each run a process of its own. (a) Two
@@ -345,14 +353,22 @@ Phases, in order; any failure exits non-zero before the last line:
               ``run_batch`` and ``retrying`` cost on the host (20,000 of
               each) and each step's wall; no sched worker and no step but
               (c) may launch a hand kernel;
-19. discipline -- the transfer-discipline and collective-safety checks
-              (``sctools_tpu_torch.analysis`` scx-cost and scx-mesh) on the
-              card machine: the gate (``--json``, every pass) over the port
-              and this script, and ``--emit-transfer-inventory`` /
-              ``--emit-collective-schedule`` into the run directory; the
-              merged transfer ledgers of phases 14-15's traced workers
-              (attach, cell, count, serve, sched) against the inventory (0
-              phantom sites, 0 wrong directions); then, at a smaller depth
+19. discipline -- the static checks (``sctools_tpu_torch.analysis``) on the
+              card machine: the gate (``--json``, every pass, scx-shard and
+              scx-aot among them) over the port and this script, and
+              ``--emit-transfer-inventory`` / ``--emit-collective-schedule``
+              / ``--emit-shape-contract`` into the run directory; the merged
+              transfer ledgers of phases 14-15's traced workers (attach,
+              cell, count, serve, sched) against the inventory (0 phantom
+              sites, 0 wrong directions) and the signatures of their merged
+              registries and of phase 17's serve workers against the shape
+              contract (0 violations); the autotuner (``--retune``)
+              against a copy of ``sctools_tpu_torch``, over all those
+              registries and over phase 17's static serve fleet's alone,
+              each a dry run and then an applied run whose gates pass
+              (exit 0) or restore the copy's ``ops/segments.py`` byte for
+              byte (exit 5), the repository's own file untouched; then, at
+              a smaller depth
               (131,072 records), phase 9's ``--devices 2`` gene command,
               preflight and sample sort in one worker and phase 12's two
               joined processes, each unwitnessed and then under
@@ -363,8 +379,10 @@ Phases, in order; any failure exits non-zero before the last line:
               (name, axis) inside the static schedule, the witnessed outputs
               byte-equal to the unwitnessed ones, and ``obs efficiency``
               printing the collectives section from the dumps. Prints the
-              gate's time, the sites, and each worker's unwitnessed and
-              witnessed walls; no worker may launch a hand kernel;
+              gate's time, the sites, the contract's sites and the
+              signatures checked, the derived constants, and each worker's
+              unwitnessed and witnessed walls; no worker may launch a hand
+              kernel;
 20. kernels -- one JSON line per the port's kernel contract; its launches are
               those of every main-path run (phases 4, 7, 13, 14, 15 and 18).
 
@@ -663,10 +681,17 @@ def write_tagged_bam(path: Path, rng, reads: dict, bgzf) -> None:
     n_cigar = np.where(reads["unmapped"], 0, np.where(reads["spliced"], 3, 1))
     flag = (np.where(reads["unmapped"], 4, 0) | np.where(reads["reverse"], 16, 0)
             | np.where(reads["duplicate"], 1024, 0))
-    rows = [None] * n
-    layout = np.stack([n_cigar, ge_len, reads["xf"], reads["nh"] > 0, has_cb, has_ub], axis=1)
-    groups, group_of = np.unique(layout, axis=0, return_inverse=True)
-    for g, (cig, glen, xf_code, has_nh, cb_on, ub_on) in enumerate(groups):
+    # one layout group a mixed-radix key (GE values stay under 64 bytes)
+    key = ((((n_cigar * 64 + ge_len) * 8 + reads["xf"]) * 2 + (reads["nh"] > 0)) * 2 + has_cb) * 2 + has_ub
+    groups, group_of = np.unique(key, return_inverse=True)
+    sizes = np.empty(n, dtype=np.int64)
+    blocks = []
+    for g, code in enumerate(groups):
+        code, ub_on = divmod(int(code), 2)
+        code, cb_on = divmod(code, 2)
+        code, has_nh = divmod(code, 2)
+        code, xf_code = divmod(code, 8)
+        cig, glen = divmod(code, 64)
         idx = np.flatnonzero(group_of.ravel() == g)
         m = idx.size
         cigar = {0: [], 1: [R2_LEN << 4], 3: [49 << 4, (1000 << 4) | 3, 49 << 4]}[int(cig)]
@@ -695,18 +720,34 @@ def write_tagged_bam(path: Path, rng, reads: dict, bgzf) -> None:
                                          reads["nh"][idx].astype(np.uint8)[:, None]], axis=1))
         width = sum(p.shape[1] for p in parts[1:])
         parts[0] = np.broadcast_to(_u8(np.array([width]), "<i4")[0], (m, 4))
-        blob = np.concatenate(parts, axis=1).tobytes()
-        size = width + 4
-        for j, i in enumerate(idx):
-            rows[i] = blob[j * size : (j + 1) * size]
+        sizes[idx] = width + 4
+        blocks.append((idx, np.concatenate(parts, axis=1)))
+    # the records in their order: each group's rows scattered to their offsets
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    body = np.empty(offsets[-1], dtype=np.uint8)
+    for idx, block in blocks:
+        for lo in range(0, idx.size, 1 << 15):
+            rows = idx[lo : lo + (1 << 15)]
+            body[offsets[rows][:, None] + np.arange(block.shape[1])] = block[lo : lo + (1 << 15)]
     text = b"@HD\tVN:1.6\tSO:unsorted\n" + b"".join(b"@SQ\tSN:%s\tLN:%d\n" % (name.encode(), length) for name, length in GRCH38)
     header = b"BAM\1" + struct.pack("<I", len(text)) + text + struct.pack("<I", len(GRCH38))
     for name, length in GRCH38:
         header += struct.pack("<I", len(name) + 1) + name.encode() + b"\0" + struct.pack("<I", length)
-    with bgzf.BgzfWriter(str(path), level=1) as out:
-        out.write(header)
-        for start in range(0, n, 1 << 16):
-            out.write(b"".join(rows[start : start + (1 << 16)]))
+    write_bgzf(path, header + body.tobytes(), bgzf)
+
+
+def write_bgzf(path: Path, data: bytes, bgzf) -> None:
+    """``data`` as the BGZF file ``bgzf.BgzfWriter(level=1)`` writes, byte
+    for byte: the same 64 KiB blocks, compressed on a pool of threads (zlib
+    releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    step = bgzf.MAX_BLOCK_PAYLOAD
+    chunks = [data[i : i + step] for i in range(0, len(data), step)]
+    with ThreadPoolExecutor(max_workers=8) as pool, open(path, "wb") as out:
+        for block in pool.map(lambda chunk: bgzf.compress_block(chunk, 1), chunks):
+            out.write(block)
+        out.write(bgzf.BGZF_EOF)
 
 
 def write_mito_gtf(path: Path) -> None:
@@ -2100,11 +2141,8 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
         header = sam.read_raw_header(fh)
         phase5 = list(sam.iter_raw_records(fh))
     shuffled = WORK / "cell_shuffled.bam"
-    with bgzf.BgzfWriter(str(shuffled), level=1) as out:
-        out.write(header)
-        order = rng.permutation(len(phase5))
-        for lo in range(0, len(order), 1 << 16):
-            out.write(b"".join(struct.pack("<I", len(phase5[i])) + phase5[i] for i in order[lo : lo + (1 << 16)]))
+    order = rng.permutation(len(phase5))
+    write_bgzf(shuffled, header + b"".join(struct.pack("<I", len(phase5[i])) + phase5[i] for i in order), bgzf)
     n = len(phase5)
     log(f"[sort] inputs: phase 5's {n} cell records in a shuffled order (BGZF level 1, "
         f"{shuffled.stat().st_size} bytes); made in {time.perf_counter() - start:.1f} s")
@@ -3109,8 +3147,10 @@ def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
 
     # (a) the passes, as a user runs them
     start = time.perf_counter()
+    # its four passes: phase 19 runs the gate with every pass
     gate = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", "sctools_tpu_torch", "chip_smoke.py",
-                           "--json"], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+                           "--json", "--no-shard", "--no-cost", "--no-mesh", "--no-aot"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
     passes_s = time.perf_counter() - start
     if gate.returncode != 0:
         raise AssertionError(f"the static checks: rc {gate.returncode}\n{gate.stdout[-4000:]}{gate.stderr[-2000:]}")
@@ -3130,7 +3170,8 @@ def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
         raise AssertionError(f"the static lock graph names {sorted(graph['locks'])}, want seventeen with obs.xprof, "
                              f"obs.audit, ingest.ring_state and {GUARD_LOCKS}")
     static_edges = {(e["from"], e["to"]) for e in graph["edges"]}
-    log(f"[analysis] {stamp} | python -m sctools_tpu_torch.analysis sctools_tpu_torch chip_smoke.py --json: "
+    log(f"[analysis] {stamp} | python -m sctools_tpu_torch.analysis sctools_tpu_torch chip_smoke.py --json "
+        f"--no-shard --no-cost --no-mesh --no-aot: "
         f"exit 0, {len(result['findings'])} findings over {result['checked_files']} files in {passes_s:.2f} s "
         f"(lint, abi, race, life; no parse store); --emit-lock-graph in {graph_s:.2f} s: "
         f"{len(graph['locks'])} locks {sorted(graph['locks'])}, {len(graph['edges'])} order edges, "
@@ -3372,14 +3413,14 @@ def phase_tracing(rng, stamp: str, modules) -> int:
     write_tagged_bam(root / "small.bam", rng, sort_reads(make_reads(rng, TRACE_SMALL_RECORDS), "cell"), bgzf)
     plain_env = {k: v for k, v in os.environ.items() if k not in TRACE_VARS and k not in WITNESS_VARS}
     plain, traced = root / "plain", root / "traced"
-    # each run in a fresh process, so that both pay the same first-use
-    # costs (CUDA module loading, the native layer, the graph captures)
+    # the untraced steps in one process, in turn; each traced step in a
+    # process of its own, under its own capture directory and worker name
+    plain_run = run_trace_worker(plain, "plain", TRACE_STEPS, plain_env)
     steps = {}
     for step in TRACE_STEPS:
         traced_env = dict(plain_env, SCTOOLS_TPU_TRACE=str(traced / step), SCTOOLS_TPU_PULSE="1",
                           SCTOOLS_TPU_TRACE_WORKER=f"traced-{step}", SCTOOLS_TPU_SLO="1")
-        pair = (run_trace_worker(plain, f"plain-{step}", [step], plain_env),
-                run_trace_worker(traced, f"traced-{step}", [step], traced_env))
+        pair = (plain_run, run_trace_worker(traced, f"traced-{step}", [step], traced_env))
         if (pair[0]["obs"], pair[0]["pulse"], pair[1]["obs"], pair[1]["pulse"]) != (False, False, True, True):
             raise AssertionError(f"{step}: obs and pulse untraced {pair[0]['obs']} {pair[0]['pulse']}, traced "
                                  f"{pair[1]['obs']} {pair[1]['pulse']}")
@@ -3510,10 +3551,9 @@ def phase_tracing(rng, stamp: str, modules) -> int:
         untraced, traced_info = steps[step]
         n_spans, n_beats = sum(ledger[step][0].values()), len(ledger[step][2])
         cost_ms = (n_spans * on["span_us"] + n_beats * on["heartbeat_us"]) / 1e3
-        log(f"[tracing] {stamp} | {step}: untraced {untraced['seconds']:.3f} s, traced "
-            f"{traced_info['seconds']:.3f} s ({100 * (traced_info['seconds'] / untraced['seconds'] - 1):+.1f}%); "
-            f"{n_spans} spans and {n_beats} heartbeats, at the rates above {cost_ms:.3f} ms; launches "
-            f"{traced_info['launches'] or 0}")
+        log(f"[tracing] {stamp} | {step}: untraced {untraced['seconds']:.3f} s (the untraced steps share one "
+            f"process), traced {traced_info['seconds']:.3f} s (a fresh process); {n_spans} spans and {n_beats} "
+            f"heartbeats, at the rates above {cost_ms:.3f} ms; launches {traced_info['launches'] or 0}")
     by_stage = collections.defaultdict(list)
     for step in TRACE_STEPS:
         for beat in ledger[step][2]:
@@ -3650,7 +3690,8 @@ def phase_efficiency(stamp: str, modules, traced: dict) -> dict:
     their worker reports and the overhead pair), read back through ``obs
     efficiency`` / ``obs timeline`` / ``sched status`` / ``obs delta``.
     Returns the merged transfer ledger of every traced worker (attach, cell,
-    count, serve, sched): ``{direction: {"by_site": {site: {"bytes"}}}}``."""
+    count, serve, sched), ``{direction: {"by_site": {site: {"bytes"}}}}``,
+    and their xprof registries (each worker's dump, by name)."""
     import os
 
     import torch
@@ -3814,6 +3855,11 @@ def phase_efficiency(stamp: str, modules, traced: dict) -> dict:
     # traced cell run's): what phase 19 checks against the static inventory
     ledgers = [report["ledger"]] + [json.loads(path.read_text())["ledger"]
                                     for path in (WORK / "tracing" / "traced" / "cell").glob("xprof.*.json")]
+    # and their registries: what phase 19 checks against the shape contract
+    # and hands the autotuner
+    dumps = {f"{run_dir}-{worker}": data for (run_dir, worker), (_, data, _) in registries.items()}
+    for path in (WORK / "tracing" / "traced" / "cell").glob("xprof.*.json"):
+        dumps[f"cell-{path.name[len('xprof.'):-len('.json')]}"] = json.loads(path.read_text())
     merged = {}
     for ledger in ledgers:
         for direction, total in ledger.items():
@@ -3828,7 +3874,7 @@ def phase_efficiency(stamp: str, modules, traced: dict) -> dict:
     shutil.move(str(WORK / "tracing" / "plain" / "attach" / "attach.bam"), str(WORK / GUARD_IN / "attach_plain.bam"))
     shutil.rmtree(WORK / "tracing")
     log(f"[efficiency] phase 15 took {time.perf_counter() - phase_start:.1f} s")
-    return merged
+    return merged, dumps
 
 
 AUDIT_ROOT = "audit"
@@ -4250,7 +4296,7 @@ def steer_leg(root: Path, leg: str, armed: bool, jobs, calibration: Path, module
     ``SCTOOLS_TPU_STEER`` at 1 or 0; returns what the gates read."""
     import os
 
-    pulse, xprof, steer, manifest, sched, serve_cli = modules
+    pulse, xprof, steer, manifest, sched, serve_cli, shardcheck = modules
     leg_dir = root / leg
     obs_dir = leg_dir / "obs"
     journal_dir = leg_dir / "journal"
@@ -4309,7 +4355,8 @@ def steer_leg(root: Path, leg: str, armed: bool, jobs, calibration: Path, module
                 padded += int(record.get("padded_rows") or 0)
     if not padded:
         raise AssertionError(f"{leg}: no tenant heartbeats in the pulse rings")
-    merged = xprof.merge_registries(xprof.load_registries(str(obs_dir)))
+    registries = xprof.load_registries(str(obs_dir))
+    merged = xprof.merge_registries(registries)
     contract = manifest.load_manifest()["contract"]
     announced = [e for e in events if e.get("event") == "worker"]
     decisions = steer.load_decisions(str(leg_dir))
@@ -4317,23 +4364,41 @@ def steer_leg(root: Path, leg: str, armed: bool, jobs, calibration: Path, module
         "jobs": len(jobs), "committed": committed, "wall": wall, "summaries": summaries,
         "occupancy": real / padded, "real": real, "padded": padded,
         "retraces": sum(int(site.get("retraces") or 0) for site in merged["sites"].values()),
-        "violations": manifest.signature_violations(merged["sites"], contract),
-        "signatures": len((merged["sites"].get(manifest.SERVE_SITE) or {}).get("signatures") or {}),
+        "violations": shardcheck.check_signatures(contract, merged["sites"]),
+        "signatures": sum(len(site.get("signatures") or {}) for site in merged["sites"].values()),
+        "contract": contract, "registries": registries,
         "announced": announced, "decisions": decisions, "snapshots": steer.latest_snapshots(str(leg_dir)),
         "buckets": collections.Counter(e["pack_bucket"] for e in events if e.get("event") == "committed"),
         "out": out_of,
     }
 
 
-def phase_steer(stamp: str, modules) -> None:
+def phase_steer(stamp: str, modules) -> dict:
     """Online steering on the card: the same 24 jobs of 4 tenants drained by
     a 2-worker fleet twice, with ``SCTOOLS_TPU_STEER=0`` and then armed with
-    a short ``--steer-epoch``; see the module docstring, phase 17."""
+    a short ``--steer-epoch``; see the module docstring, phase 17. Returns
+    the serve workers' xprof registries, by name."""
     phase_start = time.perf_counter()
-    kernels, bgzf, pulse, xprof, steer, manifest, sched, serve_cli, port_platform = modules
+    import os
+
+    kernels, bgzf, pulse, xprof, steer, manifest, sched, serve_cli, port_platform, shardcheck = modules
     launches_before = dict(kernels.launches)
     root = WORK / STEER_ROOT
     (root / "in").mkdir(parents=True)
+    # the committed manifest against the AOT pass's fresh contract: the
+    # staleness gate, as a user runs it
+    begin = time.perf_counter()
+    gate = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", "--aot-only", "--aot-manifest",
+                           "sctools_tpu_torch/serve/graph_manifest.json", "sctools_tpu_torch"], cwd=REPO,
+                          env=dict(os.environ, SCTOOLS_TPU_SCX_CACHE="0"), capture_output=True, text=True,
+                          timeout=300)
+    if gate.returncode != 0 or "matches the fresh shape contract" not in gate.stdout:
+        raise AssertionError(f"the manifest's staleness gate: rc {gate.returncode}\n{gate.stdout}{gate.stderr}")
+    committed = manifest.load_manifest()
+    reachable = sorted(name for name, site in committed["sites"].items() if site["serve_reachable"])
+    log(f"[steer] {stamp} | the committed graph manifest passes the AOT staleness gate in "
+        f"{time.perf_counter() - begin:.2f} s (contract {committed['contract_hash'][:12]}, "
+        f"{len(committed['sites'])} sites, serve-reachable {reachable})")
     begin = time.perf_counter()
     calibration = root / "in" / "calibration.bam"
     write_steer_bam(calibration, bgzf, STEER_CALIBRATION_CELLS, 4, 2, seed=4242)
@@ -4360,7 +4425,7 @@ def phase_steer(stamp: str, modules) -> None:
             raise AssertionError(f"CalculateCellMetrics on {bam.name} failed")
         solo[(tenant, index)] = read_csv(Path(str(stem) + ".csv.gz"))[0]
     solo_s = time.perf_counter() - begin
-    leg_modules = (pulse, xprof, steer, manifest, sched, serve_cli)
+    leg_modules = (pulse, xprof, steer, manifest, sched, serve_cli, shardcheck)
     legs = {"static": steer_leg(root, "static", False, jobs, calibration, leg_modules),
             "steered": steer_leg(root, "steered", True, jobs, calibration, leg_modules)}
     for name, leg in legs.items():
@@ -4375,6 +4440,17 @@ def phase_steer(stamp: str, modules) -> None:
             graphs = summary["graphs"]
             if graphs["keys"] != graphs["captures_warmup"] + graphs["captures_serving"]:
                 raise AssertionError(f"{name} worker {worker}: a graph key captured twice: {graphs}")
+            if graphs["captures_serving"]:
+                raise AssertionError(f"{name} worker {worker}: a graph captured while serving: {graphs}")
+        # every bucket a controller held resident or applied is one the
+        # regenerated contract admits
+        buckets = {b for snap in leg["snapshots"].values() for b in snap.get("resident") or ()}
+        buckets |= {d["proposal"]["to"] for d in leg["decisions"]
+                    if d["verdict"] == "applied" and d["proposal"]["knob"] == "bucket"}
+        outside = sorted(b for b in buckets if not shardcheck.dim_admissible(b, leg["contract"]))
+        if outside:
+            raise AssertionError(f"{name}: buckets outside the contract: {outside}")
+        leg["admitted"] = sorted(buckets)
     if any(e["steer"] != {"mode": "off"} for e in legs["static"]["announced"]) or legs["static"]["decisions"]:
         raise AssertionError("the static leg announced a steering controller")
     steered = legs["steered"]
@@ -4396,7 +4472,7 @@ def phase_steer(stamp: str, modules) -> None:
             f"start to exit); occupancy {leg['occupancy']:.4f} ({leg['real']} real of {leg['padded']} padded rows, "
             f"warmup beats excluded); packs by bucket {dict(sorted(leg['buckets'].items()))}; decisions "
             f"{dict(sorted(verdicts.items()))}; retraces {leg['retraces']}, {leg['signatures']} signatures all inside "
-            f"the contract")
+            f"the contract; buckets resident or applied {leg['admitted']}, all admitted by the contract")
         for worker, g in graphs.items():
             summary = leg["summaries"][worker]
             log(f"[steer] {stamp} | {name} {worker}: warmup {summary['warmup_s']:.2f} s, graphs captured "
@@ -4412,6 +4488,8 @@ def phase_steer(stamp: str, modules) -> None:
         f"(decompressed; the solo runs took {solo_s:.2f} s); no hand kernel launched in this process")
     clear_work_for_guard()
     log(f"[steer] phase 17 took {time.perf_counter() - phase_start:.1f} s")
+    return {f"steer-{name}-{i}": registry for name, leg in legs.items()
+            for i, registry in enumerate(leg["registries"])}
 
 
 GUARD_ROOT = "guard"
@@ -4905,14 +4983,92 @@ def same_arrays(name: str, a: Path, b: Path) -> None:
             raise AssertionError(f"{name}: {a.name} and {b.name} differ")
 
 
-def phase_discipline(rng, stamp: str, modules, ledger: dict) -> None:
-    """The transfer discipline and the collective witness on the card.
+def retune_copy(run_dir: Path, tree: Path, env: dict) -> dict:
+    """``--retune run_dir`` against the copy of the port under ``tree``: a
+    dry run, then an applied one (exit 0, or 5 with the copy's segments file
+    restored byte for byte). Returns each run's exit, seconds and lines, the
+    dry run's derived moves and the copy's pins after the applied run."""
+    segments = tree / "sctools_tpu_torch" / "ops" / "segments.py"
+    before = segments.read_bytes()
+    runs = {}
+    for arm, extra in (("dry run", ["--retune-dry-run"]), ("applied", [])):
+        begin = time.perf_counter()
+        done = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", "--retune", str(run_dir), *extra,
+                               str(tree / "sctools_tpu_torch")], cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=300)
+        runs[arm] = (done.returncode, time.perf_counter() - begin,
+                     [line for line in done.stdout.splitlines() if line.startswith("scx-cost --retune:")])
+        if done.returncode not in ((0,) if extra else (0, 5)):
+            raise AssertionError(f"--retune ({arm}): rc {done.returncode}\n{done.stdout[-3000:]}{done.stderr[-2000:]}")
+    derived = dict(re.findall(r"(RECORD_BUCKET_MIN|ENTITY_BUCKET_MIN): (\d+ -> \d+|\d+ \(unchanged\))",
+                              "\n".join(runs["dry run"][2])))
+    pinned = dict(re.findall(r"^(RECORD_BUCKET_MIN|ENTITY_BUCKET_MIN) = (\d+)$", segments.read_text(), re.M))
+    if runs["applied"][0] == 5:
+        if segments.read_bytes() != before:
+            raise AssertionError("--retune: a gate rejected the edit and the copy was not restored")
+    elif {name: move.split(" -> ")[-1].split()[0] for name, move in derived.items()} != pinned:
+        raise AssertionError(f"--retune: pinned {pinned}, the dry run derived {derived}")
+    return {"runs": runs, "derived": derived, "pinned": pinned}
+
+
+def shape_check(root: Path, registries: dict, contract: dict, env: dict, stamp: str, port_xprof, shardcheck) -> None:
+    """Phase 19 (b) and (b'): every signature in ``registries`` inside
+    ``contract``; then ``--retune`` against a copy of the port, over all of
+    them and over phase 17's static serve fleet's alone, the repository's
+    own ``ops/segments.py`` untouched."""
+    # every signature the traced workers recorded is inside the contract
+    sites = port_xprof.merge_registries(list(registries.values()))["sites"]
+    observed = {name: len(row.get("signatures") or {}) for name, row in sites.items() if row.get("signatures")}
+    violations = shardcheck.check_signatures(contract, sites)
+    want = {"metrics.compute_entity_metrics", "metrics.compact_results_wire", "ops.count_molecules",
+            "whitelist.correct_pallas", "parallel.sharded_metrics"}
+    if violations or not want <= set(observed):
+        raise AssertionError(f"the shape contract: {violations}; observed {observed}")
+    log(f"[discipline] {stamp} | phases 14-15's and 17's traced registries ({len(registries)} workers): "
+        f"{sum(observed.values())} signatures at {len(observed)} sites, 0 outside the shape contract: "
+        + ", ".join(f"{name} {n}" for name, n in sorted(observed.items())))
+
+    # (b') the autotuner against a copy of the port: over every traced
+    # registry, then over the static serve fleet's, whose small packs pad
+    # 4,096 rows for ~1,350 real (phase 17)
+    tree = root / "retune_tree"
+    shutil.copytree(REPO / "sctools_tpu_torch", tree / "sctools_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "_build", "*.so", "*.o"))
+    own = (REPO / "sctools_tpu_torch" / "ops" / "segments.py").read_bytes()
+    sets = {"all": registries, "static serve fleet": {k: v for k, v in registries.items()
+                                                       if k.startswith("steer-static-")}}
+    for label, chosen in sets.items():
+        run_dir = root / f"registries-{len(label)}"
+        run_dir.mkdir()
+        for name, data in chosen.items():
+            (run_dir / f"xprof.{name}.json").write_text(json.dumps(data))
+        result = retune_copy(run_dir, tree, env)
+        for arm, (rc, seconds, lines) in result["runs"].items():
+            log(f"[discipline] {stamp} | --retune ({arm}) over {label} ({len(chosen)} registries) against a copy "
+                f"of sctools_tpu_torch: exit {rc} in {seconds:.2f} s")
+            for line in lines:
+                log(f"[discipline]   {line}")
+        log(f"[discipline] {stamp} | {label}: derived constants {result['derived']}; the copy's segments.py then "
+            f"pins {result['pinned']}")
+    if (REPO / "sctools_tpu_torch" / "ops" / "segments.py").read_bytes() != own:
+        raise AssertionError("--retune touched the repository's own ops/segments.py")
+    log(f"[discipline] {stamp} | the repository's own ops/segments.py is unchanged")
+    shutil.rmtree(tree)
+
+
+def phase_discipline(rng, stamp: str, modules, ledger: dict, registries: dict) -> None:
+    """The static checks' runtime halves and the collective witness on the card.
 
     (a) The gate (``python -m sctools_tpu_torch.analysis --json``, every pass
-    with scx-cost and scx-mesh) over the port and this script, and the two
-    emitters into the run directory. (b) The transfer inventory against
-    ``ledger``, the merged ledgers of phases 14-15's traced workers: no
-    phantom site, no wrong direction. (c) Phase 9's ``--devices 2`` gene
+    with scx-shard, scx-cost, scx-mesh and scx-aot) over the port and this
+    script, and the three emitters into the run directory. (b) The transfer
+    inventory against ``ledger``, the merged ledgers of phases 14-15's
+    traced workers: no phantom site, no wrong direction; the shape contract
+    against ``registries``, their xprof registries and phase 17's serve
+    workers': every signature admitted. (b') The autotuner against a copy
+    of the port, over those registries and over phase 17's static fleet's:
+    a dry run, then an applied run whose gates pass or restore the copy's
+    segments file byte for byte. (c) Phase 9's ``--devices 2`` gene
     command, preflight and sample sort in one worker, and phase 12's two
     joined processes, at a smaller depth, each unwitnessed then under
     ``SCTOOLS_TPU_MESH_DEBUG=1`` with the emitted schedule and a trace dir:
@@ -4925,8 +5081,8 @@ def phase_discipline(rng, stamp: str, modules, ledger: dict) -> None:
 
     import torch
 
-    kernels, bgzf, packed, port_gatherer, port_par = modules
-    from sctools_tpu_torch.analysis import costcheck, meshwitness
+    kernels, bgzf, packed, port_gatherer, port_par, port_xprof = modules
+    from sctools_tpu_torch.analysis import costcheck, meshwitness, shardcheck
 
     phase_start = time.perf_counter()
     launches_before = dict(kernels.launches)
@@ -4944,18 +5100,28 @@ def phase_discipline(rng, stamp: str, modules, ledger: dict) -> None:
         raise AssertionError(f"the gate: rc {gate.returncode}\n{gate.stdout[-3000:]}{gate.stderr[-2000:]}")
     checked = json.loads(gate.stdout)["checked_files"]
     emitted = {}
-    for flag, name in (("--emit-transfer-inventory", "transfer_inventory.json"),
-                       ("--emit-collective-schedule", "collective_schedule.json")):
+    # the shape contract is the package's, the one its manifest holds
+    for flag, name, paths in (("--emit-transfer-inventory", "transfer_inventory.json", ["chip_smoke.py"]),
+                              ("--emit-collective-schedule", "collective_schedule.json", ["chip_smoke.py"]),
+                              ("--emit-shape-contract", "shape_contract.json", [])):
         done = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", flag, str(root / name),
-                               "sctools_tpu_torch", "chip_smoke.py"], cwd=REPO, env=base_env, capture_output=True,
+                               "sctools_tpu_torch", *paths], cwd=REPO, env=base_env, capture_output=True,
                               text=True, timeout=300)
         if done.returncode != 0:
             raise AssertionError(f"{flag}: rc {done.returncode}\n{done.stdout[-2000:]}{done.stderr[-2000:]}")
         emitted[name] = json.loads((root / name).read_text())
     inventory, schedule = emitted["transfer_inventory.json"], emitted["collective_schedule.json"]
-    log(f"[discipline] {stamp} | the gate (lint, abi, race, life, cost, mesh) over {checked} files: 0 findings in "
-        f"{gate_s:.2f} s; {len(inventory['sites'])} transfer sites inventoried, {len(schedule['collectives'])} "
-        f"collective pairs over {len(schedule['regions'])} mapped regions")
+    contract = emitted["shape_contract.json"]
+    with open(REPO / "sctools_tpu_torch" / "serve" / "graph_manifest.json", encoding="utf-8") as f:
+        if json.load(f)["contract"] != contract:
+            raise AssertionError("the emitted shape contract is not the committed graph manifest's")
+    log(f"[discipline] {stamp} | the gate (lint, abi, race, shard, life, cost, mesh, aot) over {checked} files: "
+        f"0 findings in {gate_s:.2f} s; "
+        f"{len(inventory['sites'])} transfer sites inventoried, {len(schedule['collectives'])} collective pairs "
+        f"over {len(schedule['regions'])} mapped regions, {len(contract['sites'])} sites in the shape contract (the "
+        f"committed manifest's) "
+        f"({sum(s['dims'] == 'bucketed' for s in contract['sites'].values())} bucketed, "
+        f"{sum(s['sharded'] for s in contract['sites'].values())} sharded)")
 
     # (b) every site the traced workers' ledgers saw is in the inventory
     seen = {(direction, site) for direction, total in ledger.items() for site in total["by_site"]}
@@ -4968,6 +5134,7 @@ def phase_discipline(rng, stamp: str, modules, ledger: dict) -> None:
     log(f"[discipline] {stamp} | phases 14-15's traced ledgers (attach, cell, count, serve, sched): "
         f"{len(seen)} (direction, site) pairs, 0 phantom sites, 0 wrong directions: "
         + ", ".join(f"{d} {site}" for d, site in sorted(seen)))
+    shape_check(root, registries, contract, base_env, stamp, port_xprof, shardcheck)
 
     # (c) the inputs of the witnessed reruns
     begin = time.perf_counter()
@@ -5151,8 +5318,8 @@ def main(argv=None) -> int:
                                              (kernels, bgzf, port_obs, port_pulse, port_delta, port_slo))
     from sctools_tpu_torch.obs import fleet as port_fleet
 
-    traced_ledger = phase_efficiency(stamp, (kernels, port_obs, port_pulse, port_delta, port_sched, port_fleet),
-                                     traced)
+    traced_ledger, traced_registries = phase_efficiency(
+        stamp, (kernels, port_obs, port_pulse, port_delta, port_sched, port_fleet), traced)
     from sctools_tpu_torch.obs import audit as port_audit
 
     phase_audit(stamp, (kernels, port_obs, port_audit, port_sched, port_launch, port_gtf))
@@ -5161,16 +5328,19 @@ def main(argv=None) -> int:
     from sctools_tpu_torch.serve import cli as port_serve_cli
     from sctools_tpu_torch.serve import manifest as port_manifest
 
-    phase_steer(stamp, (kernels, bgzf, port_pulse, port_xprof, port_steer, port_manifest, port_sched, port_serve_cli,
-                        port_platform))
+    from sctools_tpu_torch.analysis import shardcheck as port_shardcheck
+
+    steer_registries = phase_steer(stamp, (kernels, bgzf, port_pulse, port_xprof, port_steer, port_manifest,
+                                           port_sched, port_serve_cli, port_platform, port_shardcheck))
     from sctools_tpu_torch import guard as port_guard
     from sctools_tpu_torch import ingest as port_ingest
     from sctools_tpu_torch.sched import faults as port_faults
 
     guard_launches = phase_guard(stamp, (kernels, native, port_ingest, port_guard, port_sched, port_faults, port_launch,
                                          sam, port_xprof))
-    phase_discipline(np.random.default_rng(args.seed + 8), stamp, (kernels, bgzf, packed, port_gatherer, port_par),
-                     traced_ledger)
+    phase_discipline(np.random.default_rng(args.seed + 8), stamp,
+                     (kernels, bgzf, packed, port_gatherer, port_par, port_xprof), traced_ledger,
+                     {**traced_registries, **steer_registries})
     record = {
         "name": "whitelist_correct",
         "route": "cuda",

@@ -16,6 +16,15 @@ imports torch, numpy, JAX or the code under analysis.
   SCX401-SCX404, paired with the runtime lock witness (:mod:`.witness`,
   ``SCTOOLS_TPU_LOCK_DEBUG=1``) that checks the static model against live
   runs;
+- :mod:`.shardcheck` — whole-package shape and sharding model (device
+  sites, mapped regions, the bucket vocabulary, the axis universe), rules
+  SCX501-SCX505, paired with the shape contract a live run's merged
+  registries are checked against (``check_signatures``), whose
+  ``dim_admissible`` the serve worker and the steering controller use;
+  :mod:`.retune` is its acting half, the bucket-floor autotuner;
+- :mod:`.aotcheck` — the serve path's dispatch closure, rules
+  SCX901-SCX905, and the manifest it certifies
+  (``serve/graph_manifest.json``);
 - :mod:`.lifecheck` — whole-package frame-lifetime model (zero-copy ring
   frames, copy/view discipline, escape summaries), rules SCX601-SCX605,
   paired with the runtime generation witness
@@ -32,7 +41,7 @@ imports torch, numpy, JAX or the code under analysis.
 
 Findings carry the JAX package's rule ids and honor inline ``#
 scx-lint: disable=SCXNNN -- reason`` escape hatches (:mod:`.findings`).
-The four model passes share one parse per file (:mod:`.astcache`).
+The model passes share one parse per file (:mod:`.astcache`).
 """
 
 # Re-exports resolve lazily (PEP 562): library modules import
@@ -49,6 +58,16 @@ _EXPORTS = {
     "MESH_RULES": "meshcheck",
     "build_collective_schedule": "meshcheck",
     "check_mesh": "meshcheck",
+    "AOT_RULES": "aotcheck",
+    "build_aot_manifest": "aotcheck",
+    "check_aot": "aotcheck",
+    "contract_hash": "aotcheck",
+    "validate_manifest": "aotcheck",
+    "SHARD_RULES": "shardcheck",
+    "build_shape_contract": "shardcheck",
+    "check_shards": "shardcheck",
+    "check_signatures": "shardcheck",
+    "dim_admissible": "shardcheck",
     "Finding": "findings",
     "Suppressions": "findings",
     "LIFE_RULES": "lifecheck",
@@ -63,8 +82,9 @@ _EXPORTS = {
 }
 
 _SUBMODULES = frozenset(
-    {"abicheck", "astcache", "cli", "costcheck", "findings", "lifecheck",
-     "meshcheck", "meshwitness", "racecheck", "torchlint", "witness"}
+    {"abicheck", "aotcheck", "astcache", "cli", "costcheck", "findings",
+     "lifecheck", "meshcheck", "meshwitness", "racecheck", "retune",
+     "shardcheck", "torchlint", "witness"}
 )
 
 

@@ -1,6 +1,6 @@
 """``python -m sctools_tpu_torch.analysis [paths...]``: the port's static checks.
 
-Runs four passes over the given paths (default: ``sctools_tpu_torch``) and
+Runs its passes over the given paths (default: ``sctools_tpu_torch``) and
 exits non-zero when any finding survives its suppressions:
 
 1. lint (SCX109, SCX112) over every ``.py`` file (:mod:`.torchlint`);
@@ -10,23 +10,38 @@ exits non-zero when any finding survives its suppressions:
    same paths (:mod:`.racecheck`); ``--emit-lock-graph FILE`` writes the
    static lock inventory and acquisition-order graph that the runtime
    witness checks against (``SCTOOLS_TPU_LOCK_GRAPH``) and exits;
-4. frame lifetime (SCX601-605) over the same model build
+4. shape and sharding flow (SCX501-505, :mod:`.shardcheck`);
+   ``--emit-shape-contract FILE`` writes the statically predicted
+   per-site signature universe that a live run's merged registries are
+   checked against (``shardcheck.check_signatures``) and exits;
+   ``--retune RUN_DIR`` is its acting half (:mod:`.retune`): it rewrites
+   the pinned bucket floors of the ``ops/segments.py`` under the paths
+   from a traced run's registries, gated by this pass and the contract
+   (``--retune-target``, ``--retune-dry-run``, ``--segments-file``;
+   exit 2 without registries, 5 when a gate restores the file);
+5. frame lifetime (SCX601-605) over the same model build
    (:mod:`.lifecheck`);
-5. device cost and transfer discipline (SCX701-705, :mod:`.costcheck`);
+6. device cost and transfer discipline (SCX701-705, :mod:`.costcheck`);
    ``--emit-transfer-inventory FILE`` writes the static transfer-site
    inventory that a live run's ledger is checked against
    (``costcheck.check_transfer_sites``) and exits;
-6. collective safety (SCX801-805, :mod:`.meshcheck`);
+7. collective safety (SCX801-805, :mod:`.meshcheck`);
    ``--emit-collective-schedule FILE`` writes the statically predicted
    collective universe that the runtime witness checks against
-   (``SCTOOLS_TPU_MESH_SCHEDULE``) and exits.
+   (``SCTOOLS_TPU_MESH_SCHEDULE``) and exits;
+8. AOT dispatch closure of the serve path (SCX901-905,
+   :mod:`.aotcheck`); ``--emit-aot-manifest FILE`` writes the certified
+   manifest (``serve/graph_manifest.json`` is its output over the port)
+   and exits, and ``--aot-manifest FILE`` fails the run when a committed
+   manifest was hand-edited or is stale against the fresh contract.
 
-``--race-only`` / ``--life-only`` / ``--cost-only`` / ``--mesh-only`` run
-just those passes (together, each named one), ``--no-race`` /
-``--no-life`` / ``--no-cost`` / ``--no-mesh`` skip one. ``--json``
-replaces the human-readable output with one findings object covering
-every pass that ran. Passes 3 to 6 share one parse per file through
-:mod:`.astcache`; the summary line reports the cache's effect.
+``--race-only`` / ``--shard-only`` / ``--life-only`` / ``--cost-only`` /
+``--mesh-only`` / ``--aot-only`` run just those passes (together, each
+named one), ``--no-race`` / ``--no-shard`` / ``--no-life`` / ``--no-cost``
+/ ``--no-mesh`` / ``--no-aot`` skip one. ``--json`` replaces the
+human-readable output with one findings object covering every pass that
+ran. Passes 3 to 8 share one parse per file through :mod:`.astcache`; the
+summary line reports the cache's effect.
 
 The module imports nothing heavyweight (no torch, no numpy).
 """
@@ -40,6 +55,7 @@ import sys
 from typing import List, Optional
 
 from .abicheck import check_abi
+from .aotcheck import build_aot_manifest, check_aot, validate_manifest
 from .astcache import SKIP_DIRS, collect_py_files
 from .astcache import stats as parse_stats
 from .costcheck import check_cost, transfer_inventory
@@ -47,6 +63,8 @@ from .findings import Finding
 from .lifecheck import check_life
 from .meshcheck import build_collective_schedule, check_mesh
 from .racecheck import RACE_EXEMPT_DIRS, check_races, lock_graph
+from .shardcheck import build_model as build_shard_model
+from .shardcheck import build_shape_contract, check_shards
 from .torchlint import lint_file
 
 
@@ -80,7 +98,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m sctools_tpu_torch.analysis",
         description="The port's static checks: lint, ctypes ABI, races, "
-        "frame lifetimes, device cost, collective safety. Exit 0 == clean.",
+        "shapes and sharding, frame lifetimes, device cost, collective "
+        "safety, the serve path's AOT closure. Exit 0 == clean.",
     )
     parser.add_argument(
         "paths", nargs="*", default=["sctools_tpu_torch"],
@@ -97,6 +116,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     parser.add_argument(
         "--no-race", action="store_true", help="skip the SCX4xx pass"
+    )
+    parser.add_argument(
+        "--shard-only", action="store_true",
+        help="run only the SCX5xx shape/sharding pass",
+    )
+    parser.add_argument(
+        "--no-shard", action="store_true", help="skip the SCX5xx pass"
     )
     parser.add_argument(
         "--life-only", action="store_true",
@@ -118,6 +144,56 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     parser.add_argument(
         "--no-mesh", action="store_true", help="skip the SCX8xx pass"
+    )
+    parser.add_argument(
+        "--aot-only", action="store_true",
+        help="run only the SCX9xx AOT dispatch-closure pass",
+    )
+    parser.add_argument(
+        "--no-aot", action="store_true", help="skip the SCX9xx pass"
+    )
+    parser.add_argument(
+        "--emit-shape-contract", metavar="FILE", default=None,
+        help="write the statically predicted per-site signature/sharding "
+        "universe as JSON (what a live run's merged registries must stay "
+        "inside) and exit",
+    )
+    parser.add_argument(
+        "--emit-aot-manifest", metavar="FILE", default=None,
+        help="write the certified AOT manifest as JSON (the content-"
+        "hashed site universe reachable from the @serve_entry roots, "
+        "which the serve workers load) and exit",
+    )
+    parser.add_argument(
+        "--aot-manifest", metavar="FILE", default=None,
+        help="validate a committed AOT manifest: fail (exit 1) when its "
+        "embedded contract was hand-edited or its hash drifted from the "
+        "freshly derived shape contract (the staleness gate)",
+    )
+    parser.add_argument(
+        "--retune", metavar="RUN_DIR", default=None,
+        help="the autotuner: read the recorded xprof registries under "
+        "RUN_DIR, derive tightened bucket floors, rewrite the pinned "
+        "RECORD_BUCKET_MIN/ENTITY_BUCKET_MIN in the ops/segments.py under "
+        "the given paths, and gate the edit (SCX5xx must stay clean; the "
+        "regenerated shape contract must cover every observed signature; "
+        "exit 5 and restore on rejection). It rewrites a source file: "
+        "point it at a copy of the tree to try it",
+    )
+    parser.add_argument(
+        "--retune-target", type=float, default=0.35,
+        help="occupancy target handed to the suggestion engine "
+        "(default: 0.35)",
+    )
+    parser.add_argument(
+        "--retune-dry-run", action="store_true",
+        help="with --retune: derive and report the constants but write "
+        "nothing",
+    )
+    parser.add_argument(
+        "--segments-file", metavar="FILE", default=None,
+        help="with --retune: the segments file holding the pinned floors "
+        "(default: the ops/segments.py found under paths)",
     )
     parser.add_argument(
         "--emit-transfer-inventory", metavar="FILE", default=None,
@@ -162,6 +238,44 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         return 0
 
+    if args.emit_shape_contract is not None:
+        contract = build_shape_contract(args.paths)
+        _dump_json(contract, args.emit_shape_contract)
+        print(
+            f"scx-shard: wrote {len(contract['sites'])} site(s), "
+            f"{len(contract['axis_universe'])} axis name(s), "
+            f"{len(contract['bucket_minimums'])} bucket minimum(s) to "
+            f"{args.emit_shape_contract}"
+        )
+        return 0
+
+    if args.emit_aot_manifest is not None:
+        manifest = build_aot_manifest(args.paths)
+        _dump_json(manifest, args.emit_aot_manifest)
+        precompiled = sum(
+            1 for entry in manifest["sites"].values() if entry["precompile"]
+        )
+        print(
+            f"scx-aot: wrote {len(manifest['sites'])} site(s) "
+            f"({precompiled} precompile, "
+            f"{len(manifest['serve_entries'])} serve entr(ies)), "
+            f"contract {manifest['contract_hash'][:12]}… to "
+            f"{args.emit_aot_manifest}"
+        )
+        return 0
+
+    if args.retune is not None:
+        from .retune import retune
+
+        code, _ = retune(
+            args.retune,
+            args.paths,
+            target=args.retune_target,
+            segments_file=args.segments_file,
+            apply=not args.retune_dry_run,
+        )
+        return code
+
     if args.emit_transfer_inventory is not None:
         inventory = transfer_inventory(args.paths)
         _dump_json(inventory, args.emit_transfer_inventory)
@@ -186,12 +300,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         return 0
 
-    only = args.race_only or args.life_only or args.cost_only or args.mesh_only
+    only = (
+        args.race_only or args.shard_only or args.life_only or args.cost_only
+        or args.mesh_only or args.aot_only
+    )
     run_lint = run_abi = not only
     run_race = args.race_only if only else not args.no_race
+    run_shard = args.shard_only if only else not args.no_shard
     run_life = args.life_only if only else not args.no_life
     run_cost = args.cost_only if only else not args.no_cost
     run_mesh = args.mesh_only if only else not args.no_mesh
+    run_aot = args.aot_only if only else not args.no_aot
 
     # the lint pass reads every file; the model passes leave analysis/ out
     files = [
@@ -215,12 +334,48 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
     if run_race:
         findings.extend(check_races(args.paths))
+    # one shard model serves the SCX5xx pass, the contract SCX9xx reads and
+    # the manifest's staleness gate
+    shard_model = (
+        build_shard_model(args.paths) if run_shard or run_aot else None
+    )
+    contract = (
+        build_shape_contract(args.paths, shard_model) if run_aot else None
+    )
+    if run_shard:
+        findings.extend(check_shards(args.paths, shard_model))
     if run_life:
         findings.extend(check_life(args.paths))
     if run_cost:
         findings.extend(check_cost(args.paths))
     if run_mesh:
         findings.extend(check_mesh(args.paths))
+    if run_aot:
+        findings.extend(check_aot(args.paths, contract))
+    manifest_stale = False
+    if args.aot_manifest is not None:
+        # the staleness gate: a committed manifest whose contract drifted
+        # from the live tree certifies graphs for code that no longer exists
+        try:
+            with open(args.aot_manifest, "r", encoding="utf-8") as f:
+                committed = json.load(f)
+        except (OSError, ValueError) as exc:
+            print(
+                f"scx-aot: cannot read manifest {args.aot_manifest}: {exc}",
+                file=sys.stderr,
+            )
+            manifest_stale = True
+        else:
+            problems = validate_manifest(committed, args.paths, contract)
+            for problem in problems:
+                print(f"scx-aot: {problem}", file=sys.stderr)
+            manifest_stale = bool(problems)
+            if not problems and not args.json:
+                print(
+                    f"scx-aot: manifest {args.aot_manifest} matches the "
+                    f"fresh shape contract "
+                    f"({str(committed.get('contract_hash', ''))[:12]}…)"
+                )
 
     findings.sort(key=lambda f: (f.path, f.line, f.rule))
     if args.json:
@@ -242,15 +397,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             sort_keys=True,
         )
         print()
-        return 1 if findings else 0
+        return 1 if (findings or manifest_stale) else 0
     for finding in findings:
         print(finding.render())
     passes = [
         name
         for name, ran in (
             ("lint", run_lint), ("abi", run_abi),
-            ("race", run_race), ("life", run_life),
-            ("cost", run_cost), ("mesh", run_mesh),
+            ("race", run_race), ("shard", run_shard), ("life", run_life),
+            ("cost", run_cost), ("mesh", run_mesh), ("aot", run_aot),
         )
         if ran
     ]
@@ -266,4 +421,4 @@ def main(argv: Optional[List[str]] = None) -> int:
         f"python file(s); passes: {', '.join(passes) or 'none'}"
         + cache_note
     )
-    return 1 if findings else 0
+    return 1 if (findings or manifest_stale) else 0

@@ -150,6 +150,7 @@ class _MoleculeAccumulator:
         """Queue one batch's device work: its ``[8, n]`` column block up,
         ``count_molecules``, its five results down in one ``[5, n]`` block."""
         staged = ingest.upload(block, self._device, site="count.upload")
+        # scx-lint: disable=SCX503 -- the block's width is the padded size pack_count_block gave it (bucket_size, or the caller's bucketed pad), so it is already bucketed
         out = count_molecules(dict(zip(UPLOAD_COLUMNS, staged)), num_segments=block.shape[1])
         return ingest.pull(
             torch.stack([out[name].to(torch.int32) for name in RESULT_COLUMNS]), site="count.writeback"

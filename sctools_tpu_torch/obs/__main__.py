@@ -628,8 +628,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="print suggested bucket/pad_to sizes per site (smallest "
         "power-of-two pad holding the mean dispatch) instead of the "
         "report; --json emits the same rows machine-readably — the "
-        "exact rows JAX's autotuner (python -m "
-        "sctools_tpu.analysis --retune) consumes",
+        "exact rows the autotuner (python -m "
+        "sctools_tpu_torch.analysis --retune) consumes",
     )
     efficiency.add_argument(
         "--target", type=float, default=0.35,

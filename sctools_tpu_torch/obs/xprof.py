@@ -869,8 +869,8 @@ def suggest_buckets(
     """Offline bucket/pad suggestions from recorded dispatch telemetry.
 
     ``obs efficiency --suggest`` renders these rows, ``--suggest --json``
-    emits them verbatim, in JAX's schema, which JAX's autotuner (``python
-    -m sctools_tpu.analysis --retune``; the port has none) parses. Per
+    emits them verbatim, in JAX's schema, which the autotuner (``python
+    -m sctools_tpu_torch.analysis --retune``) parses. Per
     site with occupancy telemetry: the smallest power-of-two pad that
     holds the site's mean real rows per dispatch. ``projected_occupancy``
     is what the mean dispatch would score at that pad; ``meets_target``
@@ -920,7 +920,8 @@ def render_suggestions(
     lines: List[str] = []
     lines.append(
         f"bucket/pad suggestions (occupancy target {100 * target:.0f}%; "
-        "apply with `python -m sctools_tpu.analysis --retune <run_dir>` "
+        "apply with `python -m sctools_tpu_torch.analysis --retune "
+        "<run_dir>` "
         "— double-gated by shardcheck + shape-contract coverage):"
     )
     if not suggestions:

@@ -6,8 +6,9 @@ wrote:
 
 - :func:`serve_entry` marks a function as a request-path root and
   :func:`warmup_step` one that runs before the worker admits work. They
-  are runtime attributes that tests and the engine can read; the JAX
-  package's static pass over them (``aotcheck``) is not ported.
+  are runtime attributes that tests and the engine can read, and the
+  roots of the static AOT pass (``python -m sctools_tpu_torch.analysis``,
+  :mod:`sctools_tpu_torch.analysis.aotcheck`, SCX901-905).
 - :class:`ServeJob` is one tenant request, the payload of a journal task
   of kind :data:`SERVE_TASK_KIND`.
 - :class:`AdmissionController` is per-tenant round-robin selection with a

@@ -1,27 +1,23 @@
-"""The graph manifest of the serve path: its static signatures and contract.
+"""The graph manifest of the serve path: its loader and integrity check.
 
-The port of ``sctools_tpu.serve.manifest``. JAX's manifest is the product of
-its static pass over its jit sites; the port's serve path has one compiled
-site, the metrics engine's pass, whose compiled form is a CUDA graph keyed
-by the engine's static arguments and its input columns' shapes
-(:func:`~.graphs.graph_key`). The port's manifest
-(``graph_manifest.json`` beside this module, committed) has JAX's layout:
-``version`` 1, the shape ``contract`` with its ``contract_hash`` (the same
-canonical sha256), the ``sites`` table (one entry,
-``metrics.compute_entity_metrics``, with :data:`~.graphs.STATIC_ARGS` as
-its ``static_argnames``) and ``serve_entries``.
+The port of ``sctools_tpu.serve.manifest``. As in JAX, the manifest is the
+product of the static AOT pass (:mod:`sctools_tpu_torch.analysis.aotcheck`)
+over the package: ``graph_manifest.json`` beside this module, committed,
+is what ``python -m sctools_tpu_torch.analysis --emit-aot-manifest FILE
+sctools_tpu_torch`` writes (``python -m sctools_tpu_torch.serve.manifest``
+runs that over this package and rewrites the file), and ``python -m
+sctools_tpu_torch.analysis --aot-manifest FILE`` is its staleness gate. It
+holds JAX's layout: ``version`` 1, the shape ``contract`` with its
+``contract_hash`` (canonical sha256), the ``sites`` table (each device
+site with its ``static_argnames``, ``dims``, ``serve_reachable`` and
+``precompile``) and ``serve_entries``.
 
-The contract holds the fields :func:`dim_admissible` reads: ``small_dim_max``,
-``pow2_min``, ``bucket_minimums`` (the port's ``ENTITY_BUCKET_MIN`` and
-``RECORD_BUCKET_MIN``) and the monoblock ``wire`` envelope. It admits a
-dimension exactly when JAX's committed contract does. The steering
-controller validates every bucket it may apply against it, and warmup
-captures the graphs of the ladder's rungs only.
-
-:func:`build_graph_manifest` derives the manifest from the port's own
-constants; a test holds the committed file equal to its output (the port's
-counterpart of JAX's ``make aotcheck`` staleness gate). Regenerate it with
-``python -m sctools_tpu_torch.serve.manifest``.
+The port's serve path compiles one site, the metrics engine's pass, whose
+compiled form is a CUDA graph keyed by the engine's static arguments and
+its input columns' shapes (:func:`~.graphs.graph_key`). The worker
+validates the steering controller's buckets against the contract with
+``analysis.shardcheck.dim_admissible``, and warmup captures the graphs of
+the ladder's rungs only.
 
 JAX's ``aot_cache_dir`` has no counterpart: the port keeps no executable
 cache on disk, because a CUDA graph lives in the process that captured it.
@@ -29,170 +25,21 @@ cache on disk, because a CUDA graph lives in the process that captured it.
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
-import re
 from typing import Any, Dict, List, Optional
+
+from ..analysis.aotcheck import contract_hash
 
 DEFAULT_MANIFEST_PATH = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "graph_manifest.json"
 )
 
 MANIFEST_VERSION = 1
-CONTRACT_VERSION = 1
-
-# the monoblock wire envelope: one leading n_valid word plus
-# per-record-bytes/4 words per padded record, optionally followed by two
-# num_runs-bucket int32 run-key tables (io.packed.wire_layout). The
-# contract admits the whole envelope over every schema variant's record
-# width (an over-approximation, as in JAX's contract)
-_WIRE_HEADER_WORDS = 1
-_WIRE_RUN_TABLE_LANES = 2
-_WIRE_MIN_RECORD_BYTES = 12
-_WIRE_MAX_RECORD_BYTES = 72
-_POW2_CAP = 1 << 30
-#: dimensions up to this are structural constants (column counts, lanes)
-SMALL_DIM_MAX = 256
-
-#: the one compiled site of the serve path, and the entry that reaches it
-SERVE_SITE = "metrics.compute_entity_metrics"
-SERVE_ENTRY = "sctools_tpu_torch.serve.engine.ServeWorker.serve_forever"
 
 
 class ManifestError(RuntimeError):
     """A manifest failed to load or failed its integrity check."""
-
-
-def _is_pow2(n: int) -> bool:
-    return n > 0 and (n & (n - 1)) == 0
-
-
-def _pow2s(minimum: int, cap: int = _POW2_CAP) -> List[int]:
-    out = []
-    p = 1
-    while p < minimum:
-        p *= 2
-    while p <= cap:
-        out.append(p)
-        p *= 2
-    return out
-
-
-def dim_admissible(dim: int, contract: Dict[str, Any]) -> bool:
-    """Whether one shape dimension is in the contract's bucket universe.
-
-    Admissible: tiny structural constants (column counts, scalar lanes),
-    bucket outputs (powers of two >= the smallest literal minimum), and
-    monoblock wire lengths (header + padded * record-bytes / 4 words,
-    optionally + two run-table buckets).
-    """
-    if dim <= int(contract.get("small_dim_max", SMALL_DIM_MAX)):
-        return dim >= 0
-    pow2_min = int(contract.get("pow2_min", 8))
-    if dim >= pow2_min and _is_pow2(dim):
-        return True
-    wire = contract.get("wire") or {}
-    header = int(wire.get("header_words", _WIRE_HEADER_WORDS))
-    lanes = int(wire.get("run_table_lanes", _WIRE_RUN_TABLE_LANES))
-    lo = int(wire.get("min_record_bytes", _WIRE_MIN_RECORD_BYTES))
-    hi = int(wire.get("max_record_bytes", _WIRE_MAX_RECORD_BYTES))
-    base = dim - header
-    if base <= 0:
-        return False
-    pad_min = int(wire.get("pad_min", 4096))
-    run_options = [0] + _pow2s(pad_min, 1 << 26)
-    for padded in _pow2s(pad_min):
-        if padded * lo // 4 > base:
-            break
-        for runs in run_options:
-            words = base - lanes * runs
-            if words <= 0:
-                continue
-            record_bytes = words * 4
-            if record_bytes % padded:
-                continue
-            if lo <= record_bytes // padded <= hi:
-                return True
-    return False
-
-
-# one operand leaf of a recorded signature, ``dtype[d1,d2]``, and the integer
-# statics that size a graph (``obs.xprof.signature``'s grammar, JAX's)
-_LEAF = re.compile(r"[A-Za-z_][A-Za-z0-9_]*\[([0-9,]*)\]")
-_SIZE_STATIC = re.compile(r"\b(num_segments|num_runs)=([0-9]+)")
-
-
-def signature_violations(sites: Dict[str, Any], contract: Dict[str, Any]) -> List[str]:
-    """Every dimension outside the contract in the recorded signatures of
-    the serve site (``sites`` is an ``obs.xprof`` registry's per-site dict):
-    each operand's shape and the integer statics (``num_segments``,
-    ``num_runs``). A signature is the graph key the call replayed, so an
-    empty list means every captured key is inside the contract."""
-    problems: List[str] = []
-    for sig in sorted((sites.get(SERVE_SITE) or {}).get("signatures") or {}):
-        dims = [int(d) for leaf in _LEAF.findall(sig) for d in leaf.split(",") if d]
-        dims += [int(value) for _, value in _SIZE_STATIC.findall(sig)]
-        bad = sorted({d for d in dims if not dim_admissible(d, contract)})
-        if bad:
-            problems.append(f"{SERVE_SITE}: {sig}: dims {bad} outside the contract")
-    return problems
-
-
-def _contract_hash(contract: Dict[str, Any]) -> str:
-    canonical = json.dumps(contract, sort_keys=True, separators=(",", ":"))
-    return hashlib.sha256(canonical.encode("utf-8")).hexdigest()
-
-
-def build_contract() -> Dict[str, Any]:
-    """The shape contract of the port's serve path, from its own constants."""
-    from ..ops.segments import ENTITY_BUCKET_MIN, RECORD_BUCKET_MIN
-
-    minimums = sorted({ENTITY_BUCKET_MIN, RECORD_BUCKET_MIN})
-    return {
-        "version": CONTRACT_VERSION,
-        "bucket_minimums": minimums,
-        "pow2_min": min(minimums + [8]),
-        "small_dim_max": SMALL_DIM_MAX,
-        "wire": {
-            "header_words": _WIRE_HEADER_WORDS,
-            "run_table_lanes": _WIRE_RUN_TABLE_LANES,
-            "min_record_bytes": _WIRE_MIN_RECORD_BYTES,
-            "max_record_bytes": _WIRE_MAX_RECORD_BYTES,
-            # the padded-record base of the wire envelope: the bucket floor
-            "pad_min": RECORD_BUCKET_MIN,
-        },
-    }
-
-
-def build_graph_manifest() -> Dict[str, Any]:
-    """The manifest ``graph_manifest.json`` must hold, derived from the
-    port's constants: the contract, its hash and the serve site."""
-    from .graphs import STATIC_ARGS
-
-    contract = build_contract()
-    return {
-        "version": MANIFEST_VERSION,
-        "contract": contract,
-        "contract_hash": _contract_hash(contract),
-        "sites": {
-            SERVE_SITE: {
-                "module": "sctools_tpu_torch.metrics.device",
-                "static_argnames": [name for name, _ in STATIC_ARGS],
-                "dims": "bucketed",
-                "sharded": False,
-                "axes": [],
-                "precompile": True,
-                "serve_reachable": True,
-            }
-        },
-        "serve_entries": [SERVE_ENTRY],
-    }
-
-
-def render_manifest(manifest: Dict[str, Any]) -> str:
-    """The committed file's text: sorted keys, two-space indent."""
-    return json.dumps(manifest, indent=2, sort_keys=True) + "\n"
 
 
 def load_manifest(path: Optional[str] = None) -> Dict[str, Any]:
@@ -233,7 +80,7 @@ def validate_loaded_manifest(manifest: Dict[str, Any]) -> List[str]:
     if not isinstance(embedded, dict) or not recorded:
         problems.append("manifest missing embedded contract or hash")
         return problems
-    actual = _contract_hash(embedded)
+    actual = contract_hash(embedded)
     if actual != recorded:
         problems.append(
             f"embedded contract hash mismatch (recorded {recorded[:12]}…, "
@@ -253,6 +100,9 @@ def precompile_sites(manifest: Dict[str, Any]) -> List[str]:
 
 
 if __name__ == "__main__":
-    with open(DEFAULT_MANIFEST_PATH, "w", encoding="utf-8") as f:
-        f.write(render_manifest(build_graph_manifest()))
-    print(DEFAULT_MANIFEST_PATH)
+    from ..analysis.cli import main as _analysis
+
+    raise SystemExit(_analysis([
+        "--emit-aot-manifest", DEFAULT_MANIFEST_PATH,
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ]))

@@ -24,7 +24,7 @@ knobs to hold occupancy above target and bubble_fraction below it:
 Every actuation is validated before it is applied: a proposed bucket must
 be a power of two, at or above the pinned ``RECORD_BUCKET_MIN`` floor,
 inside the graph manifest's shape contract
-(:func:`~sctools_tpu_torch.serve.manifest.dim_admissible`), and resident.
+(:func:`~sctools_tpu_torch.analysis.shardcheck.dim_admissible`), and resident.
 On the port a rung is resident when warmup captured its CUDA graphs (the
 calibration job ran through the gatherer at that bucket), so a steered
 pack replays graphs of the shapes warmup reached; a new entity bucket at a
@@ -317,7 +317,7 @@ class SteerController:
                 f"floor {self._floor}"
             )
         if self._contract is not None:
-            from ..serve.manifest import dim_admissible
+            from ..analysis.shardcheck import dim_admissible
 
             if not dim_admissible(bucket, self._contract):
                 return f"bucket {bucket} outside the shape contract"

@@ -743,14 +743,14 @@ def test_cli_module_invocation_on_a_bad_corpus(tmp_path):
     assert result.returncode == 1, result.stdout + result.stderr
     rules = {line.split()[1] for line in result.stdout.splitlines() if ": SCX" in line}
     assert rules == {"SCX109", "SCX112", "SCX203", "SCX401", "SCX602"}, result.stdout
-    assert "passes: lint, abi, race, life, cost, mesh;" in result.stdout
+    assert "passes: lint, abi, race, shard, life, cost, mesh, aot;" in result.stdout
 
 
 def test_cli_gate_is_clean_on_the_port_and_the_smoke(capsys):
     rc = cli_main([str(PORT), str(REPO / "chip_smoke.py")])
     out = capsys.readouterr().out
     assert rc == 0, out
-    assert "0 finding(s)" in out and "passes: lint, abi, race, life, cost, mesh;" in out
+    assert "0 finding(s)" in out and "passes: lint, abi, race, shard, life, cost, mesh, aot;" in out
 
 
 @pytest.mark.parametrize("flag,rules,passes", [

@@ -67,7 +67,10 @@ guard and the wire: a real ``torch.OutOfMemoryError`` classifies
 whose work grows with its frame bisects genuine OOMs under a memory
 fraction to an unconstrained run's bytes; the writeback ring's overlapped
 and blocking drains give equal bytes, and a transient at the wait copies
-the device block again.
+the device block again. The shape contract: a traced cell pass on
+``[cuda:0, cuda:0]`` and a traced serve worker's replays record signatures
+the contract emitted by the port's static pass admits (the committed
+manifest's), with 0 captures while serving and 0 retraces.
 
 The JAX comparisons of the same functions run on the CPU in
 ``test_torch_whitelist.py``, ``test_torch_attach.py``,
@@ -1120,7 +1123,7 @@ def test_steered_worker_captures_each_rung_at_warmup_and_never_retraces(cuda_dev
     from sctools_tpu_torch.serve.api import ServeJob
     from sctools_tpu_torch.serve.cli import submit_jobs
     from sctools_tpu_torch.serve.engine import ServeWorker
-    from sctools_tpu_torch.serve.manifest import signature_violations
+    from sctools_tpu_torch.analysis.shardcheck import check_signatures
 
     header, records = _cell_library(np.random.default_rng(64))
     cells = sorted({r.get_tag("CB") for r in records})
@@ -1175,7 +1178,7 @@ def test_steered_worker_captures_each_rung_at_warmup_and_never_retraces(cuda_dev
     site = snap["sites"]["metrics.compute_entity_metrics"]
     assert site["retraces"] == 0 and site["compiles"] == worker.graphs.captures == len(worker.graphs)
     assert len(site["signatures"]) == len(worker.graphs)
-    assert signature_violations(snap["sites"], worker.manifest["contract"]) == []
+    assert check_signatures(worker.manifest["contract"], snap["sites"]) == []
     assert dict(kernels.launches) == before
     for job in jobs:
         solo = str(tmp_path / f"solo_{job.tenant}")
@@ -1569,3 +1572,57 @@ def test_overlapped_and_blocking_writeback_drains_give_equal_bytes_on_the_card(c
     monkeypatch.setattr(wire, "_land", flaky)
     assert ingest.pull(blocks[0] * 3 + 1, site="test.card").numpy().tobytes() == want[0][1]
     assert calls["n"] == 2
+
+
+def test_traced_card_runs_stay_inside_the_emitted_shape_contract(cuda_device, tmp_path):
+    """A traced cell pass on ``[cuda:0, cuda:0]`` (the sharded gatherer, its
+    operands tagged ``@(shards)``) and a traced serve worker replaying its
+    CUDA graphs on the card: their merged registry checks clean against
+    the shape contract the port's static pass emits, which is the one the
+    committed graph manifest holds; the worker captures nothing while
+    serving and retraces nothing."""
+    from pathlib import Path
+
+    from sctools_tpu_torch import bam as port_bam
+    from sctools_tpu_torch import parallel as port_par
+    from sctools_tpu_torch.analysis import shardcheck
+    from sctools_tpu_torch.analysis.cli import main as analysis
+    from sctools_tpu_torch.serve.api import ServeJob
+    from sctools_tpu_torch.serve.cli import submit_jobs
+    from sctools_tpu_torch.serve.engine import ServeWorker
+    from sctools_tpu_torch.serve.manifest import load_manifest
+
+    package = Path(port_xprof.__file__).resolve().parents[1]
+    dest = tmp_path / "contract.json"
+    assert analysis(["--emit-shape-contract", str(dest), str(package)]) == 0
+    contract = json.loads(dest.read_text())
+    assert contract == load_manifest()["contract"]
+    header, records = _cell_library(np.random.default_rng(81))
+    cell = str(tmp_path / "cell.bam")
+    with AlignmentWriter(cell, header) as out:
+        for record in port_bam.sort_by_tags_and_queryname(records, ["CB", "UB", "GE"]):
+            out.write(record)
+    journal = str(tmp_path / "journal")
+    assert submit_jobs(journal, [ServeJob("t0", cell, str(tmp_path / "served"))]) == 1
+    card = torch.device("cuda", 0)
+    before = dict(kernels.launches)
+
+    def run():
+        mesh = port_par.make_mesh(devices=[card, card])
+        port_par.sharded_gatherer_cls("cell")(cell, str(tmp_path / "sharded"), set(), mesh=mesh,
+                                              batch_records=3000).extract_metrics()
+        with ServeWorker(journal, worker_id="traced", batch_records=1 << 14, lease_ttl=30.0,
+                         poll_interval=0.05) as worker:
+            worker.warmup(calibration_bam=cell)
+            served = worker.serve_forever(drain=True, idle_timeout_s=60.0)
+        return worker, served
+
+    snap, (worker, served) = _traced(run)
+    stats = worker.graph_stats()
+    assert served == 1 and stats["captures_serving"] == 0 and stats["replays"] >= 2
+    sites = snap["sites"]
+    assert any("@(shards)" in sig for sig in sites["parallel.sharded_metrics"]["signatures"])
+    engine = sites["metrics.compute_entity_metrics"]
+    assert engine["compiles"] == worker.warmup_captures >= 1 and engine["retraces"] == 0
+    assert shardcheck.check_signatures(contract, sites) == []
+    assert dict(kernels.launches) == before

@@ -91,6 +91,16 @@ def test_the_walk_covers_the_steering_manifest_and_host_modules(name):
     assert PACKAGE / name in SOURCES
 
 
+SHAPE_CONTRACT_MODULES = ("analysis/shardcheck.py", "analysis/retune.py", "analysis/aotcheck.py")
+
+
+@pytest.mark.parametrize("name", SHAPE_CONTRACT_MODULES)
+def test_the_walk_covers_the_shape_contract_and_its_consumers(name):
+    """scx-shard, the autotuner and scx-aot are port modules of their own
+    (stdlib only, like the JAX package's), so the walks above read them."""
+    assert PACKAGE / name in SOURCES
+
+
 # a path into the JAX package's tree, as a string a module could open (a
 # ``file.py:line`` citation, as the kernel line's "replaces", opens nothing)
 _JAX_TREE_PATH = re.compile(r"""["'](?:[^"']*/)?sctools_tpu/(?![^"']*\.py:\d+["'])|\baot_manifest\.json\b""")

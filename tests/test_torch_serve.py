@@ -9,8 +9,9 @@ it) and the two executable-store cases (JAX's xprof store; the port's
 counterpart is the CUDA graph set, whose cases need the card and live in
 ``test_torch_cuda.py``). The three other manifest cases run on the port's
 graph manifest (``serve/graph_manifest.json``), whose committed file must
-equal its generator's output; the port's ``dim_admissible`` must give
-JAX's answers under both contracts. Workers run with ``device="cpu"``,
+equal what the port's AOT pass (``python -m sctools_tpu_torch.analysis
+--emit-aot-manifest``) writes over the port; the port's ``dim_admissible``
+(``analysis.shardcheck``'s) must give JAX's answers under both contracts. Workers run with ``device="cpu"``,
 where no graph set is built and the engine runs eagerly.
 
 Against the JAX package, on the same inputs made from a seed:
@@ -990,6 +991,8 @@ def test_sigterm_mid_pack_loses_no_job(tmp_path):
 
 from sctools_tpu.analysis.shardcheck import dim_admissible as jax_dim_admissible  # noqa: E402
 from sctools_tpu.serve.manifest import load_manifest as jax_load_manifest  # noqa: E402
+from sctools_tpu_torch.analysis import shardcheck as port_shardcheck  # noqa: E402
+from sctools_tpu_torch.analysis.cli import main as port_analysis  # noqa: E402
 from sctools_tpu_torch.serve import manifest as port_manifest  # noqa: E402
 from sctools_tpu_torch.serve.manifest import (  # noqa: E402
     ManifestError,
@@ -1031,15 +1034,19 @@ def test_validate_loaded_manifest_problem_classes():
     ]
 
 
-def test_committed_manifest_equals_its_generator():
+def test_committed_manifest_equals_its_generator(tmp_path, capsys):
     with open(port_manifest.DEFAULT_MANIFEST_PATH, encoding="utf-8") as f:
         committed = f.read()
-    assert committed == port_manifest.render_manifest(port_manifest.build_graph_manifest())
+    fresh = tmp_path / "graph_manifest.json"
+    package = os.path.dirname(os.path.dirname(port_manifest.DEFAULT_MANIFEST_PATH))
+    assert port_analysis(["--emit-aot-manifest", str(fresh), package]) == 0
+    assert committed == fresh.read_text()
     manifest = load_manifest()
-    (site,) = manifest["sites"]
-    assert site == port_graphs.SITE == "metrics.compute_entity_metrics"
+    site = port_graphs.SITE
+    assert site == "metrics.compute_entity_metrics"
+    assert manifest["sites"][site]["serve_reachable"] and manifest["sites"][site]["precompile"]
     assert manifest["sites"][site]["static_argnames"] == [name for name, _ in port_graphs.STATIC_ARGS]
-    assert manifest["contract"]["bucket_minimums"] == [64, 4096]
+    assert manifest["contract"]["bucket_minimums"] == [8, 4096]
     # the layout of JAX's manifest, and the site's static arguments are JAX's
     jax = jax_load_manifest()
     assert set(manifest) == set(jax)
@@ -1066,13 +1073,13 @@ def _tested_dims():
 def test_dim_admissible_equals_jax_under_both_contracts():
     dims = _tested_dims()
     for contract in (load_manifest()["contract"], jax_load_manifest()["contract"]):
-        port = [port_manifest.dim_admissible(d, contract) for d in dims]
+        port = [port_shardcheck.dim_admissible(d, contract) for d in dims]
         assert port == [jax_dim_admissible(d, contract) for d in dims]
         assert 1000 < sum(port) < len(dims)
     # and the two contracts admit the same dims
     ours, theirs = load_manifest()["contract"], jax_load_manifest()["contract"]
-    assert [port_manifest.dim_admissible(d, ours) for d in dims] == [
-        port_manifest.dim_admissible(d, theirs) for d in dims
+    assert [port_shardcheck.dim_admissible(d, ours) for d in dims] == [
+        port_shardcheck.dim_admissible(d, theirs) for d in dims
     ]
 
 
@@ -1082,11 +1089,13 @@ def test_signature_violations_name_unbucketed_dims():
                                 dict(num_segments=4096, prepacked=True))
     bad = port_xprof.signature(({"flags": torch.zeros(5000, dtype=torch.int32)},), dict(num_segments=5000))
     sites = {port_graphs.SITE: {"signatures": {good: 1}}}
-    assert port_manifest.signature_violations(sites, contract) == []
+    assert port_shardcheck.check_signatures(contract, sites) == []
     sites[port_graphs.SITE]["signatures"][bad] = 1
-    (problem,) = port_manifest.signature_violations(sites, contract)
-    assert "dims [5000]" in problem
-    assert port_manifest.signature_violations({}, contract) == []
+    problems = port_shardcheck.check_signatures(contract, sites)
+    assert problems and all("5000" in problem for problem in problems)
+    assert any("dim 5000" in problem for problem in problems)
+    assert any("num_segments=5000" in problem for problem in problems)
+    assert port_shardcheck.check_signatures(contract, {}) == []
 
 
 def test_serve_cli_parses_manifest_and_steer_epoch_as_jax(monkeypatch):

@@ -25,8 +25,10 @@ these, which test what the port leaves out:
 - ``test_instrument_jit_cost_analysis`` and
   ``test_compile_events_attributed_to_jax_spans``: ``cost_analysis`` and
   the jax.monitoring compile events;
-- ``test_entity_buckets_inside_contract_universe``: JAX's
-  ``analysis.shardcheck``, which the port does not carry.
+- ``test_entity_buckets_inside_contract_universe``: it builds JAX's
+  contract over JAX's tree; the port's counterpart is
+  ``test_torch_shardcheck``'s
+  ``test_contract_closed_over_the_ports_buckets_and_wire``.
 
 **JAX parity of the commands.** CalculateCellMetrics, CalculateGeneMetrics,
 CreateCountMatrix, Attach10xBarcodes ``-w`` and CalculateCellMetrics
@@ -204,6 +206,26 @@ def test_record_compile_counts_retraces_and_flags_one_heartbeat(recording):
     assert site["retrace_signatures"] == [{"signature": "(int32[8])", "count": 1}]
     assert [beat["retrace"] for beat in beats] == [True, False]
     assert port_obs.counters()["xprof_retraces"] == 1 and port_xprof.retrace_seq() >= 1
+
+
+# ``sctools_tpu.`` not followed by ``_torch``: a module of the JAX package
+_JAX_MODULE = re.compile(r"sctools_tpu\.(?!_torch)|sctools_tpu\b(?!_torch)")
+
+
+def test_suggestions_and_help_name_the_ports_autotuner(capsys):
+    """The ``--suggest`` report and help send the operator to the port's
+    ``--retune``: JAX's would rewrite the JAX package's segments file."""
+    rows = port_xprof.suggest_buckets({"sites": {"s": {"dispatches": 4, "real_rows": 400, "padded_rows": 16384,
+                                                       "occupancy": 400 / 16384}}})
+    for text in (port_xprof.render_suggestions(rows), port_xprof.render_suggestions([])):
+        assert "python -m sctools_tpu_torch.analysis --retune <run_dir>" in text
+        assert not _JAX_MODULE.search(text), text
+    with pytest.raises(SystemExit):
+        port_cli(["efficiency", "--help"])
+    help_text = " ".join(capsys.readouterr().out.split())
+    assert "python -m sctools_tpu_torch.analysis --retune" in help_text
+    assert not _JAX_MODULE.search(help_text), help_text
+    assert not _JAX_MODULE.search(port_xprof.suggest_buckets.__doc__)
 
 
 def test_efficiency_cli_reports_an_eager_site(recording, tmp_path, capsys):
