@@ -114,7 +114,11 @@ Phases, in order; any failure exits non-zero before the last line:
               and ``seconds``; no hand kernel may launch;
 10. sched  -- the chunk queue (``sctools_tpu_torch.sched``,
               ``parallel.launch``) on the card: ``split_bam -t CB`` cuts
-              phase 5's cell BAM into 5 chunks; two worker processes
+              two of phase 5's five cell chunks (cell-disjoint cuts of its
+              cell BAM, 40% of its records) into 5 chunks, every record in
+              exactly one of them (name, cell, UMI, gene and position as
+              the native decoder reads them) and no cell in two; over phase
+              5's five chunks, two worker processes
               (``chip_smoke.py --sched-worker``, each its own CUDA context)
               run ``run_process_cell_metrics`` on cuda with a 2 s lease TTL:
               A is killed at its first batch of chunk0000 (exit 86), B, a
@@ -173,7 +177,8 @@ Phases, in order; any failure exits non-zero before the last line:
               boundary; no worker may launch a hand kernel;
 13. analysis -- the port's static checks and its runtime lock witness on
               this machine: ``python -m sctools_tpu_torch.analysis
-              sctools_tpu_torch chip_smoke.py --json`` with the lint, ABI,
+              sctools_tpu_torch chip_smoke.py --json`` with the lint
+              (SCX113 and SCX114 among its rules), ABI, tsan.supp audit,
               race and life passes (phase 19 runs every pass) must exit 0
               with no finding, and ``--emit-lock-graph`` writes the static lock
               graph. Two worker processes (``chip_smoke.py
@@ -354,8 +359,12 @@ Phases, in order; any failure exits non-zero before the last line:
               each) and each step's wall; no sched worker and no step but
               (c) may launch a hand kernel;
 19. discipline -- the static checks (``sctools_tpu_torch.analysis``) on the
-              card machine: the gate (``--json``, every pass, scx-shard and
-              scx-aot among them) over the port and this script, and
+              card machine: the gate (``--json``, every pass, scx-shard,
+              scx-aot, the tsan.supp audit and the lint's SCX113 and SCX114
+              among them) over the port and this script; ``--list-rules``
+              naming exactly the passes' rule tables, and a seeded corpus
+              giving SCX113, SCX114 and SCX302 (the line before names this
+              host's sanitizer runtimes, for information); and
               ``--emit-transfer-inventory`` / ``--emit-collective-schedule``
               / ``--emit-shape-contract`` into the run directory; the merged
               transfer ledgers of phases 14-15's traced workers (attach,
@@ -569,6 +578,8 @@ GRCH38 = [
 ]
 N_GENES, N_MITO_GENES, N_CELLS = 33_538, 37, 1_000  # Cell Ranger's GRCh38-2020-A gene count
 METRICS_BATCH = 1 << 20  # the gatherer's DEFAULT_BATCH_RECORDS, never cut
+CELL_CHUNKS = "cell_chunks"  # phase 5's cell BAM in cell-disjoint chunks, for phase 10 on
+N_CELL_CHUNKS = 5
 # depth, cut so that the phase's four decodes stay near four minutes on the
 # card: each axis keeps one full 2^20-record batch, a cut remainder and the
 # carried tail (three device passes)
@@ -661,12 +672,13 @@ def _z_tag(key: bytes, values: np.ndarray) -> np.ndarray:
     )
 
 
-def write_tagged_bam(path: Path, rng, reads: dict, bgzf) -> None:
+def write_tagged_bam(path: Path, rng, reads: dict, bgzf, slices=()) -> None:
     """The reads as raw BAM records (tags [CB] CR CY [UB] UR UY [GE] [XF]
     [NH]), built with numpy one layout group at a time, BGZF level 1.
     Optional columns: ``qname`` (the number in each record's name; by
     default its position) and ``has_cb`` / ``has_ub`` (False leaves out the
-    CB / UB tag)."""
+    CB / UB tag). Each ``(path, first, end)`` of ``slices`` is written too:
+    the header and the same records' bytes from ``first`` to ``end``."""
     n = len(reads["cell"])
     qname = reads.get("qname", np.arange(n))
     has_cb = reads.get("has_cb", np.ones(n, dtype=bool))
@@ -734,6 +746,16 @@ def write_tagged_bam(path: Path, rng, reads: dict, bgzf) -> None:
     for name, length in GRCH38:
         header += struct.pack("<I", len(name) + 1) + name.encode() + b"\0" + struct.pack("<I", length)
     write_bgzf(path, header + body.tobytes(), bgzf)
+    for part, first, end in slices:
+        write_bgzf(part, header + body[offsets[first] : offsets[end]].tobytes(), bgzf)
+
+
+def cell_ranges(cells: np.ndarray, n_parts: int) -> list:
+    """``n_parts`` (first, end) record ranges of a cell-sorted column, of
+    near-equal size, each cut at a cell boundary."""
+    starts = np.flatnonzero(np.r_[True, cells[1:] != cells[:-1]])
+    cuts = [0] + [int(starts[np.searchsorted(starts, len(cells) * i // n_parts)]) for i in range(1, n_parts)]
+    return list(zip(cuts, cuts[1:] + [len(cells)]))
 
 
 def write_bgzf(path: Path, data: bytes, bgzf) -> None:
@@ -1299,8 +1321,13 @@ def phase_metrics(rng, stamp: str, modules) -> None:
         "gene": sort_reads({k: v[:GENE_RECORDS] for k, v in reads.items()}, "gene"),
     }
     paths = {axis: WORK / f"{axis}_sorted.bam" for axis in axes}
+    # the cell BAM cut in 5 cell-disjoint chunks of its own bytes: phase 10's
+    # chunk queue and the later phases' jobs
+    (WORK / CELL_CHUNKS).mkdir(exist_ok=True)
+    chunk_parts = [(WORK / CELL_CHUNKS / f"chunk{i:04d}.bam", first, end)
+                   for i, (first, end) in enumerate(cell_ranges(axes["cell"]["cell"], N_CELL_CHUNKS))]
     for axis, sorted_reads in axes.items():
-        write_tagged_bam(paths[axis], rng, sorted_reads, bgzf)
+        write_tagged_bam(paths[axis], rng, sorted_reads, bgzf, chunk_parts if axis == "cell" else ())
     gtf_path = WORK / "mito.gtf"
     write_mito_gtf(gtf_path)
     expected = expected_cell_counts(axes["cell"])
@@ -2056,7 +2083,7 @@ KEPT_FOR_MESH = (
     "cell_sorted.bam", "gene_sorted.bam", "mito.gtf", "cli_cell.csv.gz", "cli_gene.csv.gz",
     "count.bam", "genes.gtf", "cli_count.npz", "cli_count_row_index.npy", "cli_count_col_index.npy",
     "cell_part0.csv.gz", "cell_part1.csv.gz", "merged_cell.csv.gz", "merged_gene.csv.gz",
-    "cell_shuffled.bam", "fused_cell.csv.gz",
+    "cell_shuffled.bam", "fused_cell.csv.gz", CELL_CHUNKS,
 )
 
 
@@ -2456,8 +2483,9 @@ KEPT_FOR_DIST = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz", "chunks", *KE
 # chunks (the serve phase's tenant jobs) are among them
 KEPT_FOR_SERVE = KEPT_FOR_DIST
 # phase 5's cell BAM, its GTF and its one-shot CSV, for the chunk queue
-KEPT_FOR_SCHED = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz", *KEPT_FOR_SERVE)
-SCHED_CHUNKS = 4.5  # -s is the BAM's size over this: 5 chunks
+KEPT_FOR_SCHED = ("cell_sorted.bam", "mito.gtf", "cli_cell.csv.gz", CELL_CHUNKS, *KEPT_FOR_SERVE)
+SCHED_CHUNKS = 4.5  # SplitBam's -s is its input's size over this: 5 chunks
+SPLIT_INPUTS = 2  # phase 5's chunks SplitBam cuts: 2 of 5, 40% of the cell BAM
 SCHED_TTL = 2.0  # seconds a dead worker's lease outlives its last heartbeat
 SCHED_STRAGGLE = 0.5  # worker B's delay at each claim
 WORKER_FLAG = "--sched-worker"
@@ -2494,38 +2522,72 @@ def sched_worker(argv) -> int:
     return 0
 
 
+def split_records(paths, packed) -> tuple:
+    """The (query name, cell, UMI, gene, position) columns of every record of
+    ``paths``, ordered by the query name (unique in the smoke's BAMs), and
+    each file's set of cells; decoded by the native stream."""
+    columns, cells = collections.defaultdict(list), []
+    for path in paths:
+        mine = set()
+        for frame in packed.iter_frames_from_bam(str(path), METRICS_BATCH, want_qname=True):
+            for field in ("qname", "cell", "umi", "gene"):
+                names = np.array([*getattr(frame, f"{field}_names"), ""], dtype=object)  # code -1: ""
+                columns[field].append(names[getattr(frame, field)])
+            columns["pos"].append(frame.pos)
+            mine.update(columns["cell"][-1].tolist())
+        cells.append(mine)
+    joined = {field: np.concatenate(parts) for field, parts in columns.items()}
+    order = np.argsort(joined["qname"], kind="stable")
+    return {field: column[order] for field, column in joined.items()}, cells
+
+
 def phase_sched(stamp: str, modules) -> None:
-    """SplitBam on phase 5's cell BAM, then the chunk queue on the card: two
-    worker processes at once, one killed mid-chunk and the other a straggler
-    that fails one chunk twice and steals the dead one's lease, a clean
-    relaunch, ``sched status``, and both part merges against phase 5's
+    """SplitBam on two of phase 5's cell chunks (every record in exactly one
+    output, no cell in two), then the chunk queue on the card over phase 5's
+    five: two worker processes at once, one killed mid-chunk and the other a
+    straggler that fails one chunk twice and steals the dead one's lease, a
+    clean relaunch, ``sched status``, and both part merges against phase 5's
     one-shot CSV."""
     import os
 
     import torch
 
+    from sctools_tpu_torch.io import packed
+
     port_platform, port_sched, port_launch, port_collective = modules
     phase_start = start = time.perf_counter()
     workdir = WORK / "sched"
-    (workdir / "chunks").mkdir(parents=True)
-    bam = WORK / "cell_sorted.bam"
-    size_mb = bam.stat().st_size * 1e-6
+    (workdir / "split").mkdir(parents=True)
+    inputs = sorted((WORK / CELL_CHUNKS).glob("chunk*.bam"))[:SPLIT_INPUTS]
+    size_mb = sum(p.stat().st_size for p in inputs) * 1e-6
     stdout = io.StringIO()
     with contextlib.chdir(workdir), contextlib.redirect_stdout(stdout):
         rc = port_platform.GenericPlatform.split_bam(
-            ["-b", str(bam), "-p", str(workdir / "chunks" / "chunk"), "-s", repr(size_mb / SCHED_CHUNKS),
+            ["-b", *map(str, inputs), "-p", str(workdir / "split" / "chunk"), "-s", repr(size_mb / SCHED_CHUNKS),
              "-t", "CB"])
     split_seconds = time.perf_counter() - start
     made = stdout.getvalue().split()
     if rc != 0 or len(made) < 4:
         raise AssertionError(f"SplitBam: rc {rc}, want >= 4 chunks, printed {made}")
-    # zero-padded names: the chunks sort in the split's order, so task
-    # chunkNNNN reads chunkNNNN.bam and a fault spec can name either
-    for i in range(len(made)):
-        os.replace(workdir / "chunks" / f"chunk_{i}.bam", workdir / "chunks" / f"chunk{i:04d}.bam")
-    n_chunks = len(made)
-    log(f"[sched] SplitBam -t CB -s {size_mb / SCHED_CHUNKS:.2f} on phase 5's cell BAM ({size_mb:.1f} MB): "
-        f"{n_chunks} chunks in {split_seconds:.2f} s")
+    begin = time.perf_counter()
+    want_rows, _ = split_records(inputs, packed)
+    got_rows, cells = split_records(sorted((workdir / "split").glob("chunk_*.bam")), packed)
+    n_records = len(want_rows["qname"])
+    same = len(got_rows["qname"]) == n_records and all(np.array_equal(got_rows[f], want_rows[f]) for f in want_rows)
+    if not same or sum(map(len, cells)) != len(set().union(*cells)) or \
+            [p.name for p in workdir.iterdir()] != ["split"]:
+        raise AssertionError(f"SplitBam: {len(got_rows['qname'])} records out of {n_records} (equal: {same}), cells "
+                             f"{list(map(len, cells))} ({len(set().union(*cells))} distinct), left "
+                             f"{[p.name for p in workdir.iterdir()]}")
+    log(f"[sched] SplitBam -t CB -s {size_mb / SCHED_CHUNKS:.2f} on phase 5's chunks {[p.name for p in inputs]} "
+        f"({size_mb:.1f} MB, {n_records} records): {len(made)} chunks in {split_seconds:.2f} s; every record "
+        f"in one chunk (name, cell, UMI, gene, position), no cell in two, no scratch left "
+        f"(checked in {time.perf_counter() - begin:.2f} s)")
+    shutil.rmtree(workdir / "split")
+    # phase 5's chunks, cell-disjoint cuts of its cell BAM, are the queue's
+    # tasks: task chunkNNNN reads chunkNNNN.bam and a fault spec can name either
+    shutil.move(str(WORK / CELL_CHUNKS), str(workdir / "chunks"))
+    n_chunks = len(list((workdir / "chunks").glob("chunk*.bam")))
 
     journal_dir = workdir / "sched-journal"
     gtf = str(WORK / "mito.gtf")
@@ -3147,7 +3209,7 @@ def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
 
     # (a) the passes, as a user runs them
     start = time.perf_counter()
-    # its four passes: phase 19 runs the gate with every pass
+    # its five passes: phase 19 runs the gate with every pass
     gate = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", "sctools_tpu_torch", "chip_smoke.py",
                            "--json", "--no-shard", "--no-cost", "--no-mesh", "--no-aot"], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -3173,7 +3235,7 @@ def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
     log(f"[analysis] {stamp} | python -m sctools_tpu_torch.analysis sctools_tpu_torch chip_smoke.py --json "
         f"--no-shard --no-cost --no-mesh --no-aot: "
         f"exit 0, {len(result['findings'])} findings over {result['checked_files']} files in {passes_s:.2f} s "
-        f"(lint, abi, race, life; no parse store); --emit-lock-graph in {graph_s:.2f} s: "
+        f"(lint with SCX113/SCX114, abi, supp, race, life; no parse store); --emit-lock-graph in {graph_s:.2f} s: "
         f"{len(graph['locks'])} locks {sorted(graph['locks'])}, {len(graph['edges'])} order edges, "
         f"{len(graph['entries'])} entries {[e['site'] for e in graph['entries']]}")
 
@@ -5056,6 +5118,56 @@ def shape_check(root: Path, registries: dict, contract: dict, env: dict, stamp: 
     shutil.rmtree(tree)
 
 
+SEEDED_LINT = {
+    "boundary.py": "from sctools_tpu_torch import ingest\n\n\ndef stage(cols, device):\n    try:\n"
+                   "        return ingest.upload(cols, device, site=\"seeded.stage\")\n    except Exception:\n"
+                   "        return None\n",
+    "pull.py": "from sctools_tpu_torch.ops.whitelist import correct_codes\n\n\ndef pull(queries, table):\n"
+               "    codes = correct_codes(queries, table)\n    return codes.cpu()\n",
+}
+
+
+def rule_checks(root: Path, env: dict) -> tuple:
+    """``--list-rules`` against the passes' own rule tables, and the lint's
+    SCX113 and SCX114 and the tsan.supp audit firing on a seeded corpus: a
+    swallowed upload (SCX113), a bare pull of a kernel's result (SCX114) and
+    a stale tsan.supp entry (SCX302). Prints whether this host's g++ resolves the
+    sanitizer runtimes (information: no sanitizer leg runs here). Returns
+    the seconds and the seeded findings' rules."""
+    from sctools_tpu_torch.analysis import (ABI_RULES, AOT_RULES, COST_RULES, LIFE_RULES, MESH_RULES,
+                                            RACE_RULES, SHARD_RULES, SUPP_RULES, TORCH_RULES)
+    from sctools_tpu_torch.native import sanitize
+
+    begin = time.perf_counter()
+    listed = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", "--list-rules"], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=120)
+    catalog = {line.split()[0] for line in listed.stdout.splitlines() if line.startswith("    SCX")}
+    tables = set().union(TORCH_RULES, ABI_RULES, SUPP_RULES, RACE_RULES, SHARD_RULES, LIFE_RULES, COST_RULES,
+                         MESH_RULES, AOT_RULES)
+    if listed.returncode != 0 or catalog != tables:
+        raise AssertionError(f"--list-rules: rc {listed.returncode}, listed {sorted(catalog ^ tables)} apart from "
+                             f"the passes' tables\n{listed.stdout[-2000:]}{listed.stderr[-2000:]}")
+    corpus = root / "seeded"
+    (corpus / "native").mkdir(parents=True)
+    for name, text in SEEDED_LINT.items():
+        (corpus / name).write_text(text)
+    (corpus / "native" / "lib.cpp").write_text('extern "C" long scx_seeded(long n) { return n; }\n')
+    (corpus / "native" / "tsan.supp").write_text("race:scx_seeded\nrace:scx_long_gone\n")
+    done = subprocess.run([sys.executable, "-m", "sctools_tpu_torch.analysis", "--json", "--no-abi", "--no-race",
+                           "--no-shard", "--no-life", "--no-cost", "--no-mesh", "--no-aot", "--native-dir",
+                           str(corpus / "native"), str(corpus)], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    found = sorted((f["rule"], Path(f["path"]).name, f["line"]) for f in json.loads(done.stdout or "{}").get(
+        "findings", []))
+    if done.returncode != 1 or found != [("SCX113", "boundary.py", 7), ("SCX114", "pull.py", 6),
+                                         ("SCX302", "tsan.supp", 2)]:
+        raise AssertionError(f"the seeded corpus: rc {done.returncode}, {found}\n{done.stderr[-2000:]}")
+    runtimes = {name: sanitize.runtime(name) for name in ("libtsan.so", "libasan.so", "libubsan.so")}
+    log("[discipline] sanitizer runtimes (information; the legs, python -m sctools_tpu_torch.native.sanitize, "
+        "do not run here): " + ", ".join(f"{name} {path or 'not resolved'}" for name, path in runtimes.items()))
+    return time.perf_counter() - begin, [rule for rule, _, _ in found]
+
+
 def phase_discipline(rng, stamp: str, modules, ledger: dict, registries: dict) -> None:
     """The static checks' runtime halves and the collective witness on the card.
 
@@ -5099,6 +5211,7 @@ def phase_discipline(rng, stamp: str, modules, ledger: dict, registries: dict) -
     if gate.returncode != 0 or json.loads(gate.stdout)["findings"]:
         raise AssertionError(f"the gate: rc {gate.returncode}\n{gate.stdout[-3000:]}{gate.stderr[-2000:]}")
     checked = json.loads(gate.stdout)["checked_files"]
+    rules_s, seeded = rule_checks(root, base_env)
     emitted = {}
     # the shape contract is the package's, the one its manifest holds
     for flag, name, paths in (("--emit-transfer-inventory", "transfer_inventory.json", ["chip_smoke.py"]),
@@ -5115,8 +5228,9 @@ def phase_discipline(rng, stamp: str, modules, ledger: dict, registries: dict) -
     with open(REPO / "sctools_tpu_torch" / "serve" / "graph_manifest.json", encoding="utf-8") as f:
         if json.load(f)["contract"] != contract:
             raise AssertionError("the emitted shape contract is not the committed graph manifest's")
-    log(f"[discipline] {stamp} | the gate (lint, abi, race, shard, life, cost, mesh, aot) over {checked} files: "
-        f"0 findings in {gate_s:.2f} s; "
+    log(f"[discipline] {stamp} | the gate (lint, abi, supp, race, shard, life, cost, mesh, aot) over {checked} "
+        f"files: 0 findings in {gate_s:.2f} s; --list-rules names the passes' tables and a seeded corpus gives "
+        f"{seeded} ({rules_s:.2f} s); "
         f"{len(inventory['sites'])} transfer sites inventoried, {len(schedule['collectives'])} collective pairs "
         f"over {len(schedule['regions'])} mapped regions, {len(contract['sites'])} sites in the shape contract (the "
         f"committed manifest's) "

@@ -6,11 +6,16 @@ sctools_tpu_torch.analysis [paths]``, default ``sctools_tpu_torch``) runs
 them all and exits 0 only on a clean tree. All pure stdlib: nothing here
 imports torch, numpy, JAX or the code under analysis.
 
-- :mod:`.torchlint` — SCX109 (wall clock for durations) and SCX112
+- :mod:`.torchlint` — SCX109 (wall clock for durations), SCX112
   (host->device crossing outside ``ingest/`` and
-  ``parallel/collective.py``);
+  ``parallel/collective.py``), SCX113 (a broad handler swallowing a
+  device-boundary failure), SCX114 (a device value pulled outside the
+  seam) and SCX1001 (a steering knob written outside ``steer/``);
 - :mod:`.abicheck` — the ctypes table of ``native/__init__.py`` against
   the ``extern "C"`` C++ it binds, rules SCX201-SCX206;
+- :mod:`.suppaudit` — the native layer's ``tsan.supp`` (the suppressions
+  of ``native.sanitize``'s TSan leg) against its sources, rules
+  SCX301-SCX303;
 - :mod:`.racecheck` — whole-package concurrency model (lock inventory,
   locksets, acquisition-order graph, thread and signal entries), rules
   SCX401-SCX404, paired with the runtime lock witness (:mod:`.witness`,
@@ -75,6 +80,8 @@ _EXPORTS = {
     "RACE_RULES": "racecheck",
     "check_races": "racecheck",
     "lock_graph": "racecheck",
+    "SUPP_RULES": "suppaudit",
+    "audit_suppressions": "suppaudit",
     "TORCH_RULES": "torchlint",
     "lint_file": "torchlint",
     "make_lock": "witness",
@@ -84,7 +91,7 @@ _EXPORTS = {
 _SUBMODULES = frozenset(
     {"abicheck", "aotcheck", "astcache", "cli", "costcheck", "findings",
      "lifecheck", "meshcheck", "meshwitness", "racecheck", "retune",
-     "shardcheck", "torchlint", "witness"}
+     "shardcheck", "suppaudit", "torchlint", "witness"}
 )
 
 

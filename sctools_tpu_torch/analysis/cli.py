@@ -3,9 +3,11 @@
 Runs its passes over the given paths (default: ``sctools_tpu_torch``) and
 exits non-zero when any finding survives its suppressions:
 
-1. lint (SCX109, SCX112) over every ``.py`` file (:mod:`.torchlint`);
+1. lint (SCX109, SCX112-114, SCX1001) over every ``.py`` file
+   (:mod:`.torchlint`);
 2. ctypes ABI (SCX201-206) over the first ``native/`` package found under
-   the paths, or ``--native-dir`` (:mod:`.abicheck`);
+   the paths, or ``--native-dir`` (:mod:`.abicheck`), and the audit of
+   that package's ``tsan.supp`` (SCX301-303, :mod:`.suppaudit`);
 3. concurrency (SCX401-404) over the whole-package model built from the
    same paths (:mod:`.racecheck`); ``--emit-lock-graph FILE`` writes the
    static lock inventory and acquisition-order graph that the runtime
@@ -37,11 +39,17 @@ exits non-zero when any finding survives its suppressions:
 
 ``--race-only`` / ``--shard-only`` / ``--life-only`` / ``--cost-only`` /
 ``--mesh-only`` / ``--aot-only`` run just those passes (together, each
-named one), ``--no-race`` / ``--no-shard`` / ``--no-life`` / ``--no-cost``
-/ ``--no-mesh`` / ``--no-aot`` skip one. ``--json`` replaces the
-human-readable output with one findings object covering every pass that
-ran. Passes 3 to 8 share one parse per file through :mod:`.astcache`; the
-summary line reports the cache's effect.
+named one; lint, ABI and the audit are off), ``--no-lint`` / ``--no-abi``
+/ ``--no-supp`` / ``--no-race`` / ``--no-shard`` / ``--no-life`` /
+``--no-cost`` / ``--no-mesh`` / ``--no-aot`` skip one (``--no-lint`` is
+the JAX CLI's ``--no-jax-lint``, named for the port's pass).
+``--list-rules`` prints the rule catalog, every rule id of the passes'
+tables, and exits. ``--json`` replaces the human-readable output with one
+findings object covering every pass that ran; ``-q`` / ``--quiet`` prints
+the findings only: no summary line, no ``wrote`` line of an ``--emit-*``
+flag, no note of a skipped native pass, no manifest match line. Passes 3
+to 8 share one parse per file through :mod:`.astcache`; the summary line
+reports the cache's effect.
 
 The module imports nothing heavyweight (no torch, no numpy).
 """
@@ -54,18 +62,33 @@ import os
 import sys
 from typing import List, Optional
 
-from .abicheck import check_abi
-from .aotcheck import build_aot_manifest, check_aot, validate_manifest
+from .abicheck import ABI_RULES, check_abi
+from .aotcheck import AOT_RULES, build_aot_manifest, check_aot, validate_manifest
 from .astcache import SKIP_DIRS, collect_py_files
 from .astcache import stats as parse_stats
-from .costcheck import check_cost, transfer_inventory
+from .costcheck import COST_RULES, check_cost, transfer_inventory
 from .findings import Finding
-from .lifecheck import check_life
-from .meshcheck import build_collective_schedule, check_mesh
-from .racecheck import RACE_EXEMPT_DIRS, check_races, lock_graph
+from .lifecheck import LIFE_RULES, check_life
+from .meshcheck import MESH_RULES, build_collective_schedule, check_mesh
+from .racecheck import RACE_EXEMPT_DIRS, RACE_RULES, check_races, lock_graph
+from .shardcheck import SHARD_RULES
 from .shardcheck import build_model as build_shard_model
 from .shardcheck import build_shape_contract, check_shards
-from .torchlint import lint_file
+from .suppaudit import SUPP_RULES, audit_suppressions
+from .torchlint import TORCH_RULES, lint_file
+
+# the rule catalog, in the JAX CLI's order and format (--list-rules)
+CATALOG = (
+    ("PyTorch/CUDA lint", TORCH_RULES),
+    ("ctypes ABI", ABI_RULES),
+    ("tsan.supp audit", SUPP_RULES),
+    ("concurrency / death path", RACE_RULES),
+    ("shape / sharding flow", SHARD_RULES),
+    ("frame lifetime / aliasing", LIFE_RULES),
+    ("device cost / transfer discipline", COST_RULES),
+    ("collective safety / SPMD divergence", MESH_RULES),
+    ("AOT dispatch closure / serving", AOT_RULES),
+)
 
 
 def _find_native_dir(paths: List[str]) -> Optional[str]:
@@ -94,12 +117,21 @@ def _dump_json(payload, dest: str) -> None:
     os.replace(tmp, dest)
 
 
+def _print_rules() -> None:
+    print("scx-lint rule catalog (the port's passes):")
+    for title, rules in CATALOG:
+        print(f"  {title}:")
+        for rule_id, slug in sorted(rules.items()):
+            print(f"    {rule_id}  {slug}")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m sctools_tpu_torch.analysis",
-        description="The port's static checks: lint, ctypes ABI, races, "
-        "shapes and sharding, frame lifetimes, device cost, collective "
-        "safety, the serve path's AOT closure. Exit 0 == clean.",
+        description="The port's static checks: lint, ctypes ABI, the "
+        "tsan.supp audit, races, shapes and sharding, frame lifetimes, "
+        "device cost, collective safety, the serve path's AOT closure. "
+        "Exit 0 == clean.",
     )
     parser.add_argument(
         "paths", nargs="*", default=["sctools_tpu_torch"],
@@ -107,8 +139,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     parser.add_argument(
         "--native-dir", default=None,
-        help="native package dir for the ABI pass "
+        help="native package dir for the ABI/supp passes "
         "(default: first native/ found under paths)",
+    )
+    parser.add_argument(
+        "--no-lint", action="store_true",
+        help="skip the SCX1xx lint pass (the JAX CLI's --no-jax-lint)",
+    )
+    parser.add_argument(
+        "--no-abi", action="store_true", help="skip the SCX2xx pass"
+    )
+    parser.add_argument(
+        "--no-supp", action="store_true", help="skip the SCX3xx pass"
     )
     parser.add_argument(
         "--race-only", action="store_true",
@@ -217,7 +259,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="print one machine-readable findings object instead of the "
         "human-readable lines",
     )
+    parser.add_argument(
+        "--list-rules", action="store_true", help="print the rule catalog"
+    )
+    parser.add_argument(
+        "-q", "--quiet", action="store_true",
+        help="findings only, no summary line",
+    )
     args = parser.parse_args(argv)
+
+    if args.list_rules:
+        _print_rules()
+        return 0
 
     missing = [p for p in args.paths if not os.path.exists(p)]
     if missing:
@@ -230,23 +283,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.emit_lock_graph is not None:
         graph = lock_graph(args.paths)
         _dump_json(graph, args.emit_lock_graph)
-        print(
-            f"scx-race: wrote {len(graph['locks'])} lock(s), "
-            f"{len(graph['edges'])} order edge(s), "
-            f"{len(graph['entries'])} thread/signal entr(ies) to "
-            f"{args.emit_lock_graph}"
-        )
+        if not args.quiet:
+            print(
+                f"scx-race: wrote {len(graph['locks'])} lock(s), "
+                f"{len(graph['edges'])} order edge(s), "
+                f"{len(graph['entries'])} thread/signal entr(ies) to "
+                f"{args.emit_lock_graph}"
+            )
         return 0
 
     if args.emit_shape_contract is not None:
         contract = build_shape_contract(args.paths)
         _dump_json(contract, args.emit_shape_contract)
-        print(
-            f"scx-shard: wrote {len(contract['sites'])} site(s), "
-            f"{len(contract['axis_universe'])} axis name(s), "
-            f"{len(contract['bucket_minimums'])} bucket minimum(s) to "
-            f"{args.emit_shape_contract}"
-        )
+        if not args.quiet:
+            print(
+                f"scx-shard: wrote {len(contract['sites'])} site(s), "
+                f"{len(contract['axis_universe'])} axis name(s), "
+                f"{len(contract['bucket_minimums'])} bucket minimum(s) to "
+                f"{args.emit_shape_contract}"
+            )
         return 0
 
     if args.emit_aot_manifest is not None:
@@ -255,13 +310,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         precompiled = sum(
             1 for entry in manifest["sites"].values() if entry["precompile"]
         )
-        print(
-            f"scx-aot: wrote {len(manifest['sites'])} site(s) "
-            f"({precompiled} precompile, "
-            f"{len(manifest['serve_entries'])} serve entr(ies)), "
-            f"contract {manifest['contract_hash'][:12]}… to "
-            f"{args.emit_aot_manifest}"
-        )
+        if not args.quiet:
+            print(
+                f"scx-aot: wrote {len(manifest['sites'])} site(s) "
+                f"({precompiled} precompile, "
+                f"{len(manifest['serve_entries'])} serve entr(ies)), "
+                f"contract {manifest['contract_hash'][:12]}… to "
+                f"{args.emit_aot_manifest}"
+            )
         return 0
 
     if args.retune is not None:
@@ -282,29 +338,33 @@ def main(argv: Optional[List[str]] = None) -> int:
         occurrences = sum(
             len(entry["occurrences"]) for entry in inventory["sites"].values()
         )
-        print(
-            f"scx-cost: wrote {len(inventory['sites'])} transfer site(s) "
-            f"across {occurrences} call site(s) to "
-            f"{args.emit_transfer_inventory}"
-        )
+        if not args.quiet:
+            print(
+                f"scx-cost: wrote {len(inventory['sites'])} transfer site(s) "
+                f"across {occurrences} call site(s) to "
+                f"{args.emit_transfer_inventory}"
+            )
         return 0
 
     if args.emit_collective_schedule is not None:
         schedule = build_collective_schedule(args.paths)
         _dump_json(schedule, args.emit_collective_schedule)
-        print(
-            f"scx-mesh: wrote {len(schedule['collectives'])} collective "
-            f"pair(s) across {len(schedule['computations'])} "
-            f"computation(s), {len(schedule['regions'])} mapped region(s) "
-            f"to {args.emit_collective_schedule}"
-        )
+        if not args.quiet:
+            print(
+                f"scx-mesh: wrote {len(schedule['collectives'])} collective "
+                f"pair(s) across {len(schedule['computations'])} "
+                f"computation(s), {len(schedule['regions'])} mapped region(s) "
+                f"to {args.emit_collective_schedule}"
+            )
         return 0
 
     only = (
         args.race_only or args.shard_only or args.life_only or args.cost_only
         or args.mesh_only or args.aot_only
     )
-    run_lint = run_abi = not only
+    run_lint = not (only or args.no_lint)
+    run_abi = not (only or args.no_abi)
+    run_supp = not (only or args.no_supp)
     run_race = args.race_only if only else not args.no_race
     run_shard = args.shard_only if only else not args.no_shard
     run_life = args.life_only if only else not args.no_life
@@ -321,16 +381,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     if run_lint:
         for path in files:
             findings.extend(lint_file(path))
-    if run_abi:
+    if run_abi or run_supp:
         native_dir = args.native_dir or _find_native_dir(args.paths)
-        if native_dir is not None:
+        if native_dir is None:
+            run_abi = run_supp = False
+            if not args.quiet:
+                print(
+                    "scx-lint: no native/ package under the given paths; "
+                    "ABI + suppression passes skipped",
+                    file=sys.stderr,
+                )
+        if run_abi:
             findings.extend(check_abi(native_dir))
-        else:
-            run_abi = False
-            print(
-                "scx-lint: no native/ package under the given paths; "
-                "ABI pass skipped",
-                file=sys.stderr,
+        if run_supp:
+            findings.extend(
+                audit_suppressions(os.path.join(native_dir, "tsan.supp"), native_dir)
             )
     if run_race:
         findings.extend(check_races(args.paths))
@@ -370,7 +435,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             for problem in problems:
                 print(f"scx-aot: {problem}", file=sys.stderr)
             manifest_stale = bool(problems)
-            if not problems and not args.json:
+            if not problems and not (args.json or args.quiet):
                 print(
                     f"scx-aot: manifest {args.aot_manifest} matches the "
                     f"fresh shape contract "
@@ -400,10 +465,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1 if (findings or manifest_stale) else 0
     for finding in findings:
         print(finding.render())
+    if args.quiet:
+        return 1 if (findings or manifest_stale) else 0
     passes = [
         name
         for name, ran in (
-            ("lint", run_lint), ("abi", run_abi),
+            ("lint", run_lint), ("abi", run_abi), ("supp", run_supp),
             ("race", run_race), ("shard", run_shard), ("life", run_life),
             ("cost", run_cost), ("mesh", run_mesh), ("aot", run_aot),
         )

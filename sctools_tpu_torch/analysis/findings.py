@@ -4,15 +4,15 @@ static checks.
 The port's copy of ``sctools_tpu.analysis.findings``. A finding is one rule
 violation anchored at a file:line. Every rule has a stable ``SCXNNN`` id,
 the JAX package's (1xx = lint of the port's Python, 2xx = ctypes ABI,
-4xx = concurrency, 6xx = frame lifetime), so findings can be suppressed
-individually with an inline escape hatch::
+3xx = tsan.supp audit, 4xx = concurrency, 6xx = frame lifetime), so
+findings can be suppressed individually with an inline escape hatch::
 
     value = read()  # scx-lint: disable=SCXNNN -- the reason it is safe
 
 A comment-only line applies to the next source line; ``disable-file=`` in
 any comment suppresses the rule(s) for the whole file; ``disable=all``
 suppresses everything on that line. The suppression syntax is shared by
-Python (``#``) and C++ (``//``) sources.
+Python (``#``), C++ (``//``) and tsan.supp (``#``) sources.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ class Suppressions:
 
         ``marker`` is the line-comment opener for the language. Directives
         are only honored inside comments; the scan is line-based, which is
-        exact for the two file kinds the passes read (a ``marker`` inside
+        exact for the three file kinds the passes read (a ``marker`` inside
         a string literal on the same line as real code cannot *introduce*
         a directive unless the literal itself contains the full
         ``scx-lint:`` syntax — not a case worth an AST round-trip).

@@ -41,6 +41,15 @@ of the sort's writer overlap, of the FASTQ loops' BGZF compression pool
 and of FastqMetrics' scan, as in the JAX package; the default is the CPU
 count, at most 16.
 
+``SCTOOLS_TPU_TORCH_NATIVE_LIB`` pins the library: when it is set,
+``library()`` loads that file as it is and binds it, without building it
+and without checking its hash, and a pinned file that is missing, does not
+load or lacks a symbol raises, naming the path (it never falls back to a
+``_build/`` library). It is how the sanitizer legs (``.sanitize``) load an
+instrumented build. It is not the JAX package's ``SCTOOLS_TPU_NATIVE_LIB``:
+the parity tests load both packages in one process, and one variable would
+load either package's library into the other.
+
 ``calls`` counts, per function above, the calls that reached the library.
 """
 
@@ -71,6 +80,7 @@ SOURCES = ("bamdecode.cpp", "tagsort.cpp", "fastqprocess.cpp", "attach.cpp", "fa
 HEADERS = ("native_io.h",)
 CXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared", "-Wall", "-Wextra"]
 LINK_FLAGS = ["-lz", "-lpthread"]
+PIN_ENV = "SCTOOLS_TPU_TORCH_NATIVE_LIB"
 
 calls: Dict[str, int] = {
     "stream_frames": 0, "batch_stream": 0, "frame_from_bam": 0, "tagsort": 0,
@@ -91,16 +101,18 @@ def reset_calls() -> None:
         calls[name] = 0
 
 
-def library_path() -> Path:
-    """Where the library of these sources and flags is built."""
+def library_path(flags: Sequence[str] = CXX_FLAGS, kind: str = "") -> Path:
+    """Where the library of these sources and ``flags`` is built; ``kind``
+    names a variant build (``libsctools_native.<kind>-<hash>.so``)."""
     digest = hashlib.sha256()
     for name in SOURCES + HEADERS:
         digest.update(name.encode() + b"\0" + (_SOURCE_DIR / name).read_bytes())
-    digest.update(" ".join(CXX_FLAGS + LINK_FLAGS).encode())
-    return BUILD_DIR / f"libsctools_native-{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join([*flags, *LINK_FLAGS]).encode())
+    stem = f"libsctools_native.{kind}" if kind else "libsctools_native"
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
 
 
-def _build(target: Path) -> None:
+def _build(target: Path, flags: Sequence[str] = CXX_FLAGS) -> None:
     """Compile each source on its own g++ process, all at once, then link."""
     compiler = shutil.which("g++")
     if compiler is None:
@@ -110,14 +122,14 @@ def _build(target: Path) -> None:
     partial = Path(f"{stem}.tmp")
     try:
         jobs = [
-            subprocess.Popen([compiler, *CXX_FLAGS, "-c", str(_SOURCE_DIR / name), "-o", str(obj)],
+            subprocess.Popen([compiler, *flags, "-c", str(_SOURCE_DIR / name), "-o", str(obj)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for name, obj in zip(SOURCES, objects)
         ]
         outputs = [job.communicate()[0] for job in jobs]
         failed = [out for job, out in zip(jobs, outputs) if job.returncode != 0]
         if not failed:
-            link = subprocess.run([compiler, *CXX_FLAGS, *map(str, objects), *LINK_FLAGS, "-o",
+            link = subprocess.run([compiler, *flags, *map(str, objects), *LINK_FLAGS, "-o",
                                    str(partial)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True)
             if link.returncode != 0:
@@ -130,22 +142,46 @@ def _build(target: Path) -> None:
             path.unlink(missing_ok=True)
 
 
+def ensure_built(flags: Sequence[str] = CXX_FLAGS, kind: str = "") -> Path:
+    """The library of these sources and ``flags``, built unless it is there
+    already; an ``fcntl`` lock lets processes that share ``_build/`` build
+    it once."""
+    target = library_path(flags, kind)
+    if not target.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        with open(BUILD_DIR / "native.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not target.exists():
+                # no Stall may land inside the g++ build (guard.watchdog)
+                with shielded():
+                    _build(target, flags)
+    return target
+
+
+def _load_pinned(path: str) -> ctypes.CDLL:
+    """The pinned library, loaded and bound as it is; raises naming ``path``."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{PIN_ENV}={path}: no such library file")
+    try:
+        return _bind(ctypes.CDLL(path))
+    except (OSError, AttributeError) as exc:
+        raise RuntimeError(f"{PIN_ENV}={path}: cannot load the pinned library: {exc}") from exc
+
+
 def library() -> ctypes.CDLL:
-    """The loaded native library, built at first use."""
+    """The loaded native library: the pinned file (``PIN_ENV``), else the
+    library of the sources, built at first use."""
     global _lib
     with _lock:
         if _lib is None:
-            target = library_path()
-            if not target.exists():
-                BUILD_DIR.mkdir(exist_ok=True)
-                with open(BUILD_DIR / "native.lock", "w") as lock:
-                    fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-                    if not target.exists():
-                        # no Stall may land inside the g++ build (guard.watchdog)
-                        with shielded():
-                            _build(target)
-            _lib = _bind(ctypes.CDLL(str(target)))
+            pinned = os.environ.get(PIN_ENV)
+            _lib = _load_pinned(pinned) if pinned else _bind(ctypes.CDLL(str(ensure_built())))
         return _lib
+
+
+def loaded_path() -> Optional[str]:
+    """The file of the loaded library, or None before the first load."""
+    return None if _lib is None else _lib._name
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -14,7 +14,14 @@
   witness, the six named lock sites, and each package reading the other's
   dump as its static graph.
 - The CLI: module invocation, ``--race-only``, ``--life-only``, ``--json``
-  and ``--emit-lock-graph`` on the clean tree and on a seeded bad corpus.
+  and ``--emit-lock-graph`` on the clean tree and on a seeded bad corpus;
+  ``--list-rules``, ``--no-lint``, ``--no-abi``, ``--no-supp`` and ``-q``
+  against the JAX CLI's behaviour.
+- SCX113 and SCX114: JAX's fixtures give JAX's findings where the port
+  has the construct, torch-spelled bad and clean twins, the owners
+  (``guard/``; ``ingest/`` and ``parallel/collective.py``), seeded faults
+  in copies of the port's code, and the port's tree and the smoke give
+  none.
 
 The parse store is off (``SCTOOLS_TPU_SCX_CACHE=0``): nothing is written
 beside the repository.
@@ -743,14 +750,14 @@ def test_cli_module_invocation_on_a_bad_corpus(tmp_path):
     assert result.returncode == 1, result.stdout + result.stderr
     rules = {line.split()[1] for line in result.stdout.splitlines() if ": SCX" in line}
     assert rules == {"SCX109", "SCX112", "SCX203", "SCX401", "SCX602"}, result.stdout
-    assert "passes: lint, abi, race, shard, life, cost, mesh, aot;" in result.stdout
+    assert "passes: lint, abi, supp, race, shard, life, cost, mesh, aot;" in result.stdout
 
 
 def test_cli_gate_is_clean_on_the_port_and_the_smoke(capsys):
     rc = cli_main([str(PORT), str(REPO / "chip_smoke.py")])
     out = capsys.readouterr().out
     assert rc == 0, out
-    assert "0 finding(s)" in out and "passes: lint, abi, race, shard, life, cost, mesh, aot;" in out
+    assert "0 finding(s)" in out and "passes: lint, abi, supp, race, shard, life, cost, mesh, aot;" in out
 
 
 @pytest.mark.parametrize("flag,rules,passes", [
@@ -793,3 +800,389 @@ def test_cli_emit_lock_graph(tmp_path, capsys):
 
 def test_cli_missing_path_fails(tmp_path, capsys):
     assert cli_main([str(tmp_path / "nowhere")]) == 2
+
+
+# ------------------------------------------------------- SCX113 and SCX114
+
+def test_scx1001_floor_rebind_names_the_ports_retune(tmp_path):
+    path = tmp_path / "floors.py"
+    path.write_text("RECORD_BUCKET_MIN = 1024\n")
+    (finding,) = lint_file(str(path))
+    assert finding.rule == "SCX1001"
+    assert ("(use `python -m sctools_tpu_torch.analysis --retune` offline, or the steering "
+            "controller online)") in finding.message
+
+
+@pytest.mark.parametrize("rule,kind", [("SCX113", "bad"), ("SCX113", "clean"),
+                                       ("SCX114", "bad"), ("SCX114", "clean")])
+def test_scx113_scx114_match_jax_on_its_fixtures(rule, kind):
+    """JAX's findings of the rule, less its `jax.device_get` and
+    `.copy_to_host_async` ones (constructs the port has no spelling of),
+    with its messages but for the package the remedy names."""
+    path = str(FIXTURES / "jaxlint" / f"{rule.lower()}_{kind}.py")
+    want = [f for f in jax_jaxlint.lint_file(path)
+            if f.rule == rule and "device_get" not in f.message and "copy_to_host" not in f.message]
+    got = lint_file(path)
+    assert rule_lines(got) == rule_lines(want)
+    assert [f.message for f in got] == [
+        f.message.replace("sctools_tpu.", "sctools_tpu_torch.") for f in want]
+    assert len(want) == (3 if kind == "bad" else 0)
+
+
+SCX113_BAD = '''"""SCX113 bad: broad handlers swallowing device-boundary failures."""
+from sctools_tpu_torch import ingest as wire
+from sctools_tpu_torch.ingest import upload
+from sctools_tpu_torch.ops import whitelist
+from sctools_tpu_torch.ops.counting import count_molecules
+from sctools_tpu_torch.parallel.sort import distributed_sort
+
+
+def stage_or_none(cols, device):
+    try:
+        return wire.upload(cols, device, site="fixture.stage")
+    except Exception:  # <- SCX113
+        return None
+
+
+def stage_imported(cols, device):
+    try:
+        staged = upload(cols, device, "fixture.stage")
+    except BaseException:  # <- SCX113
+        staged = None
+    return staged
+
+
+def count_and_shrug(cols, segments):
+    try:
+        return count_molecules(cols, num_segments=segments)
+    except BaseException:  # <- SCX113
+        pass
+
+
+def sort_with_bare_except(stacked, mesh):
+    try:
+        return distributed_sort(stacked, ["key"], mesh)
+    except:  # noqa: E722  # <- SCX113
+        return stacked
+
+
+def correct_or_nothing(queries, table):
+    try:
+        return whitelist.correct_codes(queries, table)
+    except (ValueError, Exception):  # <- SCX113
+        return None
+
+
+def replay_quietly(entry):
+    try:
+        entry.graph.replay()
+    except Exception:  # <- SCX113
+        pass
+
+
+def run_graphs_quietly(graphs, cols):
+    try:
+        return graphs.run(cols, kind="cell")
+    except Exception:  # <- SCX113
+        return None
+'''
+
+SCX113_CLEAN = '''"""SCX113 clean: recovery through the guard, cleanup-then-raise, narrow
+handlers, and broad handlers away from the boundary."""
+from sctools_tpu_torch import guard, ingest
+
+
+def staged(cols, device):
+    return guard.retrying(lambda: ingest.upload(cols, device, site="fixture.stage"),
+                          site="fixture.stage", leg="upload")
+
+
+def dispatched(fn, frame):
+    return guard.run_batch(fn, frame, site="fixture.dispatch")
+
+
+def cleanup_then_reraise(cols, device, writer):
+    try:
+        return ingest.upload(cols, device, site="fixture.stage")
+    except BaseException:
+        writer.discard()
+        raise
+
+
+def narrow_handler(cols, device):
+    try:
+        staged = ingest.upload(cols, device, site="fixture.stage")
+    except ValueError:
+        staged = None
+    return staged
+
+
+def swallow_away_from_the_boundary(path):
+    try:
+        with open(path) as f:
+            return f.read()
+    except Exception:
+        return None
+
+
+def an_upload_of_another_module(client, blob):
+    try:
+        client.upload(blob)
+    except Exception:
+        return None
+
+
+def a_run_of_no_graph(runner, cols):
+    try:
+        return runner.run(cols)
+    except Exception:
+        return None
+
+
+def escaped(cols, device):
+    try:
+        return ingest.upload(cols, device, site="fixture.stage")
+    except Exception:  # scx-lint: disable=SCX113 -- deliberate
+        return None
+'''
+
+SCX114_BAD = '''"""SCX114 bad: device values pulled to the host outside the seam."""
+import numpy as np
+import torch
+
+from sctools_tpu_torch import ingest
+from sctools_tpu_torch.metrics.device import compact_results_wire, compute_entity_metrics
+from sctools_tpu_torch.ops import whitelist
+from sctools_tpu_torch.ops.counting import count_molecules
+
+
+def pull_dispatch_result(cols, n):
+    result = compute_entity_metrics(cols, num_segments=n, kind="cell")
+    return np.asarray(result["n_reads"])  # <- SCX114
+
+
+def pull_subscripted(cols, n):
+    out = count_molecules(cols, num_segments=n)["is_molecule"]
+    return np.array(out)  # <- SCX114
+
+
+def pull_staged(cols, device):
+    staged = ingest.upload(cols, device, site="fixture.pull")
+    return staged.cpu()  # <- SCX114
+
+
+def pull_alias(cols, n):
+    result = compute_entity_metrics(cols, num_segments=n, kind="cell")
+    copy = result
+    return copy["n_reads"].numpy()  # <- SCX114
+
+
+def pull_block(result, k):
+    block = compact_results_wire(result, ["a"], ["b"], k)
+    return block.tolist()  # <- SCX114
+
+
+def pull_codes(queries, table):
+    codes = whitelist.correct_codes(queries, table)
+    first = codes.to("cpu")  # <- SCX114
+    second = codes.to(device=torch.device("cpu"))  # <- SCX114
+    hits = codes.ge(0).sum().item()  # <- SCX114
+    return first, second, hits
+'''
+
+SCX114_CLEAN = '''"""SCX114 clean: pulls through the seam, Pulled handles, host values."""
+import numpy as np
+
+from sctools_tpu_torch import ingest
+from sctools_tpu_torch.metrics.device import compute_entity_metrics
+
+
+def pull_result(cols, n):
+    result = compute_entity_metrics(cols, num_segments=n, kind="cell")
+    pulled = ingest.pull(result["n_reads"], site="fixture.pull")
+    return pulled.numpy(), np.asarray(pulled.numpy())
+
+
+def pull_ring(block):
+    ring = ingest.WritebackRing(name="fixture")
+    staged = ring.stage(block)
+    host = ring.collect(staged, site="fixture.writeback")
+    ring.close()
+    return host.numpy().tolist()
+
+
+def host_side(records, tensor):
+    padded = np.asarray(records, dtype=np.int32)
+    return np.array([padded.size]), tensor.cpu().numpy(), tensor.item()
+
+
+def kept_on_the_device(cols, n):
+    result = compute_entity_metrics(cols, num_segments=n, kind="cell")
+    return result["n_reads"].float().mean()
+
+
+def pull_escaped(cols, n):
+    result = compute_entity_metrics(cols, num_segments=n, kind="cell")
+    return np.asarray(result["n_reads"])  # scx-lint: disable=SCX114 -- deliberate
+'''
+
+
+@pytest.mark.parametrize("rule,bad,clean", [("SCX113", SCX113_BAD, SCX113_CLEAN),
+                                            ("SCX114", SCX114_BAD, SCX114_CLEAN)],
+                         ids=["SCX113", "SCX114"])
+def test_scx113_scx114_torch_twins(tmp_path, rule, bad, clean):
+    (tmp_path / "bad.py").write_text(bad)
+    (tmp_path / "clean.py").write_text(clean)
+    # `.to("cpu")` is a crossing SCX112 flags too
+    got = [f for f in lint_file(str(tmp_path / "bad.py")) if f.rule == rule]
+    assert rule_lines(got) == [(rule, n) for n in marked_lines(bad, rule)]
+    remedy = ("sctools_tpu_torch.guard.run_batch / guard.retrying" if rule == "SCX113"
+              else "sctools_tpu_torch.ingest.pull(value, site=...)")
+    assert all(remedy in f.message for f in got)
+    assert lint_file(str(tmp_path / "clean.py")) == []
+
+
+@pytest.mark.parametrize("rule,where,owned", [
+    ("SCX113", "guard/recover.py", True),
+    ("SCX113", "guard/sub/recover.py", False),  # only the immediate parent owns
+    ("SCX113", "ingest/recover.py", False),
+    ("SCX114", "ingest/wire.py", True),
+    ("SCX114", "parallel/collective.py", True),
+    ("SCX114", "ingest/sub/wire.py", False),
+    ("SCX114", "guard/wire.py", False),
+])
+def test_scx113_scx114_owners(tmp_path, rule, where, owned):
+    path = tmp_path / where
+    path.parent.mkdir(parents=True)
+    path.write_text(SCX113_BAD if rule == "SCX113" else SCX114_BAD)
+    assert (rule not in {f.rule for f in lint_file(str(path))}) == owned
+
+
+def test_scx113_scx114_port_tree_and_smoke_are_clean():
+    paths = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    findings = [f for path in paths for f in lint_file(str(path)) if f.rule in ("SCX113", "SCX114")]
+    assert findings == [], [f.render() for f in findings]
+
+
+@pytest.mark.parametrize("name,old,new,rule", [
+    # the gatherer's engine dispatch, its failure swallowed
+    ("metrics/gatherer.py",
+     "                result = device_engine.compute_entity_metrics(staged, **kwargs)\n",
+     "                try:\n"
+     "                    result = device_engine.compute_entity_metrics(staged, **kwargs)\n"
+     "                except Exception:\n                    result = None\n", "SCX113"),
+    # the count's dispatch, pulled bare
+    ("count.py", "out = count_molecules(dict(zip(UPLOAD_COLUMNS, staged)), num_segments=block.shape[1])",
+     "out = count_molecules(dict(zip(UPLOAD_COLUMNS, staged)), num_segments=block.shape[1])"
+     "; out['n'].cpu()", "SCX114"),
+])
+def test_scx113_scx114_catch_faults_seeded_in_the_port(tmp_path, name, old, new, rule):
+    text = (PORT / name).read_text()
+    assert text.count(old) == 1, f"{name} changed: {old!r}"
+    path = tmp_path / Path(name).name
+    path.write_text(text.replace(old, new))
+    assert [f.rule for f in lint_file(str(path))] == [rule]
+
+
+def write_supp_corpus(root: Path) -> Path:
+    """The bad corpus with a tsan.supp holding a stale entry and one that
+    suppresses our own library."""
+    corpus = write_bad_corpus(root)
+    (corpus / "native" / "tsan.supp").write_text(
+        "# a stale entry, then our own library\nrace:scx_gone\n"
+        "called_from_lib:libsctools_native.tsan.so\n")
+    return corpus
+
+
+def test_cli_list_rules_is_the_union_of_the_pass_tables(capsys):
+    from sctools_tpu.analysis.cli import main as jax_cli_main
+    from sctools_tpu_torch.analysis import (
+        ABI_RULES, AOT_RULES, COST_RULES, LIFE_RULES, MESH_RULES, RACE_RULES, SHARD_RULES,
+        SUPP_RULES, TORCH_RULES,
+    )
+
+    assert cli_main(["--list-rules"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    union = {}
+    for table in (TORCH_RULES, ABI_RULES, SUPP_RULES, RACE_RULES, SHARD_RULES, LIFE_RULES,
+                  COST_RULES, MESH_RULES, AOT_RULES):
+        union.update(table)
+    assert dict(line.split() for line in lines if line.startswith("    SCX")) == union
+    assert len(lines) == 1 + 9 + len(union)
+    # JAX's format: a heading, then each section's title and its sorted rules
+    assert jax_cli_main(["--list-rules"]) == 0
+    jax_lines = capsys.readouterr().out.splitlines()
+
+    def sections(text_lines):
+        return [line.strip() for line in text_lines if line.startswith("  ") and not
+                line.startswith("    ")]
+
+    assert sections(lines)[1:] == sections(jax_lines)[1:]
+    assert sections(lines)[0] == "PyTorch/CUDA lint:" and sections(jax_lines)[0] == "JAX/TPU lint:"
+    assert {line.split()[0] for line in jax_lines if line.startswith("    SCX")} - set(union) == {
+        "SCX101", "SCX102", "SCX103", "SCX104", "SCX105", "SCX106", "SCX107", "SCX108",
+        "SCX110", "SCX111"}
+
+
+@pytest.mark.parametrize("flags,rules,passes", [
+    ([], {"SCX109", "SCX112", "SCX203", "SCX302", "SCX303", "SCX401", "SCX602"},
+     "lint, abi, supp, race, shard, life, cost, mesh, aot"),
+    (["--no-lint"], {"SCX203", "SCX302", "SCX303", "SCX401", "SCX602"},
+     "abi, supp, race, shard, life, cost, mesh, aot"),
+    (["--no-abi"], {"SCX109", "SCX112", "SCX302", "SCX303", "SCX401", "SCX602"},
+     "lint, supp, race, shard, life, cost, mesh, aot"),
+    (["--no-supp"], {"SCX109", "SCX112", "SCX203", "SCX401", "SCX602"},
+     "lint, abi, race, shard, life, cost, mesh, aot"),
+    (["--no-lint", "--no-abi", "--no-supp", "--no-race"], {"SCX602"},
+     "shard, life, cost, mesh, aot"),
+    (["--race-only"], {"SCX401"}, "race"),  # an -only flag turns lint, ABI and supp off
+])
+def test_cli_no_lint_abi_supp(tmp_path, capsys, flags, rules, passes):
+    rc = cli_main([*flags, str(write_supp_corpus(tmp_path))])
+    out = capsys.readouterr().out
+    assert rc == 1
+    assert {line.split()[1] for line in out.splitlines() if ": SCX" in line} == rules
+    assert f"passes: {passes};" in out
+
+
+def test_cli_quiet_prints_the_findings_only(tmp_path, capsys):
+    corpus = write_supp_corpus(tmp_path)
+    assert cli_main(["-q", str(corpus)]) == 1
+    out = capsys.readouterr().out
+    assert out.strip() and all(": SCX" in line for line in out.splitlines())
+    assert cli_main(["--quiet", str(PORT)]) == 0
+    assert capsys.readouterr().out == ""
+    # the emit lines and the skipped-native note are silenced too
+    assert cli_main(["-q", "--emit-lock-graph", str(tmp_path / "g.json"), str(PORT)]) == 0
+    assert (tmp_path / "g.json").exists() and capsys.readouterr().out == ""
+    (tmp_path / "plain").mkdir()
+    (tmp_path / "plain" / "a.py").write_text("x = 1\n")
+    assert cli_main([str(tmp_path / "plain")]) == 0
+    assert "ABI + suppression passes skipped" in capsys.readouterr().err
+    assert cli_main(["-q", str(tmp_path / "plain")]) == 0
+    assert tuple(capsys.readouterr()) == ("", "")
+
+
+@pytest.mark.parametrize("flags", [["--no-abi"], ["--no-supp"], ["--no-abi", "--no-supp", "--no-race"],
+                                   ["--mesh-only"], ["--no-race", "--no-shard", "--no-life"]])
+def test_cli_flags_behave_as_jaxs(tmp_path, capsys, flags):
+    """The JAX CLI with the same flags over the same corpus runs the same
+    passes (its summary's names, its lint's aside) to the same exit, and
+    prints as much under -q."""
+    from sctools_tpu.analysis.cli import main as jax_cli_main
+
+    corpus = str(write_supp_corpus(tmp_path))
+
+    def passes(out):
+        return out.rsplit("passes: ", 1)[1].split(";")[0].strip()
+
+    rc = cli_main([*flags, "--no-lint", corpus])
+    ours = passes(capsys.readouterr().out)
+    jax_rc = jax_cli_main([*flags, "--no-jax-lint", corpus])
+    assert ours == passes(capsys.readouterr().out) and rc == jax_rc
+    assert cli_main([*flags, "-q", "--no-lint", corpus]) == rc
+    quiet = capsys.readouterr()
+    assert jax_cli_main([*flags, "-q", "--no-jax-lint", corpus]) == rc
+    jax_quiet = capsys.readouterr()
+    assert "finding(s)" not in quiet.out and "finding(s)" not in jax_quiet.out
+    assert quiet.err == jax_quiet.err == ""
