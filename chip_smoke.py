@@ -24,7 +24,15 @@ Phases, in order; any failure exits non-zero before the last line:
               on 262,144 synthetic reads (4 batches of 65,536) with the
               737,280-barcode whitelist; every record's tags are re-read and
               checked, CB against the plain version's answer for its CR; the
-              run must take the native loop (``native.calls``);
+              run must take the native loop (``native.calls``). The library
+              leg: on 65,536 further reads (26 bp R1, 8 bp I1; 85% exact,
+              8% one substitution, the rest random, 64 planted within
+              distance 1 of two barcodes) and a 100,000-barcode whitelist,
+              ``bam.Tagger`` over ``BarcodeGeneratorWithCorrectedCellBarcodes``
+              and ``EmbeddedBarcodeGenerator`` (the host hash map, no kernel)
+              must write the records the attach writes (one kernel launch),
+              body for body, with equal exact, corrected, ambiguous and
+              uncorrectable counts;
 5. metrics -- ``GenericPlatform.calculate_cell_metrics`` and
               ``calculate_gene_metrics`` on the card at the gatherer's
               2^20-record batch width: a synthetic 10x v2 library on GRCh38's
@@ -1074,7 +1082,7 @@ def attach_args(directory: Path, output: Path) -> list:
 def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, stamp: str, modules):
     import torch
 
-    kernels, native, wl_ops, port_platform, bgzf, sam = modules
+    kernels, native, wl_ops, port_platform, port_bam, port_fastq, bgzf, sam = modules
     if WORK.exists():
         shutil.rmtree(WORK)
     WORK.mkdir()
@@ -1166,8 +1174,168 @@ def phase_attach(rng, whitelist_ascii, n_reads, table, kernel_ms, stamp: str, mo
         f"{n_reads / plain_seconds:.0f} reads/s; correction adds "
         f"{seconds - plain_seconds:.2f} s, of which the kernel "
         f"~{launches['whitelist_correct'] * kernel_ms / 1e3:.3f} s (launches x kernel ms)")
+    start = time.perf_counter()
+    launches["whitelist_correct"] += library_leg(
+        rng, stamp, (kernels, native, port_platform, port_bam, port_fastq, bgzf, sam))
+    log(f"[attach] library leg took {time.perf_counter() - start:.1f} s")
     shutil.rmtree(WORK)
     return launches
+
+
+# the library leg: JAX's generator builds a hash map of 5 x L x |whitelist|
+# entries (sctools_tpu/barcode.py), ~6.5 M at 100,000 barcodes against
+# ~48 M at 737,280, so its whitelist is cut to 100,000
+LIBRARY_WHITELIST = 100_000
+LIBRARY_READS = BATCH  # one kernel batch
+LIBRARY_R1_LEN = CB_LEN + UMI_LEN
+LIBRARY_MIX_P = (0.85, 0.08, 0.07)  # exact, one substitution, random
+LIBRARY_AMBIGUOUS = 64
+BIN_FIELD = 10  # the offset of a record body's bin (after refID, pos, l_read_name, mapq)
+
+
+def write_library_inputs(rng, bgzf, directory: Path):
+    """The library leg's inputs in ``directory``: a whitelist whose last
+    ``LIBRARY_AMBIGUOUS`` barcodes each lie at distance 2 from an earlier
+    one, 10x v2 R1 and I1 reads (gz FASTQ) in the ``LIBRARY_MIX_P`` mix with
+    one read a pair planted at distance 1 from both of its barcodes, and a
+    u2 BAM. Returns the planted reads' indices, the barcode each must
+    correct to (the later one, as the kernel's largest index and the hash
+    map's last writer both give) and the u2 records' lengths."""
+    whitelist = make_whitelist(rng, LIBRARY_WHITELIST, CB_LEN)
+    n_amb = LIBRARY_AMBIGUOUS
+    first = np.arange(n_amb)
+    second = LIBRARY_WHITELIST - n_amb + first
+    pos = np.stack([rng.choice(CB_LEN, size=2, replace=False) for _ in range(n_amb)])
+    moved = whitelist[first].copy()
+    for k in range(2):
+        codes = np.searchsorted(LETTERS, moved[np.arange(n_amb), pos[:, k]])
+        moved[np.arange(n_amb), pos[:, k]] = LETTERS[(codes + rng.integers(1, 4, size=n_amb)) % 4]
+    whitelist[second] = moved
+    queries = whitelist[first].copy()
+    queries[np.arange(n_amb), pos[:, 0]] = moved[np.arange(n_amb), pos[:, 0]]
+    newline = np.full((LIBRARY_WHITELIST, 1), ord("\n"), dtype=np.uint8)
+    (directory / "whitelist.txt").write_bytes(np.concatenate([whitelist, newline], axis=1).tobytes())
+
+    n = LIBRARY_READS
+    kinds = rng.choice(len(LIBRARY_MIX_P), size=n, p=LIBRARY_MIX_P)
+    cells = whitelist[rng.integers(0, LIBRARY_WHITELIST, size=n)]
+    sub = np.flatnonzero(kinds == 1)
+    at = rng.integers(0, CB_LEN, size=sub.size)
+    codes = np.searchsorted(LETTERS, cells[sub, at])
+    cells[sub, at] = LETTERS[(codes + rng.integers(1, 4, size=sub.size)) % 4]
+    random_rows = np.flatnonzero(kinds == 2)
+    cells[random_rows] = LETTERS[rng.integers(0, 4, size=(random_rows.size, CB_LEN))]
+    planted = rng.choice(n, size=n_amb, replace=False)
+    cells[planted] = queries
+    r1 = np.concatenate([cells, LETTERS[rng.integers(0, 4, size=(n, UMI_LEN))]], axis=1)
+    full = np.full(n, LIBRARY_R1_LEN)
+    write_fastq_gz(directory / "r1.fastq.gz", as_bytes(r1, full),
+                   as_bytes(rng.integers(35, 75, size=(n, LIBRARY_R1_LEN), dtype=np.uint8), full))
+    sample = np.full(n, SAMPLE_LEN)
+    write_fastq_gz(directory / "i1.fastq.gz", as_bytes(LETTERS[rng.integers(0, 4, size=(n, SAMPLE_LEN))], sample),
+                   as_bytes(rng.integers(35, 75, size=(n, SAMPLE_LEN), dtype=np.uint8), sample))
+    u2_lengths = [len(body) for body in write_u2(directory / "u2.bam", rng, n, bgzf)]
+    return planted, [row.tobytes() for row in moved], u2_lengths
+
+
+def route_counts(bodies, u2_lengths, planted, want) -> dict:
+    """exact / corrected / uncorrectable reads of one route's BAM, and the
+    planted ambiguous reads corrected to the barcode they must take."""
+    counts = {"exact": 0, "corrected": 0, "ambiguous": 0, "uncorrectable": 0}
+    cb_of = {}
+    for i, body in enumerate(bodies):
+        tags = dict(parse_z_tags(body[u2_lengths[i]:]))
+        cb = tags.get("CB")
+        cb_of[i] = cb
+        counts["uncorrectable" if cb is None else "exact" if cb == tags["CR"] else "corrected"] += 1
+    counts["ambiguous"] = sum(cb_of[int(i)] == barcode for i, barcode in zip(planted, want))
+    return counts
+
+
+def library_leg(rng, stamp: str, modules) -> int:
+    """Phase 4's library leg: ``bam.Tagger`` over the library's generators
+    against ``TenXV2.attach_barcodes -w --i1`` on the same inputs, record
+    for record. Returns the attach's kernel launches."""
+    import torch
+
+    kernels, native, port_platform, port_bam, port_fastq, bgzf, sam = modules
+    directory = WORK / "library"
+    directory.mkdir()
+    start = time.perf_counter()
+    planted, want, u2_lengths = write_library_inputs(rng, bgzf, directory)
+    log(f"[attach] library leg inputs: {LIBRARY_READS} reads (R1 {LIBRARY_R1_LEN} bp gz, I1 {SAMPLE_LEN} bp gz), "
+        f"whitelist {LIBRARY_WHITELIST} x {CB_LEN} with {LIBRARY_AMBIGUOUS} ambiguous reads planted, made in "
+        f"{time.perf_counter() - start:.1f} s")
+
+    attached, tagged = directory / "attach.bam", directory / "tagger.bam"
+    torch.cuda.synchronize()
+    native.reset_calls()
+    kernels.reset_launches()
+    start = time.perf_counter()
+    summary_out = io.StringIO()
+    with contextlib.redirect_stderr(summary_out):
+        rc = port_platform.TenXV2.attach_barcodes(attach_args(directory, attached))
+    torch.cuda.synchronize()
+    attach_seconds = time.perf_counter() - start
+    launches = dict(kernels.launches)
+    if rc != 0:
+        raise AssertionError(f"library leg: attach returned {rc}")
+    check_calls(native, "library leg attach", attach=1)
+    batches = -(-LIBRARY_READS // BATCH)
+    if launches != {"whitelist_correct": batches}:
+        raise AssertionError(f"library leg: attach launched {launches}, want {batches} (one a batch)")
+    summary = dict(re.findall(r"(\w+):(\d+)\n", summary_out.getvalue()))
+
+    native.reset_calls()
+    kernels.reset_launches()
+    embedded = port_fastq.EmbeddedBarcode
+    start = time.perf_counter()
+    cells = port_fastq.BarcodeGeneratorWithCorrectedCellBarcodes(
+        str(directory / "r1.fastq.gz"), embedded(0, CB_LEN, "CR", "CY"), str(directory / "whitelist.txt"),
+        [embedded(CB_LEN, CB_LEN + UMI_LEN, "UR", "UY")])
+    map_seconds = time.perf_counter() - start
+    samples = port_fastq.EmbeddedBarcodeGenerator(str(directory / "i1.fastq.gz"),
+                                                  [embedded(0, SAMPLE_LEN, "SR", "SY")])
+    start = time.perf_counter()
+    port_bam.Tagger(str(directory / "u2.bam")).tag(str(tagged), [cells, samples])
+    tag_seconds = time.perf_counter() - start
+    if any(kernels.launches.values()) or any(native.calls.values()):
+        raise AssertionError(f"library leg: the library route launched {dict(kernels.launches)}, "
+                             f"native calls {dict(native.calls)}")
+
+    routes = {}
+    for name, path in (("attach", attached), ("library", tagged)):
+        with bgzf.open_bgzf_reader(str(path)) as fh:
+            sam.read_raw_header(fh)
+            routes[name] = list(sam.iter_raw_records(fh))
+    if len(routes["attach"]) != LIBRARY_READS or len(routes["library"]) != LIBRARY_READS:
+        raise AssertionError(f"library leg: {len(routes['attach'])} and {len(routes['library'])} records, "
+                             f"want {LIBRARY_READS}")
+    # the record encoder writes bin 0 for an unplaced read, as JAX's does;
+    # the attach copies the u2's bytes, bin 4680 included
+    differ = [i for i, (a, b) in enumerate(zip(routes["attach"], routes["library"]))
+              if a[:BIN_FIELD] + a[BIN_FIELD + 2:] != b[:BIN_FIELD] + b[BIN_FIELD + 2:]]
+    if differ:
+        i = differ[0]
+        raise AssertionError(f"library leg: {len(differ)} records differ, the first {i}: attach tags "
+                             f"{parse_z_tags(routes['attach'][i][u2_lengths[i]:])}, library tags "
+                             f"{parse_z_tags(routes['library'][i][u2_lengths[i]:])}")
+    counts = {name: route_counts(bodies, u2_lengths, planted, want) for name, bodies in routes.items()}
+    if counts["attach"] != counts["library"] or counts["library"]["ambiguous"] != LIBRARY_AMBIGUOUS:
+        raise AssertionError(f"library leg: counts {counts}, want equal with {LIBRARY_AMBIGUOUS} ambiguous")
+    said = {"exact": summary.get("correct"), "corrected": summary.get("corrected"),
+            "uncorrectable": summary.get("uncorrectible")}
+    if {k: int(v) for k, v in said.items() if v is not None} != {k: counts["attach"][k] for k in said}:
+        raise AssertionError(f"library leg: the attach's summary {summary} disagrees with {counts['attach']}")
+    log(f"[attach] {stamp} | library leg: bam.Tagger over BarcodeGeneratorWithCorrectedCellBarcodes + "
+        f"EmbeddedBarcodeGenerator, hash map of the {LIBRARY_WHITELIST}-barcode whitelist built in "
+        f"{map_seconds:.2f} s, {LIBRARY_READS} reads tagged in {tag_seconds:.2f} s = "
+        f"{LIBRARY_READS / tag_seconds:.0f} reads/s, no kernel launch; attach -w --i1 on the same inputs "
+        f"{attach_seconds:.2f} s, {launches['whitelist_correct']} kernel launch")
+    log(f"[attach] library leg: all {LIBRARY_READS} records equal body for body but the bin field (every tag "
+        f"and value, CB included); counts {counts['library']} on both routes and in the attach's summary")
+    shutil.rmtree(directory)
+    return launches["whitelist_correct"]
 
 
 DECODE_AB_RECORDS = 1 << 18
@@ -3155,8 +3323,9 @@ def analysis_worker(argv) -> int:
     ``<workdir>/<tag>.bam``, then one sched worker draining
     ``<work>/chunks`` into ``<workdir>/<tag>/``, on cuda. Prints one
     ``[worker] {json}`` line: each stage's seconds and the hand kernel
-    launches, each counted from 0 at the stage's start, and the frame
-    witness's stamped frames and violations."""
+    launches, each counted from 0 at the stage's start. A witnessed worker
+    leaves its lock and frame witnesses' dumps in its trace directory at
+    exit."""
     workdir, tag = Path(argv[0]), argv[1]
     import torch
 
@@ -3185,8 +3354,6 @@ def analysis_worker(argv) -> int:
     torch.cuda.synchronize()
     report["sched"] = {"committed": len(committed), "seconds": time.perf_counter() - start,
                        "launches": dict(kernels.launches)}
-    report["stamped"] = framedebug.stamped_count()
-    report["frame_violations"] = framedebug.violations()
     print("[worker] " + json.dumps(report), flush=True)
     return 0
 
@@ -3284,12 +3451,16 @@ def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
     if (workdir / "witnessed.bam").read_bytes() != (workdir / "plain.bam").read_bytes():
         raise AssertionError("the witnessed attach's BAM differs from the unwitnessed one's")
     witnessed = reports["witnessed"]
-    if witnessed["frame_violations"] or not witnessed["stamped"]:
-        raise AssertionError(f"frame witness: {witnessed['stamped']} frames stamped, violations "
-                             f"{witnessed['frame_violations']}")
 
-    # (d) the dump: the witnessed worker's, at its exit, named by the obs
+    # (d) the dumps: the witnessed worker's, at its exit, named by the obs
     # context's worker (the sched worker's journal id, which it set)
+    frame_dumps = sorted(trace.glob("frames.*.json"))
+    if len(frame_dumps) != 1 or not frame_dumps[0].name.startswith("frames.proc0-of-1-"):
+        raise AssertionError(f"frame witness dumps: {[path.name for path in frame_dumps]}")
+    frames = json.loads(frame_dumps[0].read_text())
+    if not frames["enabled"] or not frames["stamped"] or frames["violations"]:
+        raise AssertionError(f"frame witness dump: enabled {frames['enabled']}, {frames['stamped']} frames "
+                             f"stamped, violations {frames['violations']}")
     dumps = sorted(trace.glob("locks.*.json"))
     if len(dumps) != 1 or not dumps[0].name.startswith("locks.proc0-of-1-"):
         raise AssertionError(f"lock dumps: {[path.name for path in dumps]}")
@@ -3315,8 +3486,8 @@ def phase_analysis(rng, whitelist_ascii, stamp: str, modules) -> int:
         f"{walls['witnessed']:.2f} s")
     edges = [(e["from"], e["to"], "bounded" if e["bounded"] else "blocking") for e in dump["edges"]]
     log(f"[analysis] {stamp} | {dumps[0].name}: 0 violations; acquisitions {dict(sorted(dump['acquires'].items()))}; "
-        f"observed edges {edges or 'none'} (every blocking one in the static graph); {witnessed['stamped']} frames "
-        f"stamped, 0 stale reads")
+        f"observed edges {edges or 'none'} (every blocking one in the static graph); {frame_dumps[0].name}: "
+        f"{frames['stamped']} frames stamped, 0 stale reads")
     # the attach inputs stay for phase 14
     for path in workdir.iterdir():
         if path.name not in ("r1.fastq.gz", "i1.fastq.gz", "u2.bam", "whitelist.txt"):
@@ -5376,6 +5547,7 @@ def main(argv=None) -> int:
     from sctools_tpu_torch import kernels, native
     from sctools_tpu_torch import platform as port_platform
     from sctools_tpu_torch import bam as port_bam
+    from sctools_tpu_torch import fastq as port_fastq
     from sctools_tpu_torch import samplefastq as port_sample
     from sctools_tpu_torch.io import bgzf, packed, sam
     from sctools_tpu_torch.metrics import device as port_device
@@ -5397,7 +5569,7 @@ def main(argv=None) -> int:
     table, measured = phase_kernel(rng, whitelist_ascii, sms, clock_hz, wl_ops)
     launches = phase_attach(
         rng, whitelist_ascii, args.reads, table, measured["ms"], stamp,
-        (kernels, native, wl_ops, port_platform, bgzf, sam),
+        (kernels, native, wl_ops, port_platform, port_bam, port_fastq, bgzf, sam),
     )
     csvs = phase_metrics(
         np.random.default_rng(args.seed + 1), stamp,
@@ -5460,7 +5632,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "sctools_tpu_torch/csrc/whitelist_correct.cu",
         "replaces": "sctools_tpu/ops/whitelist.py:125",
-        # every main-path run of the smoke: attach, FastqProcess in both
+        # every main-path run of the smoke: attach and its library leg's
+        # attach (the library route itself launches none), FastqProcess in both
         # formats, SampleFastq, the analysis phase's witnessed attach, the
         # tracing phase's two, which the efficiency phase reads, and the
         # guard phase's attach under a transient (the metrics, count, sort,

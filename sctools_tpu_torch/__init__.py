@@ -18,3 +18,34 @@ observability layer (spans, counters, pulse heartbeat rings, slo traces,
 run profiles) behind ``SCTOOLS_TPU_TRACE`` and ``SCTOOLS_TPU_PULSE``, read
 back with ``python -m sctools_tpu_torch.obs``.
 """
+
+import importlib
+
+# submodules resolved on first access (``sctools_tpu_torch.bam``), so
+# ``import sctools_tpu_torch`` stays light: no torch import
+__all__ = [
+    "bam",
+    "barcode",
+    "consts",
+    "count",
+    "encodings",
+    "fastq",
+    "groups",
+    "gtf",
+    "ingest",
+    "io",
+    "metrics",
+    "obs",
+    "ops",
+    "parallel",
+    "platform",
+    "reader",
+    "stats",
+    "utils",
+]
+
+
+def __getattr__(name):
+    if name in __all__:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,15 +1,23 @@
-"""BAM toolkit: tag grouping, tag sorting and verification, splitting.
+"""BAM toolkit: subsetting, tagging, tag grouping, sorting, splitting.
 
-The port's own copy of these parts of ``sctools_tpu.bam``:
+The port's own copy of ``sctools_tpu.bam``:
 
+- ``SubsetAlignments``: the indices of the first reads aligned to a
+  chromosome (and, optionally, of other reads);
+- ``Tagger``: tags from generators iterated in lockstep with a BAM's
+  records, written through ``AlignmentWriter`` (the library route; the
+  ``Attach*`` commands take the batched native route, ``attach``);
 - ``get_tag_or_default`` and ``iter_tag_groups`` with the CB / UB / GE
   wrappers: consecutive-run grouping over tag values, on
   ``itertools.groupby`` (the host metrics aggregators run on them);
-- ``TagSortableRecord``, ``sort_by_tags_and_queryname``, ``verify_sort`` and
-  ``SortError``: tag-then-queryname order with missing tags as empty
-  strings, on one materialized key tuple;
+- ``AlignmentSortOrder`` / ``QueryNameSortOrder``, ``TagSortableRecord``,
+  ``sort_by_tags_and_queryname``, ``verify_sort`` and ``SortError``:
+  tag-then-queryname order with missing tags as empty strings, on one
+  materialized key tuple;
 - ``split``: the barcode-partitioned scatter of ``SplitBam``, with its bin
-  assignment, worker pools, scratch directories and bin merges.
+  assignment (``get_barcode_for_alignment`` on a decoded record, the
+  scatter itself on undecoded bodies), worker pools, scratch directories
+  and bin merges.
 
 Host code: nothing here imports torch, so the worker pools of ``split`` may
 fork.
@@ -25,7 +33,7 @@ import shutil
 import uuid
 import warnings
 from concurrent.futures import ProcessPoolExecutor
-from typing import Dict, Generator, Iterable, Iterator, List, Optional, Set, Tuple
+from typing import Any, Callable, Dict, Generator, Iterable, Iterator, List, Optional, Set, Tuple, Union
 
 from . import consts
 from .io.sam import AlignmentReader, AlignmentWriter, BamRecord, aux_fields, aux_value, merge_bam_files
@@ -45,6 +53,92 @@ def get_tag_or_default(
         return alignment.get_tag(tag_key)
     except KeyError:
         return default
+
+
+# ------------------------------------------------------------- subsetting
+
+
+_EXPECTED_CHROMOSOMES = frozenset(
+    name
+    for bare in [str(i) for i in range(1, 23)] + ["M", "MT", "X", "Y"]
+    for name in (bare, "chr" + bare)
+)
+
+
+class SubsetAlignments:
+    """Extracts indices of reads aligned to requested chromosome(s)."""
+
+    def __init__(self, alignment_file: str, open_mode: str = None):
+        if open_mode is None:
+            for suffix, inferred in ((".bam", "rb"), (".sam", "r")):
+                if alignment_file.endswith(suffix):
+                    open_mode = inferred
+                    break
+            else:
+                raise ValueError(
+                    f"Could not autodetect file type for alignment_file "
+                    f"{alignment_file} (detectable suffixes: .sam, .bam)"
+                )
+        self._file = alignment_file
+        self._open_mode = open_mode
+
+    def indices_by_chromosome(
+        self, n_specific: int, chromosome: str, include_other: int = 0
+    ) -> Union[List[int], Tuple[List[int], List[int]]]:
+        """First ``n_specific`` record indices on ``chromosome`` (plus,
+        optionally, ``include_other`` indices of other/unmapped reads)."""
+        chromosome = str(chromosome)
+        if chromosome not in _EXPECTED_CHROMOSOMES:
+            warnings.warn(
+                "chromsome %s not in list of expected chromosomes: %r"
+                % (chromosome, sorted(_EXPECTED_CHROMOSOMES))
+            )
+
+        on_target: List[int] = []
+        off_target: List[int] = []
+        with AlignmentReader(self._file, self._open_mode) as records:
+            for index, record in enumerate(records):
+                matches = not record.is_unmapped and record.reference_name == chromosome
+                if matches and len(on_target) < n_specific:
+                    on_target.append(index)
+                elif not matches and len(off_target) < include_other:
+                    off_target.append(index)
+                if len(on_target) == n_specific and len(off_target) == include_other:
+                    break
+
+        if len(on_target) < n_specific or len(off_target) < include_other:
+            warnings.warn(
+                "Only %d unaligned and %d reads aligned to chromosome %s "
+                "were found in%s" % (len(off_target), len(on_target), chromosome, self._file)
+            )
+        return (on_target, off_target) if include_other else on_target
+
+
+# ---------------------------------------------------------------- tagging
+
+
+class Tagger:
+    """Adds tags to bam records from tag generators iterated in lockstep."""
+
+    def __init__(self, bam_file: str) -> None:
+        if not isinstance(bam_file, str):
+            raise TypeError(f'The argument "bam_file" must be of type str, not {type(bam_file)}')
+        self.bam_file = bam_file
+
+    def tag(self, output_bam_name: str, tag_generators) -> None:
+        """Write ``bam_file`` to ``output_bam_name`` with tags attached.
+
+        ``tag_generators`` yield, per record, lists of (tag, value, type)
+        tuples; generators must share the bam's record order. The shortest
+        of the generators and the bam ends the output.
+        """
+        with AlignmentReader(self.bam_file, "rb", check_sq=False) as source:
+            with AlignmentWriter(output_bam_name, source.header.copy(), "wb") as sink:
+                for entry in zip(*tag_generators, source):
+                    *tag_sets, record = entry
+                    for tag in itertools.chain.from_iterable(tag_sets):
+                        record.set_tag(*tag)
+                    sink.write(record)
 
 
 # ---------------------------------------------------------------- grouping
@@ -82,6 +176,29 @@ def iter_genes(bam_iterator: Iterator[BamRecord]) -> Generator:
 
 
 # ---------------------------------------------------------------- sorting
+
+
+class AlignmentSortOrder:
+    """Base class of alignment sort orders."""
+
+    @property
+    def key_generator(self) -> Callable[[BamRecord], Any]:
+        raise NotImplementedError
+
+
+class QueryNameSortOrder(AlignmentSortOrder):
+    """Sort order by query name."""
+
+    @staticmethod
+    def get_sort_key(alignment: BamRecord) -> str:
+        return alignment.query_name
+
+    @property
+    def key_generator(self):
+        return QueryNameSortOrder.get_sort_key
+
+    def __repr__(self) -> str:
+        return "query_name"
 
 
 class TagSortableRecord:
@@ -181,6 +298,18 @@ class SortError(Exception):
 
 
 # ---------------------------------------------------------------- splitting
+
+
+def get_barcode_for_alignment(alignment: BamRecord, tags: List[str], raise_missing: bool) -> Optional[str]:
+    """Value of the first of ``tags`` present on ``alignment`` (else None,
+    or RuntimeError with ``raise_missing``)."""
+    for tag in tags:
+        value = get_tag_or_default(alignment, tag)
+        if value is not None:
+            return value
+    if raise_missing:
+        raise RuntimeError("Alignment encountered that is missing {} tag(s).".format(tags))
+    return None
 
 
 def _barcode_of_body(body: bytes, keys: List[bytes], tags: List[str], raise_missing: bool):

@@ -1,19 +1,29 @@
-"""FASTQ records and readers, barcode geometry, and batched span extraction.
+"""FASTQ records and readers, barcode geometry, tag generators and batched
+span extraction.
 
-The port's own copy of the host parts of ``sctools_tpu.fastq``: the 4-line
-``Record``/``Reader``, ``EmbeddedBarcode`` and the ``ReadStructure`` DSL.
-The per-record tag generators of the JAX package's Python route are not
-copied: the port's batched loops (``attach``, ``fastqprocess``,
-``samplefastq``, ``fastq_metrics``) read records in batches through
-``BatchReader`` and slice every barcode span of a batch at once with
-``extract_spans``, the way the JAX native layer does
-(sctools_tpu/native/native_io.h:404-461).
+The port's own copy of ``sctools_tpu.fastq``: the 4-line ``Record`` /
+``Reader``, ``EmbeddedBarcode`` and the ``ReadStructure`` DSL, and the
+library's per-record tag generators (``extract_barcode``,
+``EmbeddedBarcodeGenerator``, ``BarcodeGeneratorWithCorrectedCellBarcodes``,
+``ReadStructureBarcodeGenerator``), which feed ``bam.Tagger`` and correct
+cell barcodes with the host hash map (``barcode.ErrorsToCorrectBarcodesMap``)
+as JAX's do. They keep two differences from the batched route: a read
+shorter than a barcode's span keeps the FASTQ line's ``"\n"`` in its CR/CY
+values (``extract_barcode`` slices the line as it is), and the tags come in
+the order the caller gives the generators.
+
+The port's commands (``attach``, ``fastqprocess``, ``samplefastq``,
+``fastq_metrics``) take the batched route instead: they read records
+through ``BatchReader`` and slice every barcode span of a batch at once
+with ``extract_spans``, the way the JAX native layer does
+(sctools_tpu/native/native_io.h:404-461), and correct on the card.
 """
 
 from collections import namedtuple
-from typing import AnyStr, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import AnyStr, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
-from . import reader
+from . import consts, reader
+from .barcode import ErrorsToCorrectBarcodesMap
 
 _FIELD_NAMES = ("name", "sequence", "name2", "quality")
 
@@ -102,6 +112,75 @@ class Reader(reader.Reader):
 EmbeddedBarcode = namedtuple("Tag", ["start", "end", "sequence_tag", "quality_tag"])
 
 
+def extract_barcode(record, embedded_barcode) -> Tuple[Tuple[str, str, str], Tuple[str, str, str]]:
+    """Slice a barcode out of ``record``, returning BAM set_tag-ready tuples."""
+    seq = record.sequence[embedded_barcode.start : embedded_barcode.end]
+    qual = record.quality[embedded_barcode.start : embedded_barcode.end]
+    return (
+        (embedded_barcode.sequence_tag, seq, "Z"),
+        (embedded_barcode.quality_tag, qual, "Z"),
+    )
+
+
+class EmbeddedBarcodeGenerator(Reader):
+    """Yields, per FASTQ record, the tag tuples for each embedded barcode."""
+
+    def __init__(self, fastq_files, embedded_barcodes, *args, **kwargs):
+        super().__init__(files=fastq_files, *args, **kwargs)
+        self.embedded_barcodes = embedded_barcodes
+
+    def __iter__(self):
+        for record in super().__iter__():
+            barcodes = []
+            for barcode in self.embedded_barcodes:
+                barcodes.extend(extract_barcode(record, barcode))
+            yield barcodes
+
+
+class BarcodeGeneratorWithCorrectedCellBarcodes(Reader):
+    """Yields tag tuples with the cell barcode whitelist-corrected (CB added).
+
+    When the raw cell barcode is in the whitelist or within hamming distance 1
+    of a whitelisted barcode, an additional (CB, corrected, 'Z') tuple is
+    emitted after the raw CR/CY pair; of two whitelist barcodes within
+    distance 1, the later one in the whitelist wins.
+    """
+
+    def __init__(
+        self,
+        fastq_files: Union[str, Iterable[str]],
+        embedded_cell_barcode: EmbeddedBarcode,
+        whitelist: str,
+        other_embedded_barcodes: Iterable[EmbeddedBarcode] = tuple(),
+        *args,
+        **kwargs,
+    ):
+        super().__init__(files=fastq_files, *args, **kwargs)
+        if isinstance(other_embedded_barcodes, (list, tuple)):
+            self.embedded_barcodes = other_embedded_barcodes
+        else:
+            raise TypeError("if passed, other_embedded_barcodes must be a list or tuple")
+
+        self._error_mapping = ErrorsToCorrectBarcodesMap.single_hamming_errors_from_whitelist(whitelist)
+        self.embedded_cell_barcode = embedded_cell_barcode
+
+    def __iter__(self):
+        for record in super().__iter__():
+            barcodes = []
+            barcodes.extend(self.extract_cell_barcode(record, self.embedded_cell_barcode))
+            for barcode in self.embedded_barcodes:
+                barcodes.extend(extract_barcode(record, barcode))
+            yield barcodes
+
+    def extract_cell_barcode(self, record: Tuple[str], cb: EmbeddedBarcode):
+        seq_tag, qual_tag = extract_barcode(record, cb)
+        try:
+            corrected_cb = self._error_mapping.get_corrected_barcode(seq_tag[1])
+            return seq_tag, qual_tag, (consts.CELL_BARCODE_TAG_KEY, corrected_cb, "Z")
+        except KeyError:
+            return seq_tag, qual_tag
+
+
 # --------------------------------------------------------------------------
 # Read-structure DSL (slide-seq style)
 # --------------------------------------------------------------------------
@@ -180,6 +259,51 @@ class ReadStructure:
 
     def barcode_length(self, kind: str) -> int:
         return sum(e - s for s, e in self.spans(kind))
+
+
+_KIND_TAGS = {
+    "C": (consts.RAW_CELL_BARCODE_TAG_KEY, consts.QUALITY_CELL_BARCODE_TAG_KEY),
+    "M": (consts.RAW_MOLECULE_BARCODE_TAG_KEY, consts.QUALITY_MOLECULE_BARCODE_TAG_KEY),
+    "S": (consts.RAW_SAMPLE_BARCODE_TAG_KEY, consts.QUALITY_SAMPLE_BARCODE_TAG_KEY),
+}
+
+
+class ReadStructureBarcodeGenerator(Reader):
+    """Yields, per FASTQ record, tag tuples for each read-structure barcode.
+
+    The generator twin of EmbeddedBarcodeGenerator for segmented geometries;
+    with a whitelist, the concatenated cell barcode is corrected and a CB
+    tag added (same semantics as BarcodeGeneratorWithCorrectedCellBarcodes).
+    """
+
+    def __init__(self, fastq_files, read_structure, whitelist=None, *args, **kwargs):
+        super().__init__(files=fastq_files, *args, **kwargs)
+        if isinstance(read_structure, str):
+            read_structure = ReadStructure(read_structure)
+        self.read_structure = read_structure
+        self._error_mapping = (
+            ErrorsToCorrectBarcodesMap.single_hamming_errors_from_whitelist(whitelist)
+            if whitelist is not None
+            else None
+        )
+
+    def __iter__(self):
+        kinds = [kind for kind in ("C", "M", "S") if self.read_structure.spans(kind)]
+        for record in super().__iter__():
+            barcodes = []
+            for kind in kinds:
+                seq = self.read_structure.extract(record.sequence, kind)
+                qual = self.read_structure.extract(record.quality, kind)
+                seq_tag, qual_tag = _KIND_TAGS[kind]
+                barcodes.append((seq_tag, seq, "Z"))
+                barcodes.append((qual_tag, qual, "Z"))
+                if kind == "C" and self._error_mapping is not None:
+                    try:
+                        corrected = self._error_mapping.get_corrected_barcode(seq)
+                        barcodes.append((consts.CELL_BARCODE_TAG_KEY, corrected, "Z"))
+                    except KeyError:
+                        pass
+            yield barcodes
 
 
 Spans = Sequence[Tuple[int, int]]

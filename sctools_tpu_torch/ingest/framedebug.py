@@ -1,7 +1,7 @@
 """The frame generation witness: stale reads of recycled arena slots raise.
 
 The port's copy of ``sctools_tpu.ingest.framedebug`` without its flight
-dumps and trace files. Every ``ingest.arena.ColumnArena`` carries a
+dumps. Every ``ingest.arena.ColumnArena`` carries a
 generation counter, bumped each time the slot is reclaimed for a refill.
 
 Off by default, and off means off: with ``SCTOOLS_TPU_FRAME_DEBUG`` unset (or
@@ -19,11 +19,18 @@ With ``SCTOOLS_TPU_FRAME_DEBUG=1``:
   ``StaleFrameError`` at that line. The vocabularies are owned lists, not
   arena views, and are not checked.
 
-The tests use it to prove a consumer's retention window.
+At interpreter exit, when a trace directory is set (``SCTOOLS_TPU_TRACE``),
+a process that stamped a frame writes ``frames.<worker>.json`` there
+(``dump``): ``{"enabled": ..., "stamped": N, "violations": [...]}``, the
+file a witnessed run is read back from (a non-zero stamped count and no
+stale read). The tests use the witness to prove a consumer's retention
+window.
 """
 
 from __future__ import annotations
 
+import atexit
+import json
 import os
 import traceback
 from typing import Any, Dict, List, Optional
@@ -41,6 +48,7 @@ POISON_BYTE = 0xAB
 _lock = make_lock("ingest.framedebug")
 _stamped = 0
 _violations: List[Dict[str, Any]] = []
+_dump_registered = False
 
 # the reads that touch a frame's record data: every per-record column and
 # the extras dict
@@ -110,6 +118,7 @@ def stamp_frame(frame_kwargs: Dict[str, Any], arena: Any, batch_index: Optional[
     out = WitnessFrame(**frame_kwargs)._stamp(arena, arena.generation, batch_index)
     with _lock:
         _stamped += 1
+    _ensure_dump_registered()
     return out
 
 
@@ -123,6 +132,57 @@ def violations() -> List[Dict[str, Any]]:
     """The stale reads recorded so far."""
     with _lock:
         return [dict(v) for v in _violations]
+
+
+def snapshot() -> Dict[str, Any]:
+    """The whole witness state as one JSON-safe dict (the dump payload)."""
+    with _lock:
+        return {"enabled": enabled(), "stamped": _stamped, "violations": [dict(v) for v in _violations]}
+
+
+def dump(path: Optional[str] = None) -> Optional[str]:
+    """Write the witness snapshot to ``path`` (default:
+    ``$SCTOOLS_TPU_TRACE/frames.<worker>.json``).
+
+    Returns the path written, or None when no destination is available.
+    Atomic (a temporary file, then a replace).
+    """
+    target = path
+    if target is None:
+        from .. import obs
+
+        base = obs.configured_trace_dir()
+        if base is None:
+            return None
+        target = os.path.join(base, f"frames.{obs.configured_worker_name()}.json")
+    tmp = f"{target}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(snapshot(), f, sort_keys=True, indent=1)
+            f.write("\n")
+        os.replace(tmp, target)
+    except OSError:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        return None
+    return target
+
+
+def _ensure_dump_registered() -> None:
+    global _dump_registered
+    if _dump_registered:
+        return
+    _dump_registered = True
+    atexit.register(_dump_at_exit)
+
+
+def _dump_at_exit() -> None:
+    try:
+        dump()
+    except Exception:  # noqa: BLE001 - an exit hook must never raise
+        pass
 
 
 def reset() -> None:

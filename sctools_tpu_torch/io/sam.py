@@ -8,7 +8,7 @@ pos, reference_id, query_qualities, query_alignment_qualities,
 get_cigar_stats), so code written against the reference ports directly.
 
 The port's own copy of ``sctools_tpu.io.sam`` (header, record, reader,
-writer and ``merge_bam_files``), plus ``read_raw_header`` /
+writer, the pysam-style ``AlignmentFile`` and ``merge_bam_files``), plus ``read_raw_header`` /
 ``iter_raw_records``: the attach loop passes u2 records through as bytes and
 appends tags, the way the JAX native layer does
 (sctools_tpu/native/attach.cpp:71-109, :221-282); ``aux_fields`` /
@@ -18,7 +18,7 @@ appends tags, the way the JAX native layer does
 from __future__ import annotations
 
 import struct
-from typing import BinaryIO, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import BinaryIO, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 from . import bgzf
 
@@ -626,6 +626,25 @@ class AlignmentWriter:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def AlignmentFile(
+    path: str,
+    mode: str = "rb",
+    header: Optional[BamHeader] = None,
+    template: Optional[Union[AlignmentReader, AlignmentWriter]] = None,
+    check_sq: bool = True,
+) -> Union[AlignmentReader, AlignmentWriter]:
+    """pysam-style constructor dispatching to reader or writer by mode."""
+    if mode in ("r", "rb"):
+        return AlignmentReader(path, mode, check_sq=check_sq)
+    if mode in ("w", "wb"):
+        if header is None:
+            if template is None:
+                raise ValueError("writing requires header= or template=")
+            header = template.header.copy()
+        return AlignmentWriter(path, header, mode)
+    raise ValueError(f"unsupported mode {mode!r}")
 
 
 def z_tags(key: str, values: Sequence[Optional[bytes]]) -> List[bytes]:

@@ -25,6 +25,7 @@ from .launch import (
     local_mesh,
     make_cell_metric_tasks,
     merge_sorted_csv_parts,
+    process_chunks,
     run_cell_metrics_task,
     run_process_cell_metrics,
     sync_processes,
@@ -69,6 +70,7 @@ __all__ = [
     "mesh_fingerprint",
     "partition_columns",
     "process_allgather",
+    "process_chunks",
     "process_count",
     "process_index",
     "required_reshard_capacity",

@@ -40,8 +40,9 @@ the port's guard has no rungs, so a failing task retries and is then
 quarantined. The ``distributed:chunk_metrics``, ``distributed:chunk_queue``
 and ``distributed:merge_parts`` spans and the ``chunks_processed`` counter
 are JAX's, as are the SIGTERM flight recorder a worker installs and the
-merge's audit record (``audit-merge.jsonl``). Not ported here:
-``process_chunks``, the static round-robin share no port caller needs.
+merge's audit record (``audit-merge.jsonl``). ``process_chunks`` is the
+static round-robin share of the chunks, for callers that need a fixed
+partition and no shared journal.
 """
 
 from __future__ import annotations
@@ -118,6 +119,14 @@ def local_mesh(device: DeviceLike = None, axis_name: str = DEFAULT_AXIS) -> Mesh
     if resolve(device).type == "cpu":
         return Mesh([torch.device("cpu")], (axis_name,))
     return make_mesh(axis_name=axis_name)
+
+
+def process_chunks(chunks: Sequence[str], num_processes: int, process_id: int) -> List[tuple]:
+    """The static round-robin share of the chunk files as (global_index, path),
+    over the chunks in sorted order (like the reference's barcode -> bin
+    round-robin, src/sctools/bam.py:442-448). The metrics workers pull from
+    the work queue instead (``run_process_cell_metrics``)."""
+    return [(index, chunk) for index, chunk in enumerate(sorted(chunks)) if index % num_processes == process_id]
 
 
 def default_journal_dir(part_stem: str) -> str:
