@@ -42,14 +42,20 @@ Phases, in order; any failure exits non-zero before the last line:
               same frames on the card and of the same frames on the CPU must
               be equal byte for byte (decompressed), and per cell n_reads,
               n_molecules, n_genes and n_mitochondrial_molecules must equal
-              the generator's counts. Each command must decode through the
-              ingest ring's native arena stream and render its CSV through
+              the generator's counts. The cell frames again through
+              ``GatherCellMetrics(bam, stem, mito, False)``, JAX's positional
+              order (``compress=False``), must give the keyword run's CSV
+              byte for byte as plain text, and ``extract_metrics(mode="r")``
+              over a SAM text copy of the cell BAM's first 32,768 records
+              the CSV of the same records as BAM. Each command must decode
+              through the ingest ring's native arena stream and render its
+              CSV through
               the native block formatter (``native.calls``). Prints
               records/s, the wall split (the ring's producer seconds of
               decoding on its thread beside this thread's wait on the ring,
               and the ring's batches), device milliseconds per batch and the
               profiler's top device ops, and the decode alone: the port's Python decoder
-              against the native stream over the first 2^18 records of the
+              against the native stream over the first 2^16 records of the
               cell BAM, in turns, with equal frames. The metrics path has no
               hand kernel; the phase checks that none launched. The
               commands' CSVs stay for phase 6, the cell CSV and BAM for
@@ -95,8 +101,15 @@ Phases, in order; any failure exits non-zero before the last line:
               The CSV must equal
               phase 5's CalculateCellMetrics CSV byte for byte (decompressed)
               and the sorted BAM hold the input's record bodies in phase 5's
-              order; ``verify_bam_sort`` 0 on it, SortError on the shuffled
-              BAM. ``split_bam`` (-t CB CR, 4 chunks, 4 processes) on phase
+              order. ``native.tagsort_stream_frames`` over 200,000 of
+              the shuffled records, called in JAX's positional order with
+              ``bam_compress_level=6``, ``n_threads=2`` and
+              ``want_qname=True``, must tee the record bodies of its run
+              with the defaults (level 1, no query names) in fewer bytes,
+              in their sorted order, yield every record's query name in
+              that order, and leave no partial beside its tee;
+              ``verify_bam_sort`` 0 on the sorted BAM, SortError on the
+              shuffled BAM. ``split_bam`` (-t CB CR, 4 chunks, 4 processes) on phase
               7's BAM shards: every record in exactly one chunk (byte for
               byte but the bin field, which the writer re-encodes), no scratch
               directory left, ``check_barcode_partition`` 0 on the chunks.
@@ -1338,7 +1351,7 @@ def library_leg(rng, stamp: str, modules) -> int:
     return launches["whitelist_correct"]
 
 
-DECODE_AB_RECORDS = 1 << 18
+DECODE_AB_RECORDS = 1 << 16
 
 
 def same_frames(a, b, packed) -> bool:
@@ -1471,6 +1484,57 @@ def top_device_ops(fn, n: int = 10):
     return [(_short(e.key), e.count, _device_us(e) / 1e3) for e in events[:n]], device_busy_ms(prof)
 
 
+SAM_SLICE_RECORDS = 1 << 15
+
+
+def jax_order_calls(port_gatherer, bgzf, sam, cell_bam: Path, frames: list, mito, keyword_csv: bytes,
+                    stamp: str) -> None:
+    """The gatherer called as JAX's callers call it, on the card:
+    ``GatherCellMetrics(bam, stem, mito, False)`` (``compress`` is JAX's
+    fourth parameter) over the cell frames must write the keyword run's CSV
+    as plain text, byte for byte; ``extract_metrics(mode="r")`` over a SAM
+    text copy of the cell BAM's first SAM_SLICE_RECORDS records must write
+    the CSV of the same records as BAM."""
+    plain = WORK / "frames_cell_positional"
+    begin = time.perf_counter()
+    port_gatherer.GatherCellMetrics(str(cell_bam), str(plain), mito, False, frame_source=lambda: iter(frames),
+                                    device="cuda").extract_metrics()
+    seconds = time.perf_counter() - begin
+    written = plain.with_name(plain.name + ".csv")
+    if plain.with_name(plain.name + ".csv.gz").exists() or written.read_bytes() != keyword_csv:
+        raise AssertionError("GatherCellMetrics(bam, stem, mito, False) did not write the keyword run's CSV "
+                             "as plain text")
+    log(f"[metrics] {stamp} | GatherCellMetrics(bam, stem, mito, False) on cuda over the cell frames: a plain "
+        f".csv equal to the keyword run's CSV byte for byte ({len(keyword_csv)} bytes) in {seconds:.2f} s")
+
+    with bgzf.open_bgzf_reader(str(cell_bam)) as fh:
+        header = sam.read_raw_header(fh)
+        bodies = []
+        for body in sam.iter_raw_records(fh):
+            bodies.append(body)
+            if len(bodies) == SAM_SLICE_RECORDS:
+                break
+    slice_bam, slice_sam = WORK / "slice.bam", WORK / "slice.sam"
+    write_bgzf(slice_bam, header + b"".join(struct.pack("<I", len(b)) + b for b in bodies), bgzf)
+    with sam.AlignmentReader(str(slice_bam)) as reader, \
+            sam.AlignmentWriter(str(slice_sam), reader.header, "w") as writer:
+        for record in reader:
+            writer.write(record)
+    csvs, seconds = {}, {}
+    for name, path, mode in (("sam", slice_sam, "r"), ("bam", slice_bam, "rb")):
+        stem = WORK / f"slice_{name}"
+        begin = time.perf_counter()
+        port_gatherer.GatherCellMetrics(str(path), str(stem), mito, device="cuda").extract_metrics(mode=mode)
+        seconds[name] = time.perf_counter() - begin
+        csvs[name] = read_csv(stem.with_name(stem.name + ".csv.gz"))
+    if csvs["sam"][0] != csvs["bam"][0] or len(csvs["sam"][2]) < 2:
+        raise AssertionError("extract_metrics(mode='r') over the SAM copy differs from the BAM run")
+    log(f"[metrics] {stamp} | extract_metrics(mode='r') on cuda over a SAM text copy of the cell BAM's first "
+        f"{len(bodies)} records ({slice_sam.stat().st_size} bytes): {len(csvs['sam'][2])} cells in "
+        f"{seconds['sam']:.2f} s (the Python decoder), the BAM copy's CSV byte for byte (decompressed; "
+        f"{seconds['bam']:.2f} s through the native stream)")
+
+
 def phase_metrics(rng, stamp: str, modules) -> None:
     """CalculateCellMetrics and CalculateGeneMetrics on the card at the
     2^20-record batch width; the CSVs against the same port on the CPU and
@@ -1478,7 +1542,7 @@ def phase_metrics(rng, stamp: str, modules) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    kernels, native, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf, packed = modules
+    kernels, native, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf, packed, sam = modules
     if port_gatherer.DEFAULT_BATCH_RECORDS != METRICS_BATCH:
         raise AssertionError("the smoke's batch width is not the gatherer's default")
     WORK.mkdir(exist_ok=True)
@@ -1567,6 +1631,7 @@ def phase_metrics(rng, stamp: str, modules) -> None:
     mito = port_gtf.get_mitochondrial_gene_names(str(gtf_path))
     if len(mito) != N_MITO_GENES:
         raise AssertionError(f"{len(mito)} mitochondrial genes read from the GTF")
+    frames_csv = {}
     for axis in ("cell", "gene"):
         cls = getattr(port_gatherer, cls_name[axis])
         data = {}
@@ -1589,6 +1654,8 @@ def phase_metrics(rng, stamp: str, modules) -> None:
             f"({len(rows)} rows, {len(data['cuda'][0])} bytes)"
             + ("; n_reads, n_molecules, n_genes, n_mitochondrial_molecules equal the generator's "
                "for every cell" if axis == "cell" else "; no multi-gene row"))
+        frames_csv[axis] = data["cuda"][0]
+    jax_order_calls(port_gatherer, bgzf, sam, paths["cell"], frames["cell"], mito, frames_csv["cell"], stamp)
 
     # the device pass alone, on one staged full batch of each axis
     for axis in ("cell", "gene"):
@@ -2391,9 +2458,12 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
         raise AssertionError("the sorted BAM's records are not the input's")
     if out_bodies != phase5:
         raise AssertionError("the sorted BAM's record order differs from phase 5's (CB, UB, GE) order")
-    del out_bodies, phase5
     log(f"[sort] the fused CSV equals phase 5's CalculateCellMetrics CSV byte for byte ({len(fused)} bytes); "
         f"the sorted BAM holds the input's {n} record bodies, in phase 5's order")
+    picked = order[:STREAM_RECORDS]
+    jax_order_stream(native, bgzf, sam, header, [phase5[i] for i in picked],
+                     [phase5[i] for i in np.sort(picked)], stamp)
+    del out_bodies, phase5
 
     stdout = io.StringIO()
     begin = time.perf_counter()
@@ -2473,6 +2543,55 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
         raise AssertionError(f"a hand kernel launched in the sort phase: {kernels.launches}")
     clear_work()
     log(f"[sort] phase 8 took {time.perf_counter() - phase_start:.1f} s")
+
+
+STREAM_RECORDS = 200_000  # the shuffled records phase 8's JAX-order stream sorts
+
+
+def jax_order_stream(native, bgzf, sam, header: bytes, shuffled: list, want: list, stamp: str) -> None:
+    """``native.tagsort_stream_frames`` over ``shuffled`` (raw record
+    bodies; ``want`` is their sorted order), twice: with its defaults (a
+    level-1 tee, no query names), and in JAX's positional order (input,
+    tags, batch, sort batch, tee, level, scratch prefix, threads, qnames) at
+    level 6 on 2 decoder threads with query names. Both tees hold ``want``,
+    the level-6 one in fewer bytes; the level-6 frames carry every record's
+    query name in that order; the default scratch prefix leaves no partial
+    beside either tee."""
+    source = WORK / "stream_shuffled.bam"
+    write_bgzf(source, header + b"".join(struct.pack("<I", len(b)) + b for b in shuffled), bgzf)
+    sort_batch = SORT_CHUNK // 5  # a few partials for the merge
+    runs = {}
+    for level in (1, 6):
+        tee = WORK / f"stream_level{level}.bam"
+        begin = time.perf_counter()
+        if level == 1:
+            frames = native.tagsort_stream_frames(str(source), SORT_TAGS, sort_batch_records=sort_batch,
+                                                  bam_output=str(tee))
+        else:
+            frames = native.tagsort_stream_frames(str(source), SORT_TAGS, METRICS_BATCH, sort_batch, str(tee), 6,
+                                                  None, 2, True)
+        names, streamed = [], 0
+        for frame in frames:
+            names.extend(np.asarray(frame.qname_names, dtype=object)[frame.qname].tolist())
+            streamed += frame.n_records
+        runs[level] = dict(seconds=time.perf_counter() - begin, names=names, streamed=streamed,
+                           bodies=raw_bodies(tee, bgzf, sam), size=tee.stat().st_size)
+    partials = sorted(p.name for p in WORK.glob("*.tagsort_partial*"))
+    # a record body's read name: l_read_name at byte 8, the name from byte 32
+    if runs[6]["names"] != [b[32:32 + b[8] - 1].decode() for b in want] or set(runs[1]["names"]) != {""}:
+        raise AssertionError("tagsort_stream_frames: the query names are not the sorted records' (want_qname=True) "
+                             "or not empty (the default)")
+    if not (runs[1]["bodies"] == runs[6]["bodies"] == want) or runs[1]["streamed"] != runs[6]["streamed"]:
+        raise AssertionError("tagsort_stream_frames: the level-6 and level-1 tees do not both hold the sorted records")
+    if runs[6]["size"] >= runs[1]["size"] or partials:
+        raise AssertionError(f"tagsort_stream_frames: level 6 {runs[6]['size']} bytes against level 1's "
+                             f"{runs[1]['size']}, partials left {partials}")
+    for path in (source, WORK / "stream_level1.bam", WORK / "stream_level6.bam"):
+        path.unlink()
+    log(f"[sort] {stamp} | tagsort_stream_frames over {len(shuffled)} shuffled records ({sort_batch} a partial): "
+        f"with its defaults {runs[1]['seconds']:.2f} s, a {runs[1]['size']}-byte level-1 tee; in JAX's order "
+        f"(level 6, 2 decoder threads, query names) {runs[6]['seconds']:.2f} s, the same record bodies in "
+        f"{runs[6]['size']} bytes and every query name in the sorted order; no partial left")
 
 
 MESH_SHARDS = 2
@@ -5573,7 +5692,7 @@ def main(argv=None) -> int:
     )
     csvs = phase_metrics(
         np.random.default_rng(args.seed + 1), stamp,
-        (kernels, native, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf, packed),
+        (kernels, native, port_platform, port_gatherer, port_device, port_gtf, port_seg, bgzf, packed, sam),
     )
     phase_count(
         np.random.default_rng(args.seed + 2), stamp,

@@ -321,9 +321,9 @@ class CountMatrix:
         open_mode: str = "rb",
         backend: str = "device",
         batch_records: int = DEFAULT_BATCH_RECORDS,
+        mesh=None,
         frame_source=None,
         device: DeviceLike = None,
-        mesh=None,
     ) -> "CountMatrix":
         """Count unique (cell, molecule, gene) triples from a tagged BAM.
 

@@ -222,21 +222,27 @@ def _produce_arena_frames(
 def ring_frames(
     bam_path: Optional[str] = None,
     batch_records: int = 1 << 20,
+    mode: Optional[str] = None,
     want_qname: bool = False,
     tag_keys: Optional[tuple] = None,
     source: Optional[Iterable[ReadFrame]] = None,
-    stats: Optional[Dict[str, float]] = None,
+    depth: Optional[int] = None,
+    slots: Optional[int] = None,
     audited: bool = True,
+    stats: Optional[Dict[str, float]] = None,
 ) -> Iterator[ReadFrame]:
     """ReadFrames of ``bam_path`` (or of ``source``) through the ring.
 
     A BGZF input with the default tag keys decodes through the native arena
     path: frames view recycled slots (see the module docstring for how long
     they stay valid) and carry ``flags`` and ``ps`` in their extras. SAM
-    text and custom ``tag_keys`` stream the Python decoder behind the same
-    queue. With ``source`` (an open frame iterable, e.g. the fused tag
-    sort's merge), the ring adds only the prefetch stage. The queue's depth
-    is ``prefetch_depth()``, and the ring has ``ring_slots()`` arenas.
+    text, ``mode="r"`` and custom ``tag_keys`` stream the Python decoder
+    behind the same queue, which opens the file in ``mode`` (None sniffs).
+    With ``source`` (an open frame iterable, e.g. the fused tag sort's
+    merge), the ring adds only the prefetch stage. The queue's depth is
+    ``depth`` (default ``prefetch_depth()``), and the ring has ``slots``
+    arenas (default ``ring_slots(depth)``; fewer shorten how long a frame
+    stays valid).
 
     ``stats`` (a dict) receives the producer's seconds of decoding
     (``decode``, timed on its thread) and the frames it made (``batches``).
@@ -253,20 +259,23 @@ def ring_frames(
         raise ValueError("ring_frames needs a bam_path or a source")
     if batch_records < 1:
         raise ValueError(f"batch_records must be >= 1, got {batch_records}")
-    depth = prefetch_depth()
+    if depth is None:
+        depth = prefetch_depth()
     stats = _new_stats(stats)
     if source is not None:
         return guarded_iter(prefetch_iterator(_timed_source(source, stats, audited), depth), leg="decode")
     keys = tuple(tag_keys) if tag_keys is not None else DEFAULT_TAG_KEYS
-    return guarded_iter(_ring(bam_path, batch_records, want_qname, keys, depth, stats, audited),
+    if slots is None:
+        slots = ring_slots(depth)
+    return guarded_iter(_ring(bam_path, batch_records, mode, want_qname, keys, depth, slots, stats, audited),
                         leg="decode")
 
 
-def _ring(bam_path, batch_records, want_qname, keys, depth, stats, audited) -> Iterator[ReadFrame]:
+def _ring(bam_path, batch_records, mode, want_qname, keys, depth, slots, stats, audited) -> Iterator[ReadFrame]:
     def python_frames():
-        return _timed_source(_python_frames(bam_path, batch_records, keys), stats, audited)
+        return _timed_source(_python_frames(bam_path, batch_records, keys, mode), stats, audited)
 
-    if keys != DEFAULT_TAG_KEYS or not bgzf.is_gzip(bam_path):
+    if keys != DEFAULT_TAG_KEYS or mode == "r" or not bgzf.is_gzip(bam_path):
         yield from prefetch_iterator(python_frames(), depth)
         return
     from .. import native
@@ -278,7 +287,7 @@ def _ring(bam_path, batch_records, want_qname, keys, depth, stats, audited) -> I
         stream = None
     first = None
     if stream is not None:
-        arenas = [ColumnArena(arena_capacity(batch_records)) for _ in range(ring_slots(depth))]
+        arenas = [ColumnArena(arena_capacity(batch_records)) for _ in range(slots)]
         produced = _produce_arena_frames(stream, arenas, batch_records, want_qname, stats, audited)
         # the head probe, on this thread: a native failure before the first
         # batch (a malformed BGZF container, gzip that is not BGZF) decodes

@@ -135,7 +135,7 @@ class Pulled:
         return self._host
 
 
-def pull(value: Any, site: str, wasted: int = 0, record: bool = True,
+def pull(value: Any, site: str, record: bool = True, wasted: int = 0,
          degrade_site: Optional[str] = None, name: str = "") -> Pulled:
     """Start the copy of ``value`` (a tensor, or a list, tuple or dict of
     tensors) to the host and return its :class:`Pulled` handle; its bytes

@@ -536,24 +536,25 @@ def concat_frames(a: ReadFrame, b: ReadFrame) -> ReadFrame:
 def iter_frames_from_bam(
     path: str,
     batch_records: int,
+    mode: Optional[str] = None,
+    want_qname: bool = False,
     tag_keys: tuple = DEFAULT_TAG_KEYS,
-    want_qname: bool = True,
 ):
     """Yield ReadFrames of <= batch_records alignments in file order.
 
     The bounded-memory decode path. Each frame has its own (sorted)
     vocabularies. A gzip input with the default tag keys streams through
-    the native decoder (``native.stream_frames``; ``want_qname=False``
-    leaves the qname column empty there, for callers that never read it);
-    custom ``tag_keys`` (the native parser reads the fixed 10x tag set) and
-    inputs that are not gzip take the Python decoder, as in the JAX
-    package.
+    the native decoder (``native.stream_frames``; the qname column stays
+    empty there unless ``want_qname``); custom ``tag_keys`` (the native
+    parser reads the fixed 10x tag set), ``mode="r"`` and inputs that are
+    not gzip take the Python decoder, which opens the file in ``mode``
+    (``AlignmentReader``'s: None sniffs BAM or SAM), as in the JAX package.
     """
     if batch_records < 1:
         # 0 would otherwise read as clean EOF and yield an empty-but-valid
         # result for what is always a caller bug
         raise ValueError(f"batch_records must be >= 1, got {batch_records}")
-    if tuple(tag_keys) == DEFAULT_TAG_KEYS and bgzf.is_gzip(path):
+    if tuple(tag_keys) == DEFAULT_TAG_KEYS and mode != "r" and bgzf.is_gzip(path):
         from .. import native
 
         native.library()  # a failed build or load raises here, never caught below
@@ -571,11 +572,11 @@ def iter_frames_from_bam(
                 yield first
                 yield from stream
             return
-    yield from _python_frames(path, batch_records, tuple(tag_keys))
+    yield from _python_frames(path, batch_records, tuple(tag_keys), mode)
 
 
-def _python_frames(path: str, batch_records: int, tag_keys: tuple):
-    with AlignmentReader(path) as reader:
+def _python_frames(path: str, batch_records: int, tag_keys: tuple, mode: Optional[str] = None):
+    with AlignmentReader(path, mode) as reader:
         records = iter(reader)
         while True:
             with _cyclic_gc_paused():
@@ -605,14 +606,15 @@ def _cyclic_gc_paused():
             gc.enable()
 
 
-def frame_from_bam(path: str) -> ReadFrame:
+def frame_from_bam(path: str, mode: Optional[str] = None) -> ReadFrame:
     """Decode a whole BAM/SAM file into one ReadFrame.
 
     A gzip input decodes through the native layer (``native.frame_from_bam``);
-    SAM text, and an input the native decoder refuses, take the Python
-    record path, as in the JAX package.
+    SAM text, ``mode="r"`` and an input the native decoder refuses take the
+    Python record path, which opens the file in ``mode`` (None sniffs), as
+    in the JAX package.
     """
-    if bgzf.is_gzip(path):
+    if mode != "r" and bgzf.is_gzip(path):
         from .. import native
 
         native.library()  # a failed build or load raises here, never caught below
@@ -620,5 +622,5 @@ def frame_from_bam(path: str) -> ReadFrame:
             return native.frame_from_bam(path)
         except RuntimeError:
             pass  # the Python reader gives the records, or its own exception
-    with AlignmentReader(path) as reader:
+    with AlignmentReader(path, mode) as reader:
         return frame_from_records(reader)

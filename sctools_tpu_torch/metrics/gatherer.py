@@ -333,21 +333,23 @@ class MetricGatherer:
         bam_file: str,
         output_stem: str,
         mitochondrial_gene_ids: Set[str] = frozenset(),
+        compress: bool = True,
+        backend: str = "device",
         batch_records: int = DEFAULT_BATCH_RECORDS,
         frame_source=None,
         device: DeviceLike = None,
-        backend: str = "device",
-        compress: bool = True,
         graphs=None,
     ):
-        """``frame_source``: optional zero-arg callable yielding sorted
+        """The parameters up to ``frame_source`` are the JAX package's, in
+        its order. ``compress=False`` writes a plain ``.csv``. ``backend``:
+        ``device`` (the engine on ``device``) or ``cpu`` (the host
+        aggregators, which take no device and no frame source).
+        ``frame_source``: optional zero-arg callable yielding sorted
         ReadFrames in place of decoding ``bam_file``; ``bam_file`` is still
         read for its header. ``device``: ``cuda`` unless the caller asks
-        for ``cpu``. ``backend``: ``device`` (the engine on ``device``) or
-        ``cpu`` (the host aggregators, which take no device and no frame
-        source). ``compress=False`` writes a plain ``.csv``. ``graphs``: a
-        ``serve.graphs.GraphSet`` that replays the engine's pass from CUDA
-        graphs (the serve worker's); None runs it eagerly."""
+        for ``cpu``. ``graphs``: a ``serve.graphs.GraphSet`` that replays
+        the engine's pass from CUDA graphs (the serve worker's); None runs
+        it eagerly."""
         if backend not in ("device", "cpu"):
             raise ValueError(f"unknown backend {backend!r}")
         self._bam_file = bam_file
@@ -399,20 +401,22 @@ class MetricGatherer:
             for start, end in (b["events"] for b in self.batches if b.get("events"))
         ]
 
-    def extract_metrics(self) -> None:
+    def extract_metrics(self, mode: str = "rb") -> None:
         """Stream the BAM through the backend to the CSV, in bounded host
-        memory for any file size."""
+        memory for any file size. ``mode="r"`` reads SAM text; the default
+        ``"rb"`` leaves the readers to tell BAM from SAM by content."""
+        open_mode = mode if mode != "rb" else None
         if self._backend == "cpu":
             if self._frame_source is not None:
                 raise ValueError("frame_source requires the device backend")
-            self._extract_cpu()
+            self._extract_cpu(open_mode)
             return
-        self.start_stream()
+        self.start_stream(open_mode)
         ring_stats: Dict[str, float] = {}
         if self._frame_source is not None:
             frames = ingest.ring_frames(source=self._frame_source(), stats=ring_stats)
         else:
-            frames = ingest.ring_frames(self._bam_file, self._batch_records, stats=ring_stats)
+            frames = ingest.ring_frames(self._bam_file, self._batch_records, open_mode, stats=ring_stats)
         out = self._make_writer()
         # the writeback ring: each dispatched batch's compacted block starts
         # its copy at dispatch and drains in FIFO order in finalize; its
@@ -443,12 +447,13 @@ class MetricGatherer:
         per-job CSVs by entity membership."""
         return MetricCSVWriter(self._output_stem, self._compress)
 
-    def start_stream(self) -> None:
+    def start_stream(self, mode: Optional[str] = None) -> None:
         """Reset the wire-schema state that must not flip mid-stream: the u8
         m_ref lane is chosen from the header's reference count, and
         wide_genomic and the run table only ratchet up. ``extract_metrics``
-        calls it; a caller of ``pack_batch`` alone calls it first."""
-        with AlignmentReader(self._bam_file) as header_probe:
+        calls it; a caller of ``pack_batch`` alone calls it first. ``mode``
+        is the header probe's ``AlignmentReader`` mode (None sniffs)."""
+        with AlignmentReader(self._bam_file, mode) as header_probe:
             self._small_ref = len(header_probe.header.references) <= 0x7F
         self._wide_genomic = False
         self._runs_bucket = 0
@@ -841,10 +846,10 @@ class MetricGatherer:
 
     # ---- cpu backend (the reference's streaming semantics) ---------------
 
-    def _extract_cpu(self) -> None:
+    def _extract_cpu(self, mode: Optional[str]) -> None:
         out = MetricCSVWriter(self._output_stem, self._compress)
         try:
-            with AlignmentReader(self._bam_file) as reader:
+            with AlignmentReader(self._bam_file, mode) as reader:
                 self._aggregate(iter(reader), out)
         except BaseException:
             # never publish a partial, valid-looking CSV

@@ -62,6 +62,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -214,7 +215,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "scx_tagsort_pipe_free": (None, [p, c_int]),
         "scx_format_csv_block": (c_long, [c_char_p, p, c_long, p, ctypes.c_int32, p,
                                           ctypes.c_int32, p, p, ctypes.c_int32, p, c_long]),
-        "scx_fqm": (c_long, [c_char_p, p, c_int, p, c_int, c_int, c_char_p, c_char_p, c_int]),
+        "scx_fqm": (c_long, [c_char_p, p, c_int, p, c_int, c_int, c_char_p, c_int, c_char_p, c_int]),
         "scx_sfq_open": (p, [c_char_p, c_char_p, p, c_int, p, c_int, c_char_p, c_char_p, c_int]),
         "scx_sfq_next": (c_long, [p, c_long]),
         "scx_sfq_buf": (ctypes.POINTER(ctypes.c_char), [p, c_char_p]),
@@ -370,8 +371,13 @@ def _message(buffer) -> str:
     return buffer.value.decode(errors="replace")
 
 
-def frame_from_bam(path: str) -> ReadFrame:
-    """Decode a whole BAM file into one ReadFrame (query names included).
+def _threads(n_threads: Optional[int]) -> int:
+    return default_threads() if n_threads is None else n_threads
+
+
+def frame_from_bam(path: str, n_threads: Optional[int] = None) -> ReadFrame:
+    """Decode a whole BAM file into one ReadFrame (query names included),
+    on ``n_threads`` decoder threads (None: ``default_threads()``).
 
     Raises RuntimeError when the file cannot be opened or is malformed.
     """
@@ -380,7 +386,7 @@ def frame_from_bam(path: str) -> ReadFrame:
     errbuf = _errbuf()
     with obs.span("native:decode_bam") as sp:
         handle = lib.scx_decode_bam(
-            path.encode(), default_threads(), errbuf, ctypes.sizeof(errbuf))
+            path.encode(), _threads(n_threads), errbuf, ctypes.sizeof(errbuf))
         if not handle:
             raise RuntimeError(f"native BAM decode failed: {_message(errbuf)}")
         try:
@@ -409,8 +415,10 @@ def _decoded_batches(lib, stream, batch_records: int, want_qname: bool, what: st
         yield frame
 
 
-def stream_frames(path: str, batch_records: int, want_qname: bool = False) -> Iterator[ReadFrame]:
-    """Yield ReadFrames of <= batch_records alignments in file order.
+def stream_frames(path: str, batch_records: int, n_threads: Optional[int] = None,
+                  want_qname: bool = False) -> Iterator[ReadFrame]:
+    """Yield ReadFrames of <= batch_records alignments in file order, decoded
+    on ``n_threads`` threads (None: ``default_threads()``).
 
     Bounded host memory: the native stream holds the current batch plus one
     compressed chunk. With ``want_qname=False`` the qname column is all
@@ -422,7 +430,7 @@ def stream_frames(path: str, batch_records: int, want_qname: bool = False) -> It
     calls["stream_frames"] += 1
     errbuf = _errbuf()
     handle = lib.scx_stream_open(
-        path.encode(), default_threads(), int(want_qname), errbuf, ctypes.sizeof(errbuf))
+        path.encode(), _threads(n_threads), int(want_qname), errbuf, ctypes.sizeof(errbuf))
     if not handle:
         raise RuntimeError(f"native BAM stream open failed: {_message(errbuf)}")
     try:
@@ -452,14 +460,15 @@ class NativeBatchStream:
     ``np.frombuffer``: no per-column copies), and ``vocab()`` returns the
     batch's sorted vocabulary of a coded column. Raises RuntimeError when
     the file cannot be opened or is malformed. ``close()`` releases the
-    handle; the stream is also a context manager.
+    handle; the stream is also a context manager. ``n_threads``: the
+    decoder's threads (None: ``default_threads()``).
     """
 
-    def __init__(self, path: str, want_qname: bool = False):
+    def __init__(self, path: str, n_threads: Optional[int] = None, want_qname: bool = False):
         lib = library()
         errbuf = _errbuf()
         handle = lib.scx_stream_open(
-            path.encode(), default_threads(), int(want_qname), errbuf, ctypes.sizeof(errbuf))
+            path.encode(), _threads(n_threads), int(want_qname), errbuf, ctypes.sizeof(errbuf))
         if not handle:
             raise RuntimeError(f"native BAM stream open failed: {_message(errbuf)}")
         calls["batch_stream"] += 1
@@ -540,40 +549,46 @@ def tagsort(
     return n
 
 
-TEE_LEVEL = 1  # the fused pass's sorted BAM, at the JAX package's level
-
-
 def tagsort_stream_frames(
     input_bam: str,
     tag_keys: Sequence[str],
-    scratch_prefix: str,
-    stats: Dict[str, float],
     batch_records: int = 1 << 20,
     sort_batch_records: int = 500_000,
     bam_output: Optional[str] = None,
+    bam_compress_level: int = 1,
+    scratch_prefix: Optional[str] = None,
+    n_threads: Optional[int] = None,
+    want_qname: bool = False,
+    stats: Optional[Dict[str, float]] = None,
 ) -> Iterator[ReadFrame]:
-    """Yield sorted ReadFrames, without query names, streamed straight out
-    of the tag sort's merge.
+    """Yield sorted ReadFrames streamed straight out of the tag sort's merge.
 
     A worker thread runs the out-of-core sort (partials at
-    ``<scratch_prefix>_<pid>_N``) and streams the merged records as plain
-    BAM through a pipe, which the column decoder reads. With
-    ``bam_output`` the same merge pass tees the sorted BAM to that file at
-    BGZF level ``TEE_LEVEL``. Raises RuntimeError on a sort or decode
-    failure. A failure, or a generator closed before its end, closes the
-    pipe, which ends the worker, and leaves no partials and no
-    ``bam_output``. At the end of the stream the sort's wall seconds by
+    ``<scratch_prefix>_<pid>_N``; by default ``scratch_prefix`` is
+    ``<bam_output>.tagsort_partial``, or without a ``bam_output`` the input's
+    name with that suffix in the temp directory, never beside the input)
+    and streams the merged records as plain BAM through a pipe, which the
+    column decoder reads on ``n_threads`` threads (None:
+    ``default_threads()``). With ``bam_output`` the same merge pass tees
+    the sorted BAM to that file at BGZF level ``bam_compress_level``.
+    ``want_qname`` fills the frames' query names. Raises RuntimeError on a
+    sort or decode failure. A failure, or a generator closed before its
+    end, closes the pipe, which ends the worker, and leaves no partials and
+    no ``bam_output``. At the end of the stream the sort's wall seconds by
     phase (``read``, ``sort``, ``partials``, ``merge``, on its own thread)
     and the number of partials it wrote (``partial_files``) go into
-    ``stats``.
+    ``stats`` when it is given.
     """
     keys = _tag_bytes(tag_keys)
+    if scratch_prefix is None:
+        base = bam_output or os.path.join(tempfile.gettempdir(), os.path.basename(input_bam))
+        scratch_prefix = base + ".tagsort_partial"
     lib = library()
     calls["tagsort_stream_frames"] += 1
     errbuf = _errbuf()
     handle = lib.scx_tagsort_pipe_open(
         input_bam.encode(), *keys, sort_batch_records, (bam_output or "").encode(),
-        TEE_LEVEL, scratch_prefix.encode(), errbuf, ctypes.sizeof(errbuf))
+        bam_compress_level, scratch_prefix.encode(), errbuf, ctypes.sizeof(errbuf))
     if not handle:
         raise RuntimeError(f"tagsort pipe open failed: {_message(errbuf)}")
     stream = None
@@ -581,13 +596,13 @@ def tagsort_stream_frames(
     try:
         read_fd = lib.scx_tagsort_pipe_fd(handle)
         stream = lib.scx_stream_open(
-            f"/proc/self/fd/{read_fd}".encode(), default_threads(), 0,
+            f"/proc/self/fd/{read_fd}".encode(), _threads(n_threads), int(want_qname),
             errbuf, ctypes.sizeof(errbuf))
         if not stream:
             raise RuntimeError(f"tagsort stream open failed: {_message(errbuf)}")
         total = 0
         for frame in _decoded_batches(
-                lib, stream, batch_records, False, "tagsort stream", "native:tagsort_stream_batch"):
+                lib, stream, batch_records, want_qname, "tagsort stream", "native:tagsort_stream_batch"):
             total += frame.n_records
             yield frame
         # close OUR read descriptors before joining the worker, so a
@@ -600,10 +615,11 @@ def tagsort_stream_frames(
                 f"tagsort merge failed: {lib.scx_tagsort_pipe_error(handle).decode(errors='replace')}")
         if merged != total:
             raise RuntimeError(f"tagsort stream truncated: decoded {total} of {merged} records")
-        values = (ctypes.c_double * 5)()
-        lib.scx_tagsort_pipe_stats(handle, values)
-        stats.update(zip(("read", "sort", "partials", "merge"), values[:4]))
-        stats["partial_files"] = int(values[4])
+        if stats is not None:
+            values = (ctypes.c_double * 5)()
+            lib.scx_tagsort_pipe_stats(handle, values)
+            stats.update(zip(("read", "sort", "partials", "merge"), values[:4]))
+            stats["partial_files"] = int(values[4])
         complete = True
     finally:
         if stream is not None:
@@ -943,17 +959,18 @@ def sample_fastq(
 
 
 def fastq_metrics(fastq_files: Sequence[str], cb_spans, umi_spans, min_length: int,
-                  output_prefix: str) -> int:
-    """FastqMetrics' scan of the R1 shards into its four files; returns the
-    reads scanned. A read shorter than ``min_length`` is a ``ValueError``,
-    an unreadable shard a ``RuntimeError``."""
+                  output_prefix: str, n_threads: Optional[int] = None) -> int:
+    """FastqMetrics' scan of the R1 shards into its four files, one shard a
+    thread on at most ``n_threads`` threads (None: ``default_threads()``);
+    returns the reads scanned. A read shorter than ``min_length`` is a
+    ``ValueError``, an unreadable shard a ``RuntimeError``."""
     cb, n_cb = _spans(cb_spans)
     umi, n_umi = _spans(umi_spans)
     lib = library()
     calls["fastq_metrics"] += 1
     errbuf = _errbuf()
     n = lib.scx_fqm("\n".join(fastq_files).encode(), cb.ctypes.data, n_cb, umi.ctypes.data, n_umi,
-                    min_length, output_prefix.encode(), errbuf, ctypes.sizeof(errbuf))
+                    min_length, output_prefix.encode(), _threads(n_threads), errbuf, ctypes.sizeof(errbuf))
     if n == -2:  # a read shorter than the read structure
         raise ValueError(_message(errbuf))
     if n < 0:

@@ -15,9 +15,8 @@
 // the fixed slide-seq R1 rewrite (barcode[0:8] + linker + barcode[8:] + UMI
 // + 'T').
 //
-// Two changes from the JAX copy: scx_fqm takes its thread count from
-// default_threads() and no argument, and scx_sfq_write slices a barcode
-// quality shorter than its barcode where the JAX copy reads past its end.
+// One change from the JAX copy: scx_sfq_write slices a barcode quality
+// shorter than its barcode where the JAX copy reads past its end.
 
 #include <algorithm>
 #include <atomic>
@@ -271,7 +270,8 @@ extern "C" {
 // to the oracle's ValueError without parsing message text.
 long scx_fqm(const char* r1_paths, const int32_t* cb_spans_flat, int n_cb,
              const int32_t* umi_spans_flat, int n_umi, int min_length,
-             const char* output_prefix, char* errbuf, int errbuf_len) {
+             const char* output_prefix, int n_threads, char* errbuf,
+             int errbuf_len) {
   auto fail = [&](const std::string& message) -> long {
     if (errbuf && errbuf_len > 0)
       std::snprintf(errbuf, errbuf_len, "%s", message.c_str());
@@ -291,8 +291,9 @@ long scx_fqm(const char* r1_paths, const int32_t* cb_spans_flat, int n_cb,
   }
   // one worker per shard, capped (the reference spawns a thread per shard,
   // fastq_metrics.cpp:174-209, bounded by its global thread cap)
-  int workers = std::min<int>(static_cast<int>(files.size()),
-                              static_cast<int>(scx::default_threads()));
+  int workers = std::min<int>(
+      static_cast<int>(files.size()),
+      n_threads > 0 ? n_threads : static_cast<int>(scx::default_threads()));
   std::atomic<size_t> next{0};
   auto work = [&]() {
     for (;;) {

@@ -315,12 +315,15 @@ def retrace_seq() -> int:
 
 # -------------------------------------------------- occupancy telemetry
 
-def record_dispatch(site_name: str, real_rows: int, padded_rows: int) -> None:
+def record_dispatch(site_name: str, real_rows: int, padded_rows: int, bucket: Optional[int] = None) -> None:
     """One padded-batch dispatch: ``real_rows`` of ``padded_rows`` real.
 
-    No-op while recording is off. Feeds the per-site occupancy and the
+    No-op while recording is off. ``bucket`` (the padded bucket size) is
+    accepted for the call site's readability, as in the JAX package; the
+    padded total already carries it. Feeds the per-site occupancy and the
     ``xprof_real_rows`` / ``xprof_padded_rows`` counters.
     """
+    del bucket
     if not _obs_enabled():
         return
     site = _site(site_name)

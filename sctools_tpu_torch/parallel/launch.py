@@ -112,7 +112,7 @@ def sync_processes(name: str) -> None:
         raise AssertionError(f"sync_global_devices name mismatch ('{name}'). Expected: {everyone}; got: {mine}.")
 
 
-def local_mesh(device: DeviceLike = None, axis_name: str = DEFAULT_AXIS) -> Mesh:
+def local_mesh(axis_name: str = DEFAULT_AXIS, device: DeviceLike = None) -> Mesh:
     """A mesh over this process's own devices, for chunk-local compute:
     every card on ``cuda``, one shard on ``cpu`` (``make_mesh(device="cpu")``
     would give one a core, and announce another mesh than JAX's worker)."""
@@ -200,7 +200,7 @@ def run_cell_metrics_task(task, mesh: Optional[Mesh] = None, device: DeviceLike 
     with obs.span("distributed:chunk_metrics", chunk=index):
         ShardedCellMetrics(
             chunk, part, set(payload.get("mito", ())),
-            mesh=mesh if mesh is not None else local_mesh(device),
+            mesh=mesh if mesh is not None else local_mesh(device=device),
         ).extract_metrics()
     obs.count("chunks_processed")
     return part + ".csv.gz"
@@ -227,14 +227,14 @@ def run_process_cell_metrics(
     with backoff, and a re-launch skips committed parts.
     ``num_processes``/``process_id`` only name this worker.
 
-    ``mesh`` defaults to ``local_mesh(device)``. Returns the part paths
+    ``mesh`` defaults to ``local_mesh(device=device)``. Returns the part paths
     THIS worker committed. Parts are canonically named
     ``<dir(part_stem)>/metrics.partNNNN.csv.gz`` by global chunk index.
     Raises :class:`sched.QuarantinedTasksError` after the queue drains if
     poison chunks were quarantined (the rest of the run still completes
     and commits first).
     """
-    mesh = mesh if mesh is not None else local_mesh(device)
+    mesh = mesh if mesh is not None else local_mesh(device=device)
     tasks = make_cell_metric_tasks(
         chunks,
         os.path.dirname(os.path.abspath(part_stem)),

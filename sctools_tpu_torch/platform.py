@@ -347,9 +347,10 @@ class GenericPlatform:
             gatherer = gatherer_cls(
                 args.input_bam, metrics_stem, mitochondrial_gene_ids,
                 frame_source=lambda: native.tagsort_stream_frames(
-                    args.input_bam, tags, os.path.join(scratch, "partial"), gatherer.source_stats,
+                    args.input_bam, tags,
                     sort_batch_records=args.records_per_chunk or tagsort.DEFAULT_RECORDS_PER_CHUNK,
-                    bam_output=tee,
+                    bam_output=tee, scratch_prefix=os.path.join(scratch, "partial"),
+                    stats=gatherer.source_stats,
                 ),
                 **gatherer_kwargs,
             )

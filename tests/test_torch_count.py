@@ -158,7 +158,7 @@ def test_count_matrix_matches_jax(synthetic, tmp_path, batch_records):
 def test_frame_source_and_batch_records_reproduce_the_whole_file(synthetic):
     _, path = synthetic
     whole = port_count.CountMatrix.from_sorted_tagged_bam(path, GENE_TO_INDEX, device="cpu")
-    frames = list(port_packed.iter_frames_from_bam(path, 50))
+    frames = list(port_packed.iter_frames_from_bam(path, 50, want_qname=True))
     fed = port_count.CountMatrix.from_sorted_tagged_bam(
         path, GENE_TO_INDEX, device="cpu", batch_records=50, frame_source=lambda: iter(frames)
     )

@@ -476,7 +476,7 @@ def test_native_layer_builds_here_and_matches_the_python_decoder(cuda_device, tm
         for record in records:
             out.write(record)
     native.reset_calls()
-    frames = list(port_packed.iter_frames_from_bam(bam, 1000))
+    frames = list(port_packed.iter_frames_from_bam(bam, 1000, want_qname=True))
     python = list(port_packed._python_frames(bam, 1000, port_packed.DEFAULT_TAG_KEYS))
     assert native.calls["stream_frames"] == 1 and native.library_path().exists()
     assert [f.n_records for f in frames] == [f.n_records for f in python] and len(frames) == 7

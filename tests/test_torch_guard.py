@@ -260,8 +260,12 @@ def test_shielded_body_holds_the_stall_until_it_ends(monkeypatch):
 
 
 def _quiet_jax():
+    """Leave JAX's obs, faults, degrade ladder and ledger as a fresh process
+    has them: off and empty. A JAX test file that shares this process reads
+    ``obs.enabled()``, and the mirrored ``_clean_state`` resets only the
+    port's."""
+    jax_obs.disable()
     jax_obs.reset()
-    jax_obs.enable()
     jax_degrade.reset()
     jax_faults.reset()
     jax_audit.reset()

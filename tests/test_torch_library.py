@@ -29,6 +29,30 @@ packages:
 - ``AlignmentFile``'s modes and errors, the sort orders,
   ``get_barcode_for_alignment``, ``process_chunks``, and the frame
   witness's ``snapshot`` / ``dump`` and its exit hook.
+
+**JAX's calls**, made as JAX's callers make them (positionally where the
+port once took another order) on both packages:
+
+- ``GatherCellMetrics`` / ``GatherGeneMetrics(bam, stem, mito, False)``:
+  a plain ``.csv``, the keyword run's bytes and JAX's (``*_variance``
+  within ``VARIANCE_RTOL``, as ``test_torch_metrics`` holds them);
+  ``extract_metrics(mode="r")`` over a SAM copy equals JAX's and the port's
+  BAM run, on both backends;
+- ``iter_frames_from_bam``, ``frame_from_bam`` and ``ring_frames`` with
+  each ``mode`` on BAM and SAM (the same frames, or the same exception
+  type), and with their defaults (no query names from the native
+  stream); ``ring_frames(depth=, slots=)``: the queue's depth and the
+  arenas made, frames equal to JAX's;
+- ``NativeBatchStream(path, 2)``, ``stream_frames`` /
+  ``frame_from_bam`` / ``fastq_metrics`` with a thread count: batches,
+  vocabularies, filled arenas and files equal to JAX's;
+- ``tagsort_stream_frames`` in JAX's order: a level-6 tee with the
+  records of level 1 and of JAX's level 6, in fewer bytes, its default
+  scratch prefix beside the tee; ``want_qname=True`` gives the query
+  names of the sorted BAM;
+- ``local_mesh("rows")``, and ``record_dispatch(..., bucket)`` with
+  ``pull(value, site, False)``: the registry, ledger and counters equal
+  JAX's.
 """
 
 from __future__ import annotations
@@ -59,6 +83,8 @@ from sctools_tpu_torch.io import sam as port_sam
 from sctools_tpu_torch.parallel import launch as port_launch
 
 from helpers import make_header, make_record, write_bam
+from test_torch_metrics import assert_csv_match
+from test_torch_native import assert_frames_equal
 from test_torch_steer import _ported
 
 REPO = Path(__file__).resolve().parent.parent
@@ -77,7 +103,7 @@ _LEFT_OUT = {
     },
     "test_fastq_metrics": {
         "test_sample_fastq": "runs SampleFastq on the default device (cuda here)",
-        "test_sample_fastq_mismatched_shards_error": "JAX's sample_fastq signature; the port's is device-first",
+        "test_sample_fastq_mismatched_shards_error": "runs SampleFastq on the default device (cuda here)",
         "test_short_read_raises_native": "probes JAX's native.available(); the port's layer has no fallback",
         "TestNativeMatchesOracle": "switches JAX's native layer off; the port has one route",
     },
@@ -589,3 +615,280 @@ def test_frame_witness_dumps_at_exit(tmp_path):
     env["SCTOOLS_TPU_TRACE_WORKER"] = "off"
     subprocess.run([sys.executable, "-c", _EXIT_DUMP], env=env, check=True, timeout=120)
     assert not (tmp_path / "frames.off.json").exists()  # nothing stamped, no hook
+
+
+# ------------------------------------------------------------ JAX's calls
+
+
+@pytest.fixture(scope="module")
+def tagged(tmp_path_factory):
+    """A cell-sorted tagged BAM, its SAM text copy, and the same records
+    unsorted, from a seed."""
+    from test_metrics import random_tagged_records
+
+    tmp = tmp_path_factory.mktemp("calls")
+    records, header = random_tagged_records(seed=21, n_records=600)
+    ordered = list(jax_bam.sort_by_tags_and_queryname(records, ["CB", "UB", "GE"]))
+    return dict(
+        bam=write_bam(str(tmp / "cell.bam"), ordered, header),
+        sam=write_bam(str(tmp / "cell.sam"), ordered, header, mode="w"),
+        unsorted=write_bam(str(tmp / "unsorted.bam"), records, header),
+    )
+
+
+def _assert_frames_equal(port, jax):
+    assert [f.n_records for f in port] == [f.n_records for f in jax]
+    for a, b in zip(port, jax):
+        assert_frames_equal(a, b)
+
+
+def _frames_or_error(call):
+    """The frames a reader gives, each copied as it comes (ring frames view
+    recycled slots), or the type of the exception it raises."""
+    from sctools_tpu_torch.io import packed
+
+    try:
+        result = call()
+        return [packed.copy_frame(f) for f in ([result] if hasattr(result, "n_records") else result)]
+    except Exception as error:  # compared by type with JAX's
+        return type(error)
+
+
+def _copied(frames):
+    from sctools_tpu_torch.io import packed
+
+    return [packed.copy_frame(f) for f in frames]
+
+
+def _same_outcome(port, jax):
+    if isinstance(port, type) or isinstance(jax, type):
+        assert port is jax
+    else:
+        _assert_frames_equal(port, jax)
+
+
+@pytest.mark.parametrize("kind", ["cell", "gene"])
+def test_gatherer_compress_given_positionally_equals_jax(tagged, tmp_path, kind):
+    from sctools_tpu.metrics import gatherer as jax_gatherer
+    from sctools_tpu_torch.metrics import gatherer as port_gatherer
+
+    name = "GatherCellMetrics" if kind == "cell" else "GatherGeneMetrics"
+    mito = {"MT-GENE"}
+    getattr(jax_gatherer, name)(tagged["bam"], str(tmp_path / "jax"), mito, False).extract_metrics()
+    getattr(port_gatherer, name)(tagged["bam"], str(tmp_path / "port"), mito, False, device="cpu").extract_metrics()
+    getattr(port_gatherer, name)(tagged["bam"], str(tmp_path / "keyword"), mito, compress=False,
+                                 device="cpu").extract_metrics()
+    port = (tmp_path / "port.csv").read_bytes()
+    assert port == (tmp_path / "keyword.csv").read_bytes() and port.count(b"\n") > 2
+    assert not list(tmp_path.glob("*.gz"))
+    for name in ("port", "jax"):  # the repo's CSV rule: bytes, but *_variance within VARIANCE_RTOL
+        (tmp_path / f"{name}.csv.gz").write_bytes(gzip.compress((tmp_path / f"{name}.csv").read_bytes()))
+    assert_csv_match(tmp_path / "port.csv.gz", tmp_path / "jax.csv.gz")
+
+
+@pytest.mark.parametrize("backend", ["device", "cpu"])
+def test_extract_metrics_mode_r_reads_sam_as_jax(tagged, tmp_path, backend):
+    from sctools_tpu.metrics.gatherer import GatherCellMetrics as JaxCell
+    from sctools_tpu_torch.metrics.gatherer import GatherCellMetrics
+
+    JaxCell(tagged["sam"], str(tmp_path / "jax"), backend=backend).extract_metrics(mode="r")
+    GatherCellMetrics(tagged["sam"], str(tmp_path / "sam"), backend=backend, device="cpu").extract_metrics(mode="r")
+    GatherCellMetrics(tagged["bam"], str(tmp_path / "bam"), backend=backend, device="cpu").extract_metrics()
+    assert gzip.decompress((tmp_path / "sam.csv.gz").read_bytes()) == \
+        gzip.decompress((tmp_path / "bam.csv.gz").read_bytes())
+    assert_csv_match(tmp_path / "sam.csv.gz", tmp_path / "jax.csv.gz")
+
+
+@pytest.mark.parametrize("mode", [None, "rb", "r"])
+@pytest.mark.parametrize("source", ["bam", "sam"])
+def test_frame_readers_take_jax_s_mode(tagged, source, mode):
+    from sctools_tpu.ingest import ring as jax_ring
+    from sctools_tpu.io import packed as jax_packed
+    from sctools_tpu_torch.ingest import ring as port_ring
+    from sctools_tpu_torch.io import packed as port_packed
+
+    path = tagged[source]
+    for port, jax in (
+        (lambda: port_packed.iter_frames_from_bam(path, 128, mode),
+         lambda: jax_packed.iter_frames_from_bam(path, 128, mode)),
+        (lambda: port_packed.frame_from_bam(path, mode), lambda: jax_packed.frame_from_bam(path, mode)),
+        (lambda: port_ring.ring_frames(path, 128, mode), lambda: jax_ring.ring_frames(path, 128, mode)),
+    ):
+        port_frames, jax_frames = _frames_or_error(port), _frames_or_error(jax)
+        _same_outcome(port_frames, jax_frames)
+        # the right mode reads the file; the wrong one fails as JAX's does
+        assert isinstance(port_frames, list) == (mode is None or (mode == "r") == (source == "sam"))
+
+
+@pytest.mark.parametrize("source", ["bam", "sam"])
+def test_frame_readers_defaults_equal_jax(tagged, source):
+    """No query names unless asked for, as JAX's readers (the native
+    stream's qname column stays empty; the Python decoder fills it)."""
+    from sctools_tpu.ingest import ring as jax_ring
+    from sctools_tpu.io import packed as jax_packed
+    from sctools_tpu_torch.ingest import ring as port_ring
+    from sctools_tpu_torch.io import packed as port_packed
+
+    path = tagged[source]
+    for want_qname in (False, True):
+        _assert_frames_equal(_frames_or_error(lambda: port_packed.iter_frames_from_bam(path, 128, None, want_qname)),
+                             _frames_or_error(lambda: jax_packed.iter_frames_from_bam(path, 128, None, want_qname)))
+        _assert_frames_equal(_frames_or_error(lambda: port_ring.ring_frames(path, 128, None, want_qname)),
+                             _frames_or_error(lambda: jax_ring.ring_frames(path, 128, None, want_qname)))
+    default = _frames_or_error(lambda: port_packed.iter_frames_from_bam(path, 128))
+    _assert_frames_equal(default, _frames_or_error(lambda: jax_packed.iter_frames_from_bam(path, 128)))
+    assert (default[0].qname_names == [""]) == (source == "bam")
+    _assert_frames_equal(_frames_or_error(lambda: port_packed.frame_from_bam(path)),
+                         _frames_or_error(lambda: jax_packed.frame_from_bam(path)))
+
+
+@pytest.mark.parametrize("depth,slots", [(1, 6), (3, 9)])
+def test_ring_frames_depth_and_slots_equal_jax(tagged, monkeypatch, depth, slots):
+    from sctools_tpu.ingest import ring as jax_ring
+    from sctools_tpu_torch.ingest import ring as port_ring
+
+    arenas, depths = [], []
+    arena, prefetch = port_ring.ColumnArena, port_ring.prefetch_iterator
+    monkeypatch.setattr(port_ring, "ColumnArena", lambda capacity: arenas.append(capacity) or arena(capacity))
+    monkeypatch.setattr(port_ring, "prefetch_iterator", lambda it, d: depths.append(d) or prefetch(it, d))
+    port = _frames_or_error(lambda: port_ring.ring_frames(tagged["bam"], 64, depth=depth, slots=slots))
+    assert len(arenas) == slots and depths == [depth] and len(port) == 10
+    _assert_frames_equal(port, _frames_or_error(
+        lambda: jax_ring.ring_frames(tagged["bam"], 64, depth=depth, slots=slots)))
+    depths.clear()
+    _frames_or_error(lambda: port_ring.ring_frames(source=iter(port), depth=depth))
+    assert depths == [depth]
+
+
+def test_native_batch_stream_takes_threads_second_as_jax(tagged):
+    from sctools_tpu import native as jax_native
+    from sctools_tpu_torch.ingest.arena import arena_nbytes
+
+    capacity = 256
+    with port_native.NativeBatchStream(tagged["bam"], 2) as port, jax_native.NativeBatchStream(tagged["bam"], 2) as jax:
+        batches = 0
+        while True:
+            n = port.next(capacity)
+            assert n == jax.next(capacity)
+            if n == 0:
+                break
+            batches += 1
+            for name in ("cell", "umi", "gene", "qname"):
+                assert port.vocab(name) == jax.vocab(name), name
+            assert port.vocab("qname") == [""]  # 2 is the thread count, not want_qname
+            mine, theirs = (np.zeros(arena_nbytes(capacity), np.uint8) for _ in range(2))
+            assert port.fill_arena(mine, capacity) == jax.fill_arena(theirs, capacity) == n
+            assert np.array_equal(mine, theirs)
+    assert batches == 3
+
+
+def test_native_decoders_take_threads_as_jax(tagged, tmp_path):
+    from sctools_tpu import native as jax_native
+
+    for threads in (1, 3):
+        _assert_frames_equal(list(port_native.stream_frames(tagged["bam"], 100, threads)),
+                             list(jax_native.stream_frames_native(tagged["bam"], 100, threads)))
+        _assert_frames_equal([port_native.frame_from_bam(tagged["bam"], threads)],
+                             [jax_native.frame_from_bam_native(tagged["bam"], threads)])
+    rng = np.random.default_rng(22)
+    shards = [_write_fastq(tmp_path / f"s{s}.fastq.gz", [f"s{s}r{i}" for i in range(300)],
+                           ["".join(row) for row in np.array(list("ACGTN"))[rng.integers(0, 5, size=(300, 26))]],
+                           _quals(rng, 300, 26), True) for s in range(3)]
+    for threads in (1, 2):
+        assert port_native.fastq_metrics(shards, [(0, 16)], [(16, 26)], 26, str(tmp_path / f"p{threads}"),
+                                         threads) == 900
+        assert jax_native.fastq_metrics_native(shards, [(0, 16)], [(16, 26)], 26, str(tmp_path / f"j{threads}"),
+                                               threads) == 900
+        for suffix in _FQM_FILES:
+            port = (tmp_path / f"p{threads}{suffix}").read_bytes()
+            assert port == (tmp_path / f"j{threads}{suffix}").read_bytes() == (tmp_path / f"p1{suffix}").read_bytes()
+
+
+_TAGS = ("CB", "UB", "GE")
+
+
+def test_tagsort_stream_tee_level_equals_jax(tagged, tmp_path):
+    """JAX's positional order: batch, sort batch, tee, level. The tee at
+    level 6 holds the records of level 1 and JAX's level 6, and its
+    scratch partials go beside it and are gone at the end."""
+    from sctools_tpu import native as jax_native
+
+    runs = {}
+    for name, stream, level in (("port6", port_native.tagsort_stream_frames, 6),
+                                ("port1", port_native.tagsort_stream_frames, 1),
+                                ("jax6", jax_native.tagsort_stream_frames, 6)):
+        tee = str(tmp_path / f"{name}.bam")
+        frames = _copied(stream(tagged["unsorted"], _TAGS, 128, 1000, tee, level))
+        runs[name] = frames, Path(tee).read_bytes()
+    _assert_frames_equal(runs["port6"][0], runs["jax6"][0])
+    _assert_frames_equal(runs["port6"][0], runs["port1"][0])
+    records = gzip.decompress(runs["port6"][1])
+    assert records == gzip.decompress(runs["port1"][1]) == gzip.decompress(runs["jax6"][1])
+    # the level reached the tee (JAX's deflate is another library, so its
+    # compressed bytes differ from the port's at any level)
+    assert len(runs["port6"][1]) < len(runs["port1"][1])
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["jax6.bam", "port1.bam", "port6.bam"]
+
+
+def test_tagsort_stream_qnames_equal_the_sorted_bam_s(tagged, tmp_path):
+    from sctools_tpu import native as jax_native
+    from sctools_tpu_torch.io import packed as port_packed
+
+    tee = str(tmp_path / "sorted.bam")
+    port = _copied(port_native.tagsort_stream_frames(
+        tagged["unsorted"], _TAGS, 128, 1000, tee, 1, str(tmp_path / "scratch"), 2, True))
+    jax = list(jax_native.tagsort_stream_frames(
+        tagged["unsorted"], _TAGS, 128, 1000, None, 1, str(tmp_path / "jax_scratch"), 2, True))
+    _assert_frames_equal(port, jax)
+    reread = list(port_packed.iter_frames_from_bam(tee, 128, want_qname=True))
+    names = [[f.qname_names[i] for i in f.qname] for f in port]
+    assert names == [[f.qname_names[i] for i in f.qname] for f in reread]
+    assert sum(map(len, names)) == 600 and len(set(sum(names, []))) == 600
+
+
+def test_local_mesh_takes_the_axis_name_first():
+    import jax
+    from sctools_tpu.parallel.mesh import mesh_fingerprint as jax_fingerprint
+    from sctools_tpu_torch.parallel import mesh_fingerprint
+
+    assert jax_launch.local_mesh("rows").axis_names == ("rows",)
+    for axis in ("shard", "rows"):
+        mesh = port_launch.local_mesh(axis, device="cpu")
+        assert mesh.axis_names == (axis,)
+        assert mesh_fingerprint(mesh) == jax_fingerprint(jax.sharding.Mesh(np.asarray(jax.local_devices()[:1]),
+                                                                            (axis,)))
+    assert port_launch.local_mesh(device="cpu").axis_names == jax_launch.local_mesh().axis_names
+
+
+def test_record_dispatch_takes_bucket_and_pull_record_third_as_jax():
+    import jax.numpy as jnp
+    import torch
+    from sctools_tpu import obs as jax_obs
+    from sctools_tpu.ingest import wire as jax_wire
+    from sctools_tpu.obs import xprof as jax_xprof
+    from sctools_tpu_torch import obs as port_obs
+    from sctools_tpu_torch.ingest import wire as port_wire
+    from sctools_tpu_torch.obs import xprof as port_xprof
+
+    registries = []
+    for obs, xprof in ((port_obs, port_xprof), (jax_obs, jax_xprof)):
+        obs.enable()
+        obs.reset()
+        xprof.reset()
+        try:
+            xprof.record_dispatch("calls.site", 3, 8, 8)
+            xprof.record_dispatch("calls.site", 5, 8, bucket=8)
+            xprof.record_dispatch("calls.site", 16, 16)
+            value = torch.arange(8, dtype=torch.int32) if xprof is port_xprof else jnp.arange(8, dtype=jnp.int32)
+            (port_wire if xprof is port_xprof else jax_wire).pull(value, "calls.silent", False)
+            (port_wire if xprof is port_xprof else jax_wire).pull(value, "calls.pull", wasted=12)
+            registries.append((xprof.snapshot()["sites"]["calls.site"], xprof.ledger_totals(),
+                               {k: v for k, v in obs.counters().items() if k.startswith("xprof_")}))
+        finally:
+            obs.disable()
+            obs.reset()
+            xprof.reset()
+    port, jax = registries
+    assert port == jax
+    assert port[0]["dispatches"] == 3 and port[0]["real_rows"] == 24 and port[0]["padded_rows"] == 32
+    assert "calls.silent" not in str(port[1]) and "calls.pull" in str(port[1])

@@ -172,7 +172,7 @@ def test_route_counts_calls(inputs, tmp_path):
     take the Python decoder, with the same frames as JAX's route."""
     path = inputs["tagged"][0]
     native.reset_calls()
-    frames = list(packed.iter_frames_from_bam(path, 250))
+    frames = list(packed.iter_frames_from_bam(path, 250, want_qname=True))
     assert native.calls == {**dict.fromkeys(native.calls, 0), "stream_frames": 1}
     for a, b in zip(frames, jax_packed.iter_frames_from_bam(path, 250, want_qname=True)):
         assert_frames_equal(a, b)
@@ -347,8 +347,8 @@ def test_fused_stream_closed_early_leaves_nothing(tmp_path):
     scratch = tmp_path / "scratch"
     scratch.mkdir()
     frames = native.tagsort_stream_frames(
-        big, GENE, str(scratch / "partial"), {}, batch_records=1000,
-        sort_batch_records=total // 3 + 1, bam_output=str(tmp_path / "sorted.bam"))
+        big, GENE, batch_records=1000, sort_batch_records=total // 3 + 1,
+        bam_output=str(tmp_path / "sorted.bam"), scratch_prefix=str(scratch / "partial"), stats={})
     assert next(frames).n_records == 1000
     frames.close()
     assert not list(scratch.iterdir())
@@ -358,7 +358,7 @@ def test_fused_stream_closed_early_leaves_nothing(tmp_path):
 def test_fused_stream_reports_its_phases(tmp_path, sort_input):
     stats = {}
     frames = list(native.tagsort_stream_frames(
-        sort_input, GENE, str(tmp_path / "partial"), stats, sort_batch_records=1000))
+        sort_input, GENE, sort_batch_records=1000, scratch_prefix=str(tmp_path / "partial"), stats=stats))
     assert sum(f.n_records for f in frames) == 2500
     assert sorted(stats) == ["merge", "partial_files", "partials", "read", "sort"]
     assert stats["partial_files"] == 3

@@ -141,8 +141,8 @@ def test_tagsort_stream_frames_with_tee(synth_bam, tmp_path, monkeypatch):
 
         def stream():
             return frame_bytes(native.tagsort_stream_frames(
-                synth_bam, TAGS, str(tmp_path / f"scratch_{threads}"), stats,
-                batch_records=1500, sort_batch_records=SORT_RUN, bam_output=tee))
+                synth_bam, TAGS, batch_records=1500, sort_batch_records=SORT_RUN, bam_output=tee,
+                scratch_prefix=str(tmp_path / f"scratch_{threads}"), stats=stats))
 
         frames = at_threads(monkeypatch, threads, stream)
         assert stats["partial_files"] == RECORDS // SORT_RUN + 1

@@ -15,7 +15,7 @@ Against the JAX package, on the same inputs: ``make_cell_metric_tasks``
 gives JAX's task ids; ``parse_spec`` gives JAX's clauses; ``backoff_delay``
 gives JAX's values under the same seeded ``random.Random``; a journal
 written by either package replays to the same task states under the other;
-``local_mesh("cpu")`` announces the mesh JAX's CPU worker announces; the
+``local_mesh(device="cpu")`` announces the mesh JAX's CPU worker announces; the
 merged CSV of the port's run with crash and resume equals JAX's scheduled
 run's on the same chunks (every column bit for bit but the six
 ``*_variance`` columns, rtol 1e-6 with no absolute slack, as
@@ -749,7 +749,7 @@ def test_local_mesh_announces_jax_cpu_workers_mesh():
     """A CPU worker's mesh is one shard, as JAX's ``local_mesh()`` is under
     ``JAX_PLATFORMS=cpu`` in a worker process (one host device)."""
     jax_mesh = jax.sharding.Mesh(np.asarray(jax.local_devices()[:1]), ("shard",))
-    assert mesh_fingerprint(port_launch.local_mesh("cpu")) == jax_mesh_fingerprint(jax_mesh)
+    assert mesh_fingerprint(port_launch.local_mesh(device="cpu")) == jax_mesh_fingerprint(jax_mesh)
 
 
 # ------------------------------------------------------- merge validation
@@ -1050,7 +1050,7 @@ def test_scheduled_run_equals_jax_scheduled_run(crash_run, tmp_path):
     collective = tmp_path / "collective.csv.gz"
     collective_merge_parts(
         str(workdir / "metrics.part*.csv.gz"), str(collective),
-        mesh=port_launch.local_mesh("cpu"), journal_dir=crash_run["journal_dir"], expected_parts=n_chunks,
+        mesh=port_launch.local_mesh(device="cpu"), journal_dir=crash_run["journal_dir"], expected_parts=n_chunks,
     )
     assert _gz_bytes(collective) == _gz_bytes(port_merged)
 
