@@ -1600,8 +1600,8 @@ def phase_metrics(rng, stamp: str, modules) -> None:
         gatherer = made[0]
         device_ms = gatherer.device_ms()
         split = gatherer.seconds
-        # the ring's decode runs on its own thread, beside the rest
-        other = wall - sum(v for k, v in split.items() if k != "decode")
+        # the ring's decode and its parts run on its own thread, beside the rest
+        other = wall - sum(split[k] for k in port_gatherer.MAIN_SECONDS)
         n = len(axes[axis]["cell"])
         log(f"[metrics] {stamp} | {entry[axis]} on cuda: {n} records in {wall:.2f} s = "
             f"{n / wall:.0f} records/s; ring: {gatherer.ring_batches} batches decoded into the native "
@@ -2082,7 +2082,8 @@ def timed_command(kernels, module, class_name, call):
 
 
 def split_line(seconds: float, split: dict) -> str:
-    other = seconds - sum(split.values())
+    # the main thread's keys: the others are their parts or the helper threads'
+    other = seconds - sum(split.get(k, 0.0) for k in ("open", "read", "correct", "write"))
     return (f"read {split['read']:.2f} s, correct (submit + wait) {split['correct']:.2f} s, "
             f"write/compress {split['write']:.2f} s, other {other:.2f} s")
 
@@ -2435,7 +2436,7 @@ def phase_sort(rng, stamp: str, modules, shards) -> None:
     # the ring's producer decodes the pipe on its thread (its seconds hold
     # its waits on the sort), the sort's phases run on the sort's thread,
     # and this thread waits on the ring (decode_wait)
-    other = wall - sum(v for k, v in gather_split.items() if k != "decode")
+    other = wall - sum(v for k, v in gather_split.items() if k != "decode" and not k.startswith("decode."))
     log(f"[sort] {stamp} | TagSortBam --cell-metrics-output -o on cuda: {n} records in {wall:.2f} s = "
         f"{n / wall:.0f} records/s; native sort ({native.default_threads()} threads, chunks of "
         f"{SORT_CHUNK}) on its thread: read {sort_split['read']:.2f} s, chunk sort {sort_split['sort']:.2f} s, "

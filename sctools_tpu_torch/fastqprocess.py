@@ -38,14 +38,23 @@ from .ops.whitelist import WhitelistCorrector, correction_summary
 __all__ = ["FastqProcess", "fastq_process", "shard_paths"]
 
 BATCH_SIZE = 1 << 16
+# the keys of FastqProcess.seconds: the main thread's stretches, which do
+# not overlap, then their parts and the helper threads' sums
+MAIN_SECONDS = ("open", "read", "correct", "write")
+SECONDS = MAIN_SECONDS + ("correct.wait",) + native.FQP_TIMERS
 
 
 class FastqProcess:
     """One FastqProcess run; ``run()`` writes the shards and returns the
-    counters. ``seconds`` splits the wall time of ``run`` into reading and
-    slicing the FASTQ (``read``), correction (``correct``: submit and the
-    wait for the result) and building, compressing and writing the shards
-    (``write``)."""
+    counters. ``seconds`` splits the wall time of ``run`` into opening the
+    loop (``open``), reading and slicing the FASTQ (``read``), correction
+    (``correct``: submit and the wait for the result) and building,
+    compressing and writing the shards (``write``), and holds parts of
+    those and the helper threads' seconds (``native.fastqprocess``):
+    ``read.wait`` (part of ``read``), ``correct.wait`` (of ``correct``),
+    ``write.wait`` and ``write.file`` (of ``write``), and ``inflate`` and
+    ``deflate``, summed over the readahead and pool threads. They add up
+    over the runs."""
 
     def __init__(
         self,
@@ -73,7 +82,7 @@ class FastqProcess:
             self._corrector, n_shards, output_format, sample_id, batch_size,
         )
         self.stats = {"total_reads": 0, "correct": 0, "corrected": 0, "uncorrectable": 0}
-        self.seconds = {"read": 0.0, "correct": 0.0, "write": 0.0}
+        self.seconds = dict.fromkeys(SECONDS, 0.0)
 
     def run(self) -> dict:
         """Write the shards; returns the counters {total_reads, correct,

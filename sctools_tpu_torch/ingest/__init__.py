@@ -31,10 +31,11 @@ from .. import guard
 from ..guard.errors import NativeDecodeError
 from ..obs import xprof
 from ..utils.prefetch import prefetch_depth
-from .ring import ring_frames, ring_slots
+from .ring import DECODE_PARTS, ring_frames, ring_slots
 from .wire import Pulled, WritebackRing, pull, wire_overlap_enabled
 
 __all__ = [
+    "DECODE_PARTS",
     "NativeDecodeError",
     "Pulled",
     "WritebackRing",

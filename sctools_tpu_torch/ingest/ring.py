@@ -42,8 +42,14 @@ that are the source's own.
 Observability, at JAX's sites: each decoded batch is a ``decode`` span on
 the producer's thread (the terminating poll one with ``eof=1``), its wall
 interval a ``pulse.note_decode`` that the consuming batch's heartbeat
-adopts, and each arena batch counts ``ingest_arena_batches``; the Python
-decoder and a ``source`` go through ``obs.iter_spans`` and
+adopts, and each arena batch counts ``ingest_arena_batches``. The span is
+the decode's one timer (``obs.timed``, range ``scx.ring.decode``): its
+seconds go to the ``stats`` dict's ``decode``, the terminating poll's to
+no key. On the arena path, of those seconds the arena's fill and frame go
+to ``decode.fill`` (range ``scx.ring.decode.fill``) and the native
+stream's own clocks to ``decode.read``, ``decode.inflate`` and
+``decode.parse`` (``NativeBatchStream.timers``, read once a batch). The
+Python decoder and a ``source`` note their intervals through
 ``pulse.iter_decode`` instead. Every frame handed off adds its records to
 the audit ledger's ``records.ingested`` (``audited=False`` keeps an inner
 ring that feeds another one off it), and the arena ring's live slot state
@@ -54,7 +60,6 @@ which slot was filling and how far each slot rotated.
 from __future__ import annotations
 
 import itertools
-import time
 from typing import Dict, Iterable, Iterator, Optional
 
 from .. import obs
@@ -108,6 +113,11 @@ def ring_slots(depth: Optional[int] = None) -> int:
     return depth + 1 + _CONSUMER_SLOTS
 
 
+# the parts of the arena path's decode in ``stats``: the native stream's
+# clocks (NativeBatchStream.timers), then the arena's fill and frame
+DECODE_PARTS = ("decode.read", "decode.inflate", "decode.parse", "decode.fill")
+
+
 def _new_stats(stats: Optional[Dict[str, float]]) -> Dict[str, float]:
     stats = {} if stats is None else stats
     stats.setdefault("decode", 0.0)
@@ -118,18 +128,24 @@ def _new_stats(stats: Optional[Dict[str, float]]) -> Dict[str, float]:
 def _timed_source(
     source: Iterable[ReadFrame], stats: Dict[str, float], audited: bool = True
 ) -> Iterator[ReadFrame]:
-    """``source``'s frames, each ``next()`` timed on the thread that runs
-    it (a ``decode`` span and a pulse decode note when those are on) and,
-    when ``audited``, added to ``records.ingested``; closing this generator
-    closes the source."""
-    iterator = iter(pulse.iter_decode(obs.iter_spans("decode", source, records=lambda f: f.n_records)))
+    """``source``'s frames, each ``next()`` timed once on the thread that
+    runs it (``obs.timed`` into ``stats["decode"]``, range
+    ``scx.ring.decode``, a ``decode`` span when obs is on; the terminating
+    poll is the span's ``eof=1`` and in no key) with a pulse decode note
+    when pulse is on and, when ``audited``, added to ``records.ingested``;
+    closing this generator closes the source."""
+    iterator = iter(pulse.iter_decode(source))
     try:
         while True:
-            start = time.perf_counter()
-            frame = next(iterator, None)
+            with obs.timed(stats, "decode", "ring", span="decode") as sp:
+                frame = next(iterator, None)
+                if frame is None:
+                    sp.add(eof=1)
+                    sp.leave_out()
+                else:
+                    sp.add(records=frame.n_records)
             if frame is None:
                 return
-            stats["decode"] += time.perf_counter() - start
             stats["batches"] += 1
             if audited:
                 audit.add("records.ingested", frame.n_records)
@@ -158,6 +174,7 @@ def _produce_arena_frames(
         arena.slot = index
     _set_ring_state(ring_id, slots=n_slots, batches=0, phase="starting")
     consumed = 0
+    native_clocks: Dict[str, float] = {}  # the stream's clocks at the last batch
 
     def _slot_state():
         # how far each slot rotated, and whether a FRAME_DEBUG run died
@@ -174,9 +191,8 @@ def _produce_arena_frames(
                 ring_id, slot=k % n_slots, batches=k, phase="filling",
                 record_offset=consumed, **_slot_state(),
             )
-            start = time.perf_counter()
             decode_start = pulse.clock() if pulse.enabled() else 0.0
-            with obs.span("decode", slot=k % n_slots) as sp:
+            with obs.timed(stats, "decode", "ring", span="decode", slot=k % n_slots) as sp:
                 # the fault site inside the timed decode window, as in JAX: a
                 # delay here is the decode leg's, and a postmortem taken in it
                 # finds the ring filling
@@ -184,23 +200,30 @@ def _produce_arena_frames(
                 try:
                     n = stream.next(batch_records)
                     if n == 0:
-                        sp.add(eof=1)  # the terminating poll, not a batch
+                        # the terminating poll, not a batch: in no key of stats
+                        sp.add(eof=1)
+                        sp.leave_out()
                         _set_ring_state(ring_id, phase="eof")
                         return
-                    arena.fill(stream)
-                    frame = arena.frame(
-                        n,
-                        cell_names=stream.vocab("cell"),
-                        umi_names=stream.vocab("umi"),
-                        gene_names=stream.vocab("gene"),
-                        qname_names=stream.vocab("qname") if want_qname else None,
-                        batch_index=k,
-                    )
+                    clocks = stream.timers()
+                    for name, value in clocks.items():
+                        key = "decode." + name
+                        stats[key] = stats.get(key, 0.0) + value - native_clocks.get(name, 0.0)
+                    native_clocks = clocks
+                    with obs.timed(stats, "decode.fill", "ring"):
+                        arena.fill(stream)
+                        frame = arena.frame(
+                            n,
+                            cell_names=stream.vocab("cell"),
+                            umi_names=stream.vocab("umi"),
+                            gene_names=stream.vocab("gene"),
+                            qname_names=stream.vocab("qname") if want_qname else None,
+                            batch_index=k,
+                        )
                 except RuntimeError as error:
                     _set_ring_state(ring_id, phase="failed")
                     raise NativeDecodeError(str(error), batch_index=k, record_offset=consumed) from error
                 sp.add(records=n)
-            stats["decode"] += time.perf_counter() - start
             stats["batches"] += 1
             # the records the ring hands off: the consumer's records.decoded
             # must match exactly (a dropped or duplicated frame is audit skew)
@@ -245,7 +268,8 @@ def ring_frames(
     stays valid).
 
     ``stats`` (a dict) receives the producer's seconds of decoding
-    (``decode``, timed on its thread) and the frames it made (``batches``).
+    (``decode``, timed on its thread; on the arena path with its parts,
+    ``DECODE_PARTS``) and the frames it made (``batches``).
     Nothing is opened until the first ``next()``; a failed build of the
     native layer raises.
 

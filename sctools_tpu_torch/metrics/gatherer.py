@@ -51,7 +51,12 @@ pulse heartbeat on stage ``gatherer.cell`` / ``gatherer.gene``, which
 travels with the pending batch and is emitted at the end of its finalize.
 Its legs: h2d the packing and upload, compute the dispatch, d2h the wait
 on the copy; its writeback phase is the ring's at the drain's start, as
-JAX samples it.
+JAX samples it. The host's layers are timed once each into ``seconds``
+(``obs.timed``; while a torch profiler records, the ranges
+``scx.gatherer.<key>``): ``start``, ``decode_wait``, ``carry``,
+``pack``, ``dispatch``, ``wait``, ``csv`` and ``close`` on this thread,
+which do not overlap, and ``decode`` with its parts from the ring's
+thread.
 
 The audit ledger's taps (``obs.audit``) are JAX's: ``records.decoded`` per
 frame, ``records.computed`` in the guard once a (sub-)batch's dispatch has
@@ -65,7 +70,6 @@ and host loop alike). Each gatherer also keeps plain records
 from __future__ import annotations
 
 import sys
-import time
 from collections import deque
 from typing import Dict, List, Optional, Set
 
@@ -106,6 +110,10 @@ DEFAULT_BATCH_RECORDS = 1 << 20
 PROGRESS_EVERY = 10_000_000  # the reference's cadence (fastq_common.cpp:340)
 
 _I32_MAX = np.iinfo(np.int32).max
+
+# the keys of MetricGatherer.seconds timed on the gatherer's thread, which
+# do not overlap
+MAIN_SECONDS = ("start", "decode_wait", "carry", "pack", "dispatch", "wait", "csv", "close")
 
 
 def _pad_columns(
@@ -376,11 +384,16 @@ class MetricGatherer:
         self.batches: List[dict] = []
         # host wall seconds of the run by activity: decode (the ring's
         # producer thread, decoding and filling arenas: it overlaps the
-        # rest), and on this thread decode_wait (on the ring's queue), pack
-        # (schema decisions and padded columns), dispatch (upload and
-        # enqueue of the device pass and its pull), wait (on pulls), csv
-        self.seconds = {"decode": 0.0, "decode_wait": 0.0, "pack": 0.0, "dispatch": 0.0,
-                        "wait": 0.0, "csv": 0.0}
+        # rest) and its parts (ingest.DECODE_PARTS: the native stream's
+        # file reads, inflate and parse, the arena's fill; the arena path
+        # only), and on this thread (MAIN_SECONDS) start (the header probe,
+        # the ring's and the writer's set-up), decode_wait (on the ring's
+        # queue), carry (the carried tail entity: its concat with the next
+        # frame, the cut at the last entity boundary, its compacted copy),
+        # pack (schema decisions and padded columns), dispatch
+        # (upload and enqueue of the device pass and its pull), wait (on
+        # pulls), csv, and close (the writer's close, the ring's join)
+        self.seconds = dict.fromkeys(("decode",) + ingest.DECODE_PARTS + MAIN_SECONDS, 0.0)
         # the frames the ring handed over
         self.ring_batches = 0
         # what the frame source reports of its own work, off this thread:
@@ -411,34 +424,39 @@ class MetricGatherer:
                 raise ValueError("frame_source requires the device backend")
             self._extract_cpu(open_mode)
             return
-        self.start_stream(open_mode)
-        ring_stats: Dict[str, float] = {}
-        if self._frame_source is not None:
-            frames = ingest.ring_frames(source=self._frame_source(), stats=ring_stats)
-        else:
-            frames = ingest.ring_frames(self._bam_file, self._batch_records, open_mode, stats=ring_stats)
-        out = self._make_writer()
-        # the writeback ring: each dispatched batch's compacted block starts
-        # its copy at dispatch and drains in FIFO order in finalize; its
-        # slot states are the writeback_slots flight section
-        self._writeback = ingest.WritebackRing(name=type(self).__name__, slots=self._PIPELINE_DEPTH + 2)
+        with obs.timed(self.seconds, "start", "gatherer"):
+            self.start_stream(open_mode)
+            ring_stats: Dict[str, float] = {}
+            if self._frame_source is not None:
+                frames = ingest.ring_frames(source=self._frame_source(), stats=ring_stats)
+            else:
+                frames = ingest.ring_frames(self._bam_file, self._batch_records, open_mode, stats=ring_stats)
+            out = self._make_writer()
+            # the writeback ring: each dispatched batch's compacted block
+            # starts its copy at dispatch and drains in FIFO order in
+            # finalize; its slot states are the writeback_slots flight section
+            self._writeback = ingest.WritebackRing(name=type(self).__name__, slots=self._PIPELINE_DEPTH + 2)
         try:
-            out.write_header({c: None for c in self.columns})
+            with obs.timed(self.seconds, "start", "gatherer"):
+                out.write_header({c: None for c in self.columns})
             self._stream_device_batches(self._timed(frames), out)
         except BaseException:
             # never publish a partial, valid-looking CSV
             out.discard()
             raise
         else:
-            out.close()
+            with obs.timed(self.seconds, "close", "gatherer"):
+                out.close()
             self.rows_emitted = out.rows_written
         finally:
             # closing the ring joins its thread, which closes the source: a
             # source left open on a failure holds its files (the native
             # stream, or the fused sort's worker, partials and tee)
-            frames.close()
-            self._writeback.close()
-            self.seconds["decode"] = ring_stats["decode"]
+            with obs.timed(self.seconds, "close", "gatherer"):
+                frames.close()
+                self._writeback.close()
+            for key in ("decode",) + ingest.DECODE_PARTS:
+                self.seconds[key] = ring_stats.get(key, 0.0)
             self.ring_batches = ring_stats["batches"]
 
     def _make_writer(self) -> MetricCSVWriter:
@@ -461,9 +479,8 @@ class MetricGatherer:
     def _timed(self, frames):
         frames = iter(frames)
         while True:
-            start = time.perf_counter()
-            frame = next(frames, None)
-            self.seconds["decode_wait"] += time.perf_counter() - start
+            with obs.timed(self.seconds, "decode_wait", "gatherer"):
+                frame = next(frames, None)
             if frame is None:
                 return
             yield frame
@@ -511,26 +528,27 @@ class MetricGatherer:
             if processed >= next_progress:
                 print(f"[{type(self).__name__}] {processed} records decoded", file=sys.stderr)
                 next_progress += PROGRESS_EVERY
-            if carry is not None:
-                frame = concat_frames(carry, frame)
-                carry = None
-            key = self._entity_key(frame)
-            changes = np.nonzero(key[1:] != key[:-1])[0]
-            if changes.size == 0:
-                carry = copy_frame(frame)  # one entity so far; keep accumulating
-                continue
-            # cut at the last entity boundary that fits the capacity, so
-            # every batch of a multi-batch run pads to one shape; only an
-            # entity larger than the capacity overflows it. A file smaller
-            # than one batch stays at its own bucket size.
-            capacity = bucket_size(self._batch_records)
-            multi_batch = multi_batch or frame.n_records >= self._batch_records
-            eligible = changes[changes < capacity]
-            # when even the first entity overflows capacity, cut right after it
-            cut = int(eligible[-1] if eligible.size else changes[0]) + 1
-            # ascending entity order is the presorted contract; grouped but
-            # unordered input takes the device-sorted path for the batch
-            ascending = bool(np.all(key[1:cut] >= key[: cut - 1]))
+            with obs.timed(self.seconds, "carry", "gatherer"):
+                if carry is not None:
+                    frame = concat_frames(carry, frame)
+                    carry = None
+                key = self._entity_key(frame)
+                changes = np.nonzero(key[1:] != key[:-1])[0]
+                if changes.size == 0:
+                    carry = copy_frame(frame)  # one entity so far; keep accumulating
+                    continue
+                # cut at the last entity boundary that fits the capacity, so
+                # every batch of a multi-batch run pads to one shape; only an
+                # entity larger than the capacity overflows it. A file
+                # smaller than one batch stays at its own bucket size.
+                capacity = bucket_size(self._batch_records)
+                multi_batch = multi_batch or frame.n_records >= self._batch_records
+                eligible = changes[changes < capacity]
+                # when even the first entity overflows capacity, cut right after it
+                cut = int(eligible[-1] if eligible.size else changes[0]) + 1
+                # ascending entity order is the presorted contract; grouped
+                # but unordered input takes the device-sorted path for the batch
+                ascending = bool(np.all(key[1:cut] >= key[: cut - 1]))
             pending.extend(
                 self._guarded_dispatch(
                     slice_frame(frame, 0, cut),
@@ -545,7 +563,8 @@ class MetricGatherer:
                 self._finalize_device_batch(*pending.popleft(), out)
             # compact, or the carried vocabularies would accumulate the union
             # of every batch seen so far; copy, so the carry owns its memory
-            carry = copy_frame(compact_frame(slice_frame(frame, cut, frame.n_records)))
+            with obs.timed(self.seconds, "carry", "gatherer"):
+                carry = copy_frame(compact_frame(slice_frame(frame, cut, frame.n_records)))
         if carry is not None and carry.n_records:
             tail_key = self._entity_key(carry)
             # the tail pads to its own bucket, not the full batch capacity
@@ -649,68 +668,70 @@ class MetricGatherer:
         hb = pulse.heartbeat(f"gatherer.{self.entity_kind}")
         hb.decode_from_ring()
         hb.begin("h2d")
+        # dispatch is timed in two stretches, the upload's end of the upload
+        # span and all after it, so that each nests in the spans around it
         with obs.span("upload", records=frame.n_records) as up:
-            start_time = time.perf_counter()
-            cols, kwargs, batch = self.pack_batch(frame, pad_to, presorted)
-            self.seconds["pack"] += time.perf_counter() - start_time
+            with obs.timed(self.seconds, "pack", "gatherer"):
+                cols, kwargs, batch = self.pack_batch(frame, pad_to, presorted)
             up.add(prepacked=int(batch["prepacked"]))
-            start_time = time.perf_counter()
-            events = None
-            if self._device.type == "cuda":
-                # the events bracket the device's work on the batch, from its
-                # upload to its pull, and not the host's packing before it
-                events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                events[0].record()
-            staged = {
-                name: ingest.upload(array, self._device, site="gatherer.upload")
-                for name, array in cols.items()
-            }
-            self.bytes_h2d += batch["h2d_bytes"]
-            up.add(bytes=batch["h2d_bytes"])
-        hb.end("h2d")
-        hb.add(bytes_h2d=batch["h2d_bytes"])
-        obs.count("batches_uploaded")
-        obs.count("h2d_bytes", batch["h2d_bytes"])
-        if batch["run_keyed"]:
-            obs.count("run_keyed_batches")
-        self.run_keyed_batches += batch["run_keyed"]
-        num_segments = kwargs["num_segments"]
-        # occupancy: how much of the padded dispatch was real rows
-        xprof.record_dispatch("metrics.compute_entity_metrics", frame.n_records, num_segments)
-        hb.begin("compute")
-        with obs.span("compute", records=frame.n_records, real_rows=frame.n_records,
-                      padded_rows=num_segments):
-            # a graph replay returns its static outputs, which the next replay
-            # overwrites: the compaction below reads them first, in stream order
-            if self._graphs is not None:
-                result = self._graphs.run(staged, **kwargs)
-            else:
-                result = device_engine.compute_entity_metrics(staged, **kwargs)
-            # the entity count is host-knowable, so the compacting pull is
-            # queued here, right behind the batch's device pass
-            key = self._entity_key(frame)
-            if presorted:
-                n_entities = int(np.count_nonzero(key[1:] != key[:-1])) + 1
-            else:
-                n_entities = int(np.unique(key).size)
-            k = entity_bucket(n_entities, num_segments)
-            int_names, float_names = wire_result_names(self.columns)
-            # the pull's own occupancy: real entity rows of the bucketed slice
-            xprof.record_dispatch("metrics.compact_results_wire", n_entities, k)
-            block = device_engine.compact_results_wire(result, int_names, float_names, k)
-            # the block's copy starts now, while the next batch computes;
-            # finalize's collect waits for it (or, on a transient, copies
-            # it again)
-            staged = self._writeback.stage(block)
-            if events is not None:
-                events[1].record()
-            # the watermark while the batch's buffers are live (peak
-            # attribution: the open compute span)
-            xprof.sample_memory(devices=(self._device,))
-        hb.end("compute")
-        hb.add(real_rows=frame.n_records, padded_rows=num_segments, entities=n_entities)
-        self.batches.append(dict(batch, entities=n_entities, events=events))
-        self.seconds["dispatch"] += time.perf_counter() - start_time
+            with obs.timed(self.seconds, "dispatch", "gatherer"):
+                events = None
+                if self._device.type == "cuda":
+                    # the events bracket the device's work on the batch, from
+                    # its upload to its pull, and not the host's packing
+                    # before it
+                    events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                    events[0].record()
+                staged = {
+                    name: ingest.upload(array, self._device, site="gatherer.upload")
+                    for name, array in cols.items()
+                }
+                self.bytes_h2d += batch["h2d_bytes"]
+                up.add(bytes=batch["h2d_bytes"])
+        with obs.timed(self.seconds, "dispatch", "gatherer"):
+            hb.end("h2d")
+            hb.add(bytes_h2d=batch["h2d_bytes"])
+            obs.count("batches_uploaded")
+            obs.count("h2d_bytes", batch["h2d_bytes"])
+            if batch["run_keyed"]:
+                obs.count("run_keyed_batches")
+            self.run_keyed_batches += batch["run_keyed"]
+            num_segments = kwargs["num_segments"]
+            # occupancy: how much of the padded dispatch was real rows
+            xprof.record_dispatch("metrics.compute_entity_metrics", frame.n_records, num_segments)
+            hb.begin("compute")
+            with obs.span("compute", records=frame.n_records, real_rows=frame.n_records,
+                          padded_rows=num_segments):
+                # a graph replay returns its static outputs, which the next replay
+                # overwrites: the compaction below reads them first, in stream order
+                if self._graphs is not None:
+                    result = self._graphs.run(staged, **kwargs)
+                else:
+                    result = device_engine.compute_entity_metrics(staged, **kwargs)
+                # the entity count is host-knowable, so the compacting pull is
+                # queued here, right behind the batch's device pass
+                key = self._entity_key(frame)
+                if presorted:
+                    n_entities = int(np.count_nonzero(key[1:] != key[:-1])) + 1
+                else:
+                    n_entities = int(np.unique(key).size)
+                k = entity_bucket(n_entities, num_segments)
+                int_names, float_names = wire_result_names(self.columns)
+                # the pull's own occupancy: real entity rows of the bucketed slice
+                xprof.record_dispatch("metrics.compact_results_wire", n_entities, k)
+                block = device_engine.compact_results_wire(result, int_names, float_names, k)
+                # the block's copy starts now, while the next batch computes;
+                # finalize's collect waits for it (or, on a transient, copies
+                # it again)
+                staged = self._writeback.stage(block)
+                if events is not None:
+                    events[1].record()
+                # the watermark while the batch's buffers are live (peak
+                # attribution: the open compute span)
+                xprof.sample_memory(devices=(self._device,))
+            hb.end("compute")
+            hb.add(real_rows=frame.n_records, padded_rows=num_segments, entities=n_entities)
+            self.batches.append(dict(batch, entities=n_entities, events=events))
         # keep only what finalize reads, not the frame or the result dict
         return (self._entity_names(frame), staged, n_entities, int_names, float_names,
                 frame.n_records, hb)
@@ -720,23 +741,22 @@ class MetricGatherer:
         hb, out,
     ) -> None:
         with obs.span("writeback", records=n_records, entities=n_entities) as wb:
-            start = time.perf_counter()
-            # the asynchronous recovery boundary: a device fault of this
-            # batch surfaces here, at the wait on its copy, after its guarded
-            # dispatch returned. The guarded wait copies the block again on
-            # a transient; anything else re-raises to the scheduler, and
-            # counts a strike toward the dispatch site
-            # pad rows x row bytes of the compacted [columns, k] int32 block
-            wasted = staged.nbytes - n_entities * (len(int_names) + len(float_names)) * 4
-            # the phase at drain start ("copying" / "staged"), as JAX samples it
-            hb.add(wb_phase=self._writeback.phase_code())
-            hb.begin("d2h")
-            block, d2h_bytes = self._writeback.collect(
-                staged, site="gatherer.writeback", wasted=wasted, degrade_site=self._GUARD_SITE,
-                name=str(self._bam_file),
-            )
-            hb.end("d2h")
-            self.seconds["wait"] += time.perf_counter() - start
+            with obs.timed(self.seconds, "wait", "gatherer"):
+                # the asynchronous recovery boundary: a device fault of this
+                # batch surfaces here, at the wait on its copy, after its
+                # guarded dispatch returned. The guarded wait copies the
+                # block again on a transient; anything else re-raises to the
+                # scheduler, and counts a strike toward the dispatch site
+                # pad rows x row bytes of the compacted [columns, k] int32 block
+                wasted = staged.nbytes - n_entities * (len(int_names) + len(float_names)) * 4
+                # the phase at drain start ("copying" / "staged"), as JAX samples it
+                hb.add(wb_phase=self._writeback.phase_code())
+                hb.begin("d2h")
+                block, d2h_bytes = self._writeback.collect(
+                    staged, site="gatherer.writeback", wasted=wasted, degrade_site=self._GUARD_SITE,
+                    name=str(self._bam_file),
+                )
+                hb.end("d2h")
             self.bytes_d2h += d2h_bytes
             wb.add(bytes=d2h_bytes)
             hb.add(bytes_d2h=d2h_bytes)
@@ -745,11 +765,10 @@ class MetricGatherer:
             obs.count("d2h_bytes", d2h_bytes)
             obs.count("entities_written", n_entities)
             audit.add("rows.computed", n_entities)
-            start = time.perf_counter()
-            self._do_finalize_device_batch(
-                entity_names, block, n_entities, int_names, float_names, out
-            )
-            self.seconds["csv"] += time.perf_counter() - start
+            with obs.timed(self.seconds, "csv", "gatherer"):
+                self._do_finalize_device_batch(
+                    entity_names, block, n_entities, int_names, float_names, out
+                )
 
     def _do_finalize_device_batch(
         self, entity_names, block, n_entities: int, int_names, float_names, out

@@ -63,7 +63,6 @@ import shutil
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -91,6 +90,11 @@ calls: Dict[str, int] = {
 }
 
 COMPRESS_LEVEL = 6  # the FASTQ loops' BGZF level, the JAX package's
+# the keys of NativeBatchStream.timers(), in scx_stream_timers' order
+STREAM_TIMERS = ("read", "inflate", "parse")
+# the seconds of scx_fqp_timers, in its order, under the keys
+# ``fastqprocess`` adds them to
+FQP_TIMERS = ("read.wait", "inflate", "write.wait", "write.file", "deflate")
 PROGRESS_EVERY = 10_000_000  # the reference's cadence (fastq_common.cpp:340)
 
 _lock = make_lock("native.loader")
@@ -191,6 +195,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "scx_stream_open": (p, [c_char_p, c_int, c_int, c_char_p, c_int]),
         "scx_stream_next": (c_long, [p, c_long]),
         "scx_stream_error": (c_char_p, [p]),
+        "scx_stream_timers": (c_int, [p, ctypes.POINTER(ctypes.c_double), c_int]),
         "scx_stream_close": (None, [p]),
         "scx_arena_nbytes": (c_long, [c_long]),
         "scx_batch_fill_arena": (c_long, [p, p, c_long]),
@@ -231,6 +236,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "scx_fqp_len": (c_int, [p, c_char_p]),
         "scx_fqp_write": (c_long, [p, c_long, p, p]),
         "scx_fqp_stats": (None, [p, ctypes.POINTER(c_long)]),
+        "scx_fqp_timers": (c_int, [p, ctypes.POINTER(ctypes.c_double), c_int]),
         "scx_fqp_close": (c_int, [p]),
         "scx_fqp_error": (c_char_p, [p]),
         "scx_fqp_free": (None, [p]),
@@ -501,6 +507,16 @@ class NativeBatchStream:
         """The current batch's sorted vocabulary of a coded column."""
         return _vocab(self._lib, self._handle, name.encode())
 
+    def timers(self) -> Dict[str, float]:
+        """The stream's seconds so far on the thread that decodes, read by
+        its own clocks once a compressed chunk or a batch: ``read`` (the
+        compressed chunks' file reads), ``inflate`` (the block-parallel
+        inflate, thread spawn and join included) and ``parse`` (the rest of
+        each ``next()``: the record scan, the parallel parse and the
+        vocabulary merge). Call it from the thread that calls ``next()``."""
+        values = _timers(self._lib.scx_stream_timers, self._handle, len(STREAM_TIMERS))
+        return dict(zip(STREAM_TIMERS, values))
+
     def close(self) -> None:
         if self._handle is not None:
             self._lib.scx_stream_close(self._handle)
@@ -697,22 +713,34 @@ def _barcodes(pointer, n: int, width: int) -> np.ndarray:
     return np.ctypeslib.as_array(ctypes.cast(pointer, ctypes.POINTER(ctypes.c_uint8)), shape=(n, width))
 
 
-def _correct(corrector, raw: np.ndarray, seconds: Dict[str, float]) -> Tuple[np.ndarray, np.ndarray]:
+def _timers(function, handle, n: int) -> List[float]:
+    """A handle's clocks and counters, one native call."""
+    values = (ctypes.c_double * n)()
+    function(handle, values, n)
+    return list(values)
+
+
+def _correct(corrector, raw: np.ndarray, seconds: Dict[str, float],
+             where: str = "fastqprocess") -> Tuple[np.ndarray, np.ndarray]:
     """Whitelist correction of one fixed-width barcode block: the corrected
     barcodes as a fixed-width block and the uint8 mask of the rows that
-    corrected, for the C side's write.
+    corrected, for the C side's write. Adds its seconds to
+    ``seconds["correct"]``, and of those the wait on the kernel's result
+    to ``seconds["correct.wait"]`` (ranges ``scx.<where>.correct`` and
+    ``scx.<where>.correct.wait``).
 
     A barcode's length is the index of its first NUL byte (the C side pads
     a short read's barcode with NULs), so a short one never corrects.
     """
-    start = time.perf_counter()
-    nul = raw == 0
-    lengths = np.where(nul.any(axis=1), nul.argmax(axis=1), raw.shape[1])
-    indices = corrector.submit_block(raw, lengths).indices()
-    hit = indices >= 0
-    block = np.zeros_like(raw)
-    block[hit] = corrector.rows[indices[hit]]
-    seconds["correct"] += time.perf_counter() - start
+    with obs.timed(seconds, "correct", where):
+        nul = raw == 0
+        lengths = np.where(nul.any(axis=1), nul.argmax(axis=1), raw.shape[1])
+        pending = corrector.submit_block(raw, lengths)
+        with obs.timed(seconds, "correct.wait", where):
+            indices = pending.indices()
+        hit = indices >= 0
+        block = np.zeros_like(raw)
+        block[hit] = corrector.rows[indices[hit]]
     return block, hit.astype(np.uint8)
 
 
@@ -760,9 +788,19 @@ def fastqprocess(
     ``corrector`` is a ``WhitelistCorrector`` or None. Returns the counters
     {total_reads, correct, corrected, uncorrectable}; prints the progress
     line every 10M reads and, with a whitelist, the reference's summary to
-    stderr. Adds the seconds of reading (``read``), correction (``correct``)
-    and writing (``write``) into ``seconds``. On any failure the shards of
-    this run are removed.
+    stderr. On any failure the shards of this run are removed.
+
+    Adds into ``seconds``, each stretch timed once (``obs.timed``, ranges
+    ``scx.fastqprocess.<key>``): ``open`` (the handle's open: pool, shard
+    files, first inputs), ``read`` (reading and slicing the FASTQ),
+    ``correct`` (``_correct``) and ``write`` (building, compressing and
+    writing the shards, their close included); and from the handle's own
+    clocks, read once a batch (``FQP_TIMERS``): ``read.wait`` and
+    ``write.wait`` (this thread waiting on the readahead and on the pool's
+    head block: parts of ``read`` and ``write``), ``write.file`` (this
+    thread's ``fwrite`` of the blocks: part of ``write``), and ``inflate``
+    and ``deflate`` (the readahead threads and the pool's workers, summed
+    over threads).
     """
     fmt = {"BAM": 0, "FASTQ": 1}.get(output_format.upper())
     if fmt is None:
@@ -773,22 +811,31 @@ def fastqprocess(
     lib = library()
     calls["fastqprocess"] += 1
     errbuf = _errbuf()
-    handle = lib.scx_fqp_open(
-        "\n".join(r1_files).encode(), "\n".join(i1_files or []).encode(),
-        "\n".join(r2_files).encode(), output_prefix.encode(), n_shards, fmt, sample_id.encode(),
-        cb.ctypes.data, n_cb, umi.ctypes.data, n_umi, sample.ctypes.data, n_sample,
-        COMPRESS_LEVEL, errbuf, ctypes.sizeof(errbuf))
+    with obs.timed(seconds, "open", "fastqprocess"):
+        handle = lib.scx_fqp_open(
+            "\n".join(r1_files).encode(), "\n".join(i1_files or []).encode(),
+            "\n".join(r2_files).encode(), output_prefix.encode(), n_shards, fmt, sample_id.encode(),
+            cb.ctypes.data, n_cb, umi.ctypes.data, n_umi, sample.ctypes.data, n_sample,
+            COMPRESS_LEVEL, errbuf, ctypes.sizeof(errbuf))
     if not handle:
         raise RuntimeError(f"fastqprocess open failed: {_message(errbuf)}")
+    clocks = [0.0] * len(FQP_TIMERS)
+
+    def add_clocks():
+        # the handle's clocks since the last read, into seconds
+        now = _timers(lib.scx_fqp_timers, handle, len(clocks))
+        for key, value, last in zip(FQP_TIMERS, now, clocks):
+            seconds[key] = seconds.get(key, 0.0) + (value - last)
+        clocks[:] = now
+
     complete = False
     try:
         cb_len = lib.scx_fqp_len(handle, b"cb")
         _check_length(corrector, cb_len)
         total = 0
         while True:
-            start = time.perf_counter()
-            n = lib.scx_fqp_next(handle, batch_size)
-            seconds["read"] += time.perf_counter() - start
+            with obs.timed(seconds, "read", "fastqprocess"):
+                n = lib.scx_fqp_next(handle, batch_size)
             if n < 0:
                 raise RuntimeError(f"fastqprocess read failed: {lib.scx_fqp_error(handle).decode()}")
             if n == 0:
@@ -797,17 +844,19 @@ def fastqprocess(
             if corrector is not None and cb_len > 0:
                 block, mask = _correct(corrector, _barcodes(lib.scx_fqp_buf(handle, b"cr"), n, cb_len),
                                        seconds)
-            start = time.perf_counter()
-            if lib.scx_fqp_write(handle, n, _pointer(block), _pointer(mask)) < 0:
+            with obs.timed(seconds, "write", "fastqprocess"):
+                written = lib.scx_fqp_write(handle, n, _pointer(block), _pointer(mask))
+            if written < 0:
                 raise RuntimeError(f"fastqprocess write failed: {lib.scx_fqp_error(handle).decode()}")
-            seconds["write"] += time.perf_counter() - start
+            add_clocks()
             for count in range(total // PROGRESS_EVERY + 1, (total + n) // PROGRESS_EVERY + 1):
                 print(f"[fastqprocess] {count * PROGRESS_EVERY} reads processed", file=sys.stderr)
             total += n
-        start = time.perf_counter()
-        if lib.scx_fqp_close(handle) != 0:
+        with obs.timed(seconds, "write", "fastqprocess"):
+            closed = lib.scx_fqp_close(handle)
+        add_clocks()
+        if closed != 0:
             raise RuntimeError("fastqprocess close failed")
-        seconds["write"] += time.perf_counter() - start
         values = (ctypes.c_long * 4)()
         lib.scx_fqp_stats(handle, values)
         complete = True
@@ -867,7 +916,7 @@ def attach(
             block = mask = None
             if corrector is not None and cb_len > 0:
                 raw = _barcodes(lib.scx_attach_buf(handle, b"cr"), n, cb_len)
-                block, mask = _correct(corrector, raw, seconds)
+                block, mask = _correct(corrector, raw, seconds, "attach")
             done = lib.scx_attach_write(handle, n, _pointer(block), _pointer(mask))
             if done < 0:
                 raise RuntimeError(f"attach write failed: {lib.scx_attach_error(handle).decode()}")
@@ -910,8 +959,10 @@ def sample_fastq(
 
     R1 and R2 are each the concatenation of their files, zipped record by
     record: a count mismatch is a ``ValueError``. Adds the seconds of
-    reading (``read``), correction (``correct``) and writing (``write``)
-    into ``seconds``. On any failure both outputs are removed.
+    reading (``read``), correction (``correct``, its wait on the kernel
+    ``correct.wait``) and writing (``write``) into ``seconds``, each
+    stretch timed once (``obs.timed``, ranges ``scx.samplefastq.<key>``).
+    On any failure both outputs are removed.
     """
     cb, n_cb = _spans(cb_spans)
     umi, n_umi = _spans(umi_spans)
@@ -929,9 +980,8 @@ def sample_fastq(
         cb_len = lib.scx_sfq_len(handle, b"cr")
         _check_length(corrector, cb_len)
         while True:
-            start = time.perf_counter()
-            n = lib.scx_sfq_next(handle, batch_size)
-            seconds["read"] += time.perf_counter() - start
+            with obs.timed(seconds, "read", "samplefastq"):
+                n = lib.scx_sfq_next(handle, batch_size)
             if n == -2:  # the strict zip: R1 and R2 ended apart
                 raise ValueError(lib.scx_sfq_error(handle).decode())
             if n < 0:
@@ -939,17 +989,17 @@ def sample_fastq(
             if n == 0:
                 break
             total += n
-            _, keep = _correct(corrector, _barcodes(lib.scx_sfq_buf(handle, b"cr"), n, cb_len), seconds)
-            start = time.perf_counter()
-            done = lib.scx_sfq_write(handle, n, keep.ctypes.data)
+            _, keep = _correct(corrector, _barcodes(lib.scx_sfq_buf(handle, b"cr"), n, cb_len), seconds,
+                               "samplefastq")
+            with obs.timed(seconds, "write", "samplefastq"):
+                done = lib.scx_sfq_write(handle, n, keep.ctypes.data)
             if done < 0:
                 raise RuntimeError(f"samplefastq write failed: {lib.scx_sfq_error(handle).decode()}")
-            seconds["write"] += time.perf_counter() - start
             kept += done
-        start = time.perf_counter()
-        if lib.scx_sfq_close(handle) != 0:
+        with obs.timed(seconds, "write", "samplefastq"):
+            closed = lib.scx_sfq_close(handle)
+        if closed != 0:
             raise RuntimeError("samplefastq close failed")
-        seconds["write"] += time.perf_counter() - start
         complete = True
     finally:
         lib.scx_sfq_free(handle)

@@ -25,7 +25,10 @@
 //   * gene names and query names keep per-thread interning with a last-key
 //     memo, merged and remapped once per batch.
 //
-// Left out of the JAX copy: its per-stage timers.
+// Left out of the JAX copy: its per-stage timers. In their place a stream
+// keeps three clocks, read per compressed chunk and per batch, never per
+// record: the file reads, the block-parallel inflate and the rest of each
+// batch (scx_stream_timers).
 //
 // Exposed through a minimal C API consumed by ctypes
 // (sctools_tpu_torch/native/__init__.py); no Python.h dependency.
@@ -324,6 +327,12 @@ struct Stream {
 
   Batch batch;
 
+  // nanoseconds on the decoding thread: the compressed chunks' file reads,
+  // the block-parallel inflate (indexing, thread spawn and join included),
+  // and the rest of scx_stream_next (the record scan, the parallel parse and
+  // the vocabulary merge)
+  int64_t read_ns = 0, inflate_ns = 0, parse_ns = 0;
+
   // per-batch scratch, reused across batches to avoid reallocation
   std::vector<uint64_t> cell_packed, umi_packed;
   std::vector<uint64_t> uniq_scratch;
@@ -355,8 +364,9 @@ bool refill(Stream& s) {
         s.error = "out of memory";
         return false;
       }
-      size_t got;
-      got = std::fread(w, 1, kCompChunk, s.f);
+      int64_t start = scx::now_ns();
+      size_t got = std::fread(w, 1, kCompChunk, s.f);
+      s.read_ns += scx::now_ns() - start;
       s.comp.size -= kCompChunk - got;
       if (got < kCompChunk) s.file_eof = true;
     }
@@ -388,7 +398,8 @@ bool refill(Stream& s) {
       return s.bam.size != 0;
     }
 
-    // index complete BGZF blocks in comp
+    // index complete BGZF blocks in comp, then inflate them
+    int64_t inflate_start = scx::now_ns();
     std::vector<BlockInfo> blocks;
     size_t offset = 0;
     size_t total_out = 0;
@@ -429,6 +440,7 @@ bool refill(Stream& s) {
     if (offset == 0 && s.file_eof) {
       // leftover bytes that can never form a block
       if (s.comp.size) s.error = "truncated BGZF block at EOF";
+      s.inflate_ns += scx::now_ns() - inflate_start;
       return false;
     }
 
@@ -464,11 +476,14 @@ bool refill(Stream& s) {
         }
         for (auto& t : pool) t.join();
       }
+      s.inflate_ns += scx::now_ns() - inflate_start;
       if (!ok.load()) {
         s.error = "BGZF block failed to inflate";
         return false;
       }
       produced += total_out;
+    } else {
+      s.inflate_ns += scx::now_ns() - inflate_start;
     }
     s.comp.consume_prefix(offset);
     if (s.file_eof && produced == 0) return false;
@@ -760,7 +775,7 @@ bool parse_record(const uint8_t* rec, uint32_t block_size, size_t i,
 
 // decode up to max_records alignments into s.batch; returns count, 0 at EOF,
 // -1 on error
-long stream_next(Stream& s, long max_records) {
+long decode_batch(Stream& s, long max_records) {
   if (s.error.size()) return -1;
   s.batch.clear();
   if (!s.header_done) {
@@ -894,6 +909,16 @@ long stream_next(Stream& s, long max_records) {
 
   s.bam_pos += cursor;
   return static_cast<long>(n);
+}
+
+// decode_batch, its time outside the file reads and the inflate counted as
+// the parse
+long stream_next(Stream& s, long max_records) {
+  int64_t start = scx::now_ns();
+  int64_t io = s.read_ns + s.inflate_ns;
+  long n = decode_batch(s, max_records);
+  s.parse_ns += scx::now_ns() - start - (s.read_ns + s.inflate_ns - io);
+  return n;
 }
 
 // ------------------------------------------------------- packed column arena
@@ -1049,6 +1074,17 @@ void* scx_stream_open(const char* path, int n_threads, int want_qname,
 
 long scx_stream_next(void* h, long max_records) {
   return stream_next(*static_cast<Stream*>(h), max_records);
+}
+
+// the stream's seconds so far, up to n values: [read, inflate, parse].
+// Returns the number of values a stream has (3). Call it from the thread
+// that decodes.
+int scx_stream_timers(void* h, double* out, int n) {
+  const Stream& s = *static_cast<Stream*>(h);
+  const double values[3] = {s.read_ns * 1e-9, s.inflate_ns * 1e-9,
+                            s.parse_ns * 1e-9};
+  for (int i = 0; i < n && i < 3; ++i) out[i] = values[i];
+  return 3;
 }
 
 const char* scx_stream_error(void* h) {

@@ -14,9 +14,10 @@
 // CR buffer, Python runs the whitelist kernel (ops/whitelist.py) and hands
 // the corrected barcodes back to scx_fqp_write.
 //
-// Two changes from the JAX copy: the shards compress their BGZF blocks on
-// one pool of threads (native_io.h BgzfPool), and the 10M-read progress
-// line is printed by the Python caller, which counts the same reads.
+// Three changes from the JAX copy: the shards compress their BGZF blocks on
+// one pool of threads (native_io.h BgzfPool), the 10M-read progress line is
+// printed by the Python caller, which counts the same reads, and the handle
+// keeps where its IO time goes (scx_fqp_timers).
 
 #include <cstdint>
 #include <cstdio>
@@ -68,6 +69,9 @@ inline uint8_t seq_nibble(char c) {
 
 
 struct Handle {
+  // first, so that the streams and the pool, whose threads add to it, go
+  // before it
+  scx::IoTimers timers;
   std::vector<std::string> i1s, r1s, r2s;
   size_t triplet = 0;
   std::unique_ptr<ByteStream> i1, r1, r2;
@@ -95,6 +99,8 @@ struct Handle {
 bool open_triplet(Handle& h) {
   h.r1 = std::make_unique<ByteStream>();
   h.r2 = std::make_unique<ByteStream>();
+  h.r1->reader().set_timers(&h.timers);
+  h.r2->reader().set_timers(&h.timers);
   if (!h.r1->open(h.r1s[h.triplet].c_str())) {
     h.error = "cannot open " + h.r1s[h.triplet];
     return false;
@@ -105,6 +111,7 @@ bool open_triplet(Handle& h) {
   }
   if (h.has_i1) {
     h.i1 = std::make_unique<ByteStream>();
+    h.i1->reader().set_timers(&h.timers);
     if (!h.i1->open(h.i1s[h.triplet].c_str())) {
       h.error = "cannot open " + h.i1s[h.triplet];
       return false;
@@ -228,8 +235,8 @@ void* scx_fqp_open(const char* r1_paths, const char* i1_paths,
   handle->sample_len = span_len(handle->sample_spans);
 
   handle->fastq_mode = output_format == 1;
-  handle->pool =
-      std::make_unique<BgzfPool>(compress_level, scx::default_threads());
+  handle->pool = std::make_unique<BgzfPool>(
+      compress_level, scx::default_threads(), &handle->timers);
   std::string prefix(out_prefix);
   for (int i = 0; i < n_shards; ++i) {
     if (handle->fastq_mode) {
@@ -453,6 +460,19 @@ void scx_fqp_stats(void* h, long* out4) {
   out4[1] = handle->n_correct;
   out4[2] = handle->n_corrected;
   out4[3] = handle->n_uncorrectable;
+}
+
+// where the handle's IO time went so far, up to n values: seconds of
+// [read.wait, inflate, write.wait, write.file, deflate]. Returns the number
+// of values the handle has (5).
+int scx_fqp_timers(void* h, double* out, int n) {
+  const scx::IoTimers& t = static_cast<Handle*>(h)->timers;
+  const double values[5] = {
+      t.read_wait.load() * 1e-9, t.inflate.load() * 1e-9,
+      t.write_wait.load() * 1e-9, t.write_file.load() * 1e-9,
+      t.deflate.load() * 1e-9};
+  for (int i = 0; i < n && i < 5; ++i) out[i] = values[i];
+  return 5;
 }
 
 int scx_fqp_close(void* h) {

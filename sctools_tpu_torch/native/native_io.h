@@ -12,7 +12,8 @@
 // from the JAX copy's; the decompressed records are the same. And since
 // zlib on one thread would bound the FASTQ loops, their writers compress
 // their blocks on a pool of threads (PooledBgzfWriter) and their inputs
-// inflate on a thread each (ReadaheadInflateReader).
+// inflate on a thread each (ReadaheadInflateReader). Both can add where
+// their time goes into an IoTimers (the FastqProcess loop's handle has one).
 //
 // BGZF framing matches the spec: <=64KB payloads, BC extra field, CRC32,
 // trailing EOF block.
@@ -23,6 +24,8 @@
 #include <zlib.h>
 
 #include <algorithm>
+#include <atomic>
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
@@ -38,6 +41,29 @@
 namespace scx {
 
 constexpr size_t kBgzfMaxPayload = 0xff00;  // htslib's conventional max
+
+// steady_clock in nanoseconds: read around a chunk's or a block's work,
+// never per record
+inline int64_t now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+// Where a FASTQ loop's IO time goes, in nanoseconds. The loop's thread, the
+// readahead threads and the pool's workers each add their own fields, so
+// every field is atomic.
+struct IoTimers {
+  std::atomic<int64_t> read_wait{0};   // the loop waiting on a readahead chunk
+  std::atomic<int64_t> inflate{0};     // readahead threads in InflateReader::read, summed
+  std::atomic<int64_t> write_wait{0};  // the loop waiting on the pool's head block
+  std::atomic<int64_t> write_file{0};  // the loop writing finished blocks to their files
+  std::atomic<int64_t> deflate{0};     // compressing payloads into blocks, summed over threads
+
+  static void add(std::atomic<int64_t>& field, int64_t value) {
+    field.fetch_add(value, std::memory_order_relaxed);
+  }
+};
 
 // One reusable raw-deflate decompressor: a BGZF block's payload is a raw
 // deflate stream, inflated whole into a buffer of its known size (ISIZE).
@@ -329,6 +355,8 @@ class BasicByteStream {
 
   bool failed() const { return reader_.failed(); }
 
+  Reader& reader() { return reader_; }
+
  private:
   bool refill() {
     uint8_t chunk[1 << 16];
@@ -360,6 +388,9 @@ class ReadaheadInflateReader {
   ReadaheadInflateReader(const ReadaheadInflateReader&) = delete;
   ReadaheadInflateReader& operator=(const ReadaheadInflateReader&) = delete;
 
+  // where the waits and the inflate go (before open; null: nowhere)
+  void set_timers(IoTimers* timers) { timers_ = timers; }
+
   bool open(const char* path) {
     if (!reader_.open(path)) return false;
     thread_ = std::thread([this] { run(); });
@@ -372,7 +403,9 @@ class ReadaheadInflateReader {
       if (pos_ == chunk_.size()) {
         if (eof_) break;
         std::unique_lock<std::mutex> lock(mu_);
+        int64_t waited = timers_ && queue_.empty() ? now_ns() : 0;
         cv_.wait(lock, [this] { return !queue_.empty(); });
+        if (waited) IoTimers::add(timers_->read_wait, now_ns() - waited);
         chunk_ = std::move(queue_.front());
         queue_.pop_front();
         lock.unlock();
@@ -413,7 +446,9 @@ class ReadaheadInflateReader {
   void run() {
     for (;;) {
       std::vector<uint8_t> chunk(kChunk);
+      int64_t start = timers_ ? now_ns() : 0;
       chunk.resize(reader_.read(chunk.data(), kChunk));
+      if (timers_) IoTimers::add(timers_->inflate, now_ns() - start);
       bool end = chunk.empty();
       std::unique_lock<std::mutex> lock(mu_);
       cv_.wait(lock, [this] { return stop_ || queue_.size() < kAhead; });
@@ -427,6 +462,7 @@ class ReadaheadInflateReader {
   }
 
   InflateReader reader_;
+  IoTimers* timers_ = nullptr;
   std::thread thread_;
   mutable std::mutex mu_;
   std::condition_variable cv_;
@@ -583,8 +619,9 @@ class PooledBgzfWriter;
 // bytes a BgzfWriter at the same level writes for the same stream.
 class BgzfPool {
  public:
-  BgzfPool(int level, unsigned threads)
-      : level_(level), threads_(std::max(1u, threads)) {
+  // timers: where the waits, the deflate and the writes go (null: nowhere)
+  BgzfPool(int level, unsigned threads, IoTimers* timers = nullptr)
+      : level_(level), threads_(std::max(1u, threads)), timers_(timers) {
     if (threads_ > 1)
       for (unsigned t = 0; t < threads_; ++t)
         workers_.emplace_back([this] { work(); });
@@ -621,13 +658,21 @@ class BgzfPool {
       Job* job = todo_.front();
       todo_.pop_front();
       lock.unlock();
-      bool ok = append_bgzf_block(deflater, job->payload.data(),
-                                  job->payload.size(), job->block);
+      bool ok = deflate(deflater, *job);
       lock.lock();
       job->ok = ok;
       job->done = true;
       done_cv_.notify_all();
     }
+  }
+
+  // compress a job's payload into its block, timed when timers are given
+  bool deflate(RawDeflater& deflater, Job& job) {
+    int64_t start = timers_ ? now_ns() : 0;
+    bool ok = append_bgzf_block(deflater, job.payload.data(),
+                                job.payload.size(), job.block);
+    if (timers_) IoTimers::add(timers_->deflate, now_ns() - start);
+    return ok;
   }
 
   // queue one payload of `writer`, then write what is done at the head
@@ -639,6 +684,7 @@ class BgzfPool {
 
   int level_;
   unsigned threads_;
+  IoTimers* timers_;
   std::unique_ptr<RawDeflater> inline_deflater_;
   std::vector<std::thread> workers_;
   std::mutex mu_;
@@ -707,10 +753,13 @@ class PooledBgzfWriter {
  private:
   friend class BgzfPool;
   void put_block(const BgzfPool::Job& job) {
+    IoTimers* timers = pool_.timers_;
+    int64_t start = timers ? now_ns() : 0;
     if (!job.ok ||
         std::fwrite(job.block.data(), 1, job.block.size(), file_) !=
             job.block.size())
       error_ = true;
+    if (timers) IoTimers::add(timers->write_file, now_ns() - start);
   }
 
   BgzfPool& pool_;
@@ -725,8 +774,7 @@ inline void BgzfPool::submit(PooledBgzfWriter* writer,
   job->writer = writer;
   job->payload = std::move(payload);
   if (inline_deflater_) {
-    job->ok = append_bgzf_block(*inline_deflater_, job->payload.data(),
-                                job->payload.size(), job->block);
+    job->ok = deflate(*inline_deflater_, *job);
     job->done = true;
     writer->put_block(*job);
     return;
@@ -758,7 +806,9 @@ inline void BgzfPool::pop_front(PooledBgzfWriter* drop) {
   {
     std::unique_lock<std::mutex> lock(mu_);
     Job* head = queued_.front().get();
+    int64_t waited = timers_ && !head->done ? now_ns() : 0;
     done_cv_.wait(lock, [head] { return head->done; });
+    if (waited) IoTimers::add(timers_->write_wait, now_ns() - waited);
     job = std::move(queued_.front());
     queued_.pop_front();
   }

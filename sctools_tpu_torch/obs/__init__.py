@@ -10,8 +10,22 @@ counters and gauges.
 
 Pure stdlib: no torch or numpy at module load, so the CLI reads captures
 on a host with no card. Off by default with near-zero overhead:
-``span()`` returns a cached no-op singleton after one module-global bool
-check, so instrumentation is safe on serving paths.
+``span()`` returns a cached no-op singleton after two cheap checks (the
+module-global bool and whether a torch profiler records), so
+instrumentation is safe on serving paths.
+
+The layer timers of the commands are ``timed()``: a stretch timed once,
+its seconds added to a caller's dict under a key (``FastqProcess.seconds``,
+``MetricGatherer.seconds``, the ring's stats), recorded as a span when it
+has a span name and recording is on. While a ``torch.profiler`` records,
+every span and timer also opens a ``record_function`` range, ``scx.<name>``
+for a span and ``scx.<where>.<key>`` for a timer
+(``scx.fastqprocess.write``, ``scx.gatherer.decode_wait``,
+``scx.ring.decode.fill``), so the program's layers sit on the device
+trace's own clock. The profiler is found in ``sys.modules``, never
+imported: its module-global flag says whether it records. A range opened
+on a thread the profiler does not follow (it follows the thread that
+started it, or every thread with ``profile_all_threads``) records nothing.
 
 Enabling:
 
@@ -71,6 +85,7 @@ from ..analysis.witness import make_lock, make_rlock
 
 __all__ = [
     "span",
+    "timed",
     "iter_spans",
     "count",
     "gauge",
@@ -99,6 +114,9 @@ __all__ = [
 RING_CAPACITY = 1 << 16
 
 _T0 = time.perf_counter()
+# the same instant on time.monotonic_ns() (one clock with perf_counter on
+# Linux), which the sink's header gives so its ts align with other traces
+_T0_NS = time.monotonic_ns()
 
 _enabled = False
 _lock = make_rlock("obs.ring")
@@ -126,22 +144,49 @@ def _stack() -> list:
     return stack
 
 
+def _profiling() -> bool:
+    """Whether a torch profiler records: torch's own module-global flag,
+    read from ``sys.modules`` without importing torch."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    return profiler is not None and getattr(profiler, "_is_profiler_enabled", False)
+
+
+def _open_range(name: str):
+    """An entered profiler range named ``name``: torch's
+    ``_RecordFunctionFast``, a ``record_function`` range opened without
+    leaving the GIL, so that it starts and ends where its timer does."""
+    handle = sys.modules["torch"]._C._profiler._RecordFunctionFast(name)
+    handle.__enter__()
+    return handle
+
+
 class Span:
-    """One recording span. Use via ``with obs.span("decode") as sp:``.
+    """One span or timer. Use via ``with obs.span("decode") as sp:`` or
+    ``with obs.timed(seconds, "write", "fastqprocess"):``.
 
     ``sp.add(records=n, bytes=b)`` attaches/accumulates numeric attrs
-    mid-span; ``sp.duration`` holds the elapsed seconds after exit.
+    mid-span; ``sp.duration`` holds the elapsed seconds after exit. A span
+    with a ``name`` is recorded (it is made with one only while
+    observability is on); a timer adds its seconds to ``seconds[key]``
+    unless ``sp.leave_out()`` was called inside it; either opens the range
+    ``range_name`` when it is given.
     """
 
-    __slots__ = ("name", "attrs", "duration", "_start", "_ts", "_depth")
+    __slots__ = ("name", "attrs", "duration", "_start", "_ts", "_depth", "_seconds", "_key",
+                 "_range_name", "_range")
 
-    def __init__(self, name: str, attrs: Dict[str, Any]):
+    def __init__(self, name: Optional[str], attrs: Dict[str, Any], seconds: Optional[Dict[str, float]] = None,
+                 key: str = "", range_name: Optional[str] = None):
         self.name = name
         self.attrs = attrs
         self.duration = 0.0
         self._start = 0.0
         self._ts = 0.0
         self._depth = 0
+        self._seconds = seconds
+        self._key = key
+        self._range_name = range_name
+        self._range = None
 
     def add(self, **attrs) -> "Span":
         for key, value in attrs.items():
@@ -151,16 +196,31 @@ class Span:
                 self.attrs[key] = value
         return self
 
+    def leave_out(self) -> None:
+        """Add this stretch's seconds to no key (the span and the range
+        stay): a ring's terminating poll, which is not a batch."""
+        self._seconds = None
+
     def __enter__(self) -> "Span":
-        stack = _stack()
-        self._depth = len(stack)
-        stack.append(self.name)
+        if self.name is not None:
+            stack = _stack()
+            self._depth = len(stack)
+            stack.append(self.name)
+        if self._range_name is not None:
+            self._range = _open_range(self._range_name)
         self._start = time.perf_counter()
         self._ts = self._start - _T0
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         self.duration = time.perf_counter() - self._start
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        if self._seconds is not None:
+            self._seconds[self._key] = self._seconds.get(self._key, 0.0) + self.duration
+        if self.name is None:
+            return
         stack = _stack()
         if stack and stack[-1] == self.name:
             stack.pop()
@@ -178,8 +238,32 @@ class Span:
         _record_span(record)
 
 
+class _Timer:
+    """``timed()`` while nothing records: two clock reads and one dict add."""
+
+    __slots__ = ("_seconds", "_key", "_start", "duration")
+
+    def __init__(self, seconds: Dict[str, float], key: str):
+        self._seconds = seconds
+        self._key = key
+
+    def add(self, **attrs) -> "_Timer":
+        return self
+
+    def leave_out(self) -> None:
+        self._seconds = {}  # the stretch's seconds go to a dict no one reads
+
+    def __enter__(self) -> "_Timer":
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.duration = time.perf_counter() - self._start
+        self._seconds[self._key] = self._seconds.get(self._key, 0.0) + self.duration
+
+
 class _NoopSpan:
-    """Cached do-nothing span handed out while observability is off."""
+    """Cached do-nothing span handed out while nothing records."""
 
     __slots__ = ()
     name = ""
@@ -200,14 +284,32 @@ _NOOP = _NoopSpan()
 
 
 def span(name: str, **attrs):
-    """A context-managed span named ``name`` with optional numeric attrs.
+    """A context-managed span named ``name`` with optional numeric attrs,
+    recorded while observability is on; while a torch profiler records it
+    also opens the range ``scx.<name>``.
 
-    When observability is disabled this returns a cached no-op singleton:
-    one global bool check, no allocation.
+    When neither records this returns a cached no-op singleton: two cheap
+    checks, no allocation.
     """
-    if not _enabled:
+    profiling = _profiling()
+    if not _enabled and not profiling:
         return _NOOP
-    return Span(name, attrs)
+    return Span(name if _enabled else None, attrs, range_name="scx." + name if profiling else None)
+
+
+def timed(seconds: Dict[str, float], key: str, where: str, span: Optional[str] = None, **attrs):
+    """Time a stretch once: its seconds go to ``seconds[key]`` (added; a
+    missing key starts at 0). While a torch profiler records it opens the
+    range ``scx.<where>.<key>``; with ``span``, it is also recorded as the
+    span of that name (and its ``attrs``) while observability is on.
+
+    When neither records the cost is two clock reads, one dict add and
+    two cheap checks; no range is entered.
+    """
+    profiling = _profiling()
+    if not _enabled and not profiling:
+        return _Timer(seconds, key)
+    return Span(span if _enabled else None, attrs, seconds, key, f"scx.{where}.{key}" if profiling else None)
 
 
 def iter_spans(
@@ -415,11 +517,14 @@ def enable(sink_path: Optional[str] = None) -> None:
             # clock-sync anchor: maps this process's monotonic span
             # timestamps onto the shared wall clock, so a run-level merge
             # can place N workers' spans on one timeline even
-            # when a worker journals no scheduler events to correlate with
+            # when a worker journals no scheduler events to correlate with;
+            # t0_monotonic_ns puts the spans' ts (seconds after it) on
+            # time.monotonic_ns(), to align with a trace taken beside them
             meta = {
                 "meta": "clock",
                 "wall": round(time.time(), 6),  # scx-lint: disable=SCX109 -- cross-process anchor, not a duration
                 "mono": round(time.perf_counter() - _T0, 6),
+                "t0_monotonic_ns": _T0_NS,
             }
             _sink_file.write(json.dumps(meta, separators=(",", ":")) + "\n")
             _sink_file.flush()

@@ -34,8 +34,8 @@ BATCH_SIZE = 1 << 16
 class SampleFastq:
     """One SampleFastq run; ``run()`` returns (kept, total). ``seconds``
     splits its wall time into reading and slicing (``read``), correction
-    (``correct``: submit and the wait) and writing the kept reads
-    (``write``)."""
+    (``correct``: submit and the wait, the wait on the kernel's result
+    also in ``correct.wait``) and writing the kept reads (``write``)."""
 
     def __init__(
         self,
@@ -55,7 +55,7 @@ class SampleFastq:
         self._corrector = WhitelistCorrector.from_file(whitelist_file, device=device)
         self._prefix = output_prefix
         self._batch_size = batch_size
-        self.seconds = {"read": 0.0, "correct": 0.0, "write": 0.0}
+        self.seconds = {"read": 0.0, "correct": 0.0, "correct.wait": 0.0, "write": 0.0}
 
     def run(self) -> Tuple[int, int]:
         """Write ``<prefix>.R1`` / ``<prefix>.R2``; returns (kept, total) reads."""

@@ -1067,10 +1067,10 @@ def test_scx113_scx114_port_tree_and_smoke_are_clean():
 @pytest.mark.parametrize("name,old,new,rule", [
     # the gatherer's engine dispatch, its failure swallowed
     ("metrics/gatherer.py",
-     "                result = device_engine.compute_entity_metrics(staged, **kwargs)\n",
-     "                try:\n"
-     "                    result = device_engine.compute_entity_metrics(staged, **kwargs)\n"
-     "                except Exception:\n                    result = None\n", "SCX113"),
+     "                    result = device_engine.compute_entity_metrics(staged, **kwargs)\n",
+     "                    try:\n"
+     "                        result = device_engine.compute_entity_metrics(staged, **kwargs)\n"
+     "                    except Exception:\n                        result = None\n", "SCX113"),
     # the count's dispatch, pulled bare
     ("count.py", "out = count_molecules(dict(zip(UPLOAD_COLUMNS, staged)), num_segments=block.shape[1])",
      "out = count_molecules(dict(zip(UPLOAD_COLUMNS, staged)), num_segments=block.shape[1])"

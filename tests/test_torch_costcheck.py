@@ -314,8 +314,8 @@ def seeded_copy(tmp_path, name: str, old: str, new: str) -> str:
      '        staged = ingest.upload(block, device, site="count.upload")\n'
      '        ingest.pull(stacked_cols["qname"], site="count.writeback")\n', "SCX701"),
     # an .item() between the gatherer's stage() and its collect()
-    ("metrics/gatherer.py", "            staged = self._writeback.stage(block)\n",
-     "            staged = self._writeback.stage(block)\n            n_check = block[0, 0].item()\n",
+    ("metrics/gatherer.py", "                staged = self._writeback.stage(block)\n",
+     "                staged = self._writeback.stage(block)\n                n_check = block[0, 0].item()\n",
      "SCX703"),
 ])
 def test_faults_seeded_in_the_ports_code(tmp_path, name, old, new, rule):

@@ -531,7 +531,9 @@ def test_metrics_through_the_ring_match_jax(sorted_bams, tmp_path, witnessed, ri
     assert ring_calls == ["path"] and native.calls["batch_stream"] == 1
     assert gatherer.ring_batches == 19 > ingest.ring_slots(witnessed)
     assert framedebug.stamped_count() == 19
-    assert set(gatherer.seconds) == {"decode", "decode_wait", "pack", "dispatch", "wait", "csv"}
+    assert set(gatherer.seconds) == {"decode", "decode.read", "decode.inflate", "decode.parse", "decode.fill",
+                                     "start", "decode_wait", "carry", "pack", "dispatch", "wait", "csv",
+                                     "close"}
     jax_cls(bam, str(tmp_path / "jax.csv.gz"), MITO_GENES, batch_records=BATCH,
             backend="device").extract_metrics()
     assert_csv_match(tmp_path / "port.csv.gz", tmp_path / "jax.csv.gz")
